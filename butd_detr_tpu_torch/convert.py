@@ -1,0 +1,180 @@
+"""JAX parameter trees -> the port's state dict.
+
+`state_dict_from_jax(params, batch_stats)` takes the JAX package's flax
+trees (as numpy arrays) and returns the port's state dict, under the
+reference torch names. It inverts the JAX package's
+`train/torch_convert.py` and RoBERTa's HF converter:
+  * Dense kernel (in, out)          -> Linear weight (out, in), or the
+                                       reference Conv1d/Conv2d 1x1 shape
+  * BN {scale, bias} + {mean, var}  -> BatchNorm weight/bias/running stats
+  * q/k/v_proj + out_proj           -> MultiheadAttention in_proj_* +
+                                       out_proj (RoBERTa keeps HF's
+                                       query/key/value/output.dense)
+  * Embed embedding / raw table     -> Embedding weight
+Any flax path without a mapping raises KeyError naming it.
+"""
+
+import re
+from collections import OrderedDict
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+_POS = {"Dense_0": "0", "BatchNorm_0": "1", "Dense_1": "3"}
+_CONTRASTIVE = {"Dense_0": "0", "Dense_1": "2", "Dense_2": "4"}
+_TLM = {"dense_0": "net.0", "bn_0": "net.1", "dense_1": "net.4",
+        "bn_1": "net.5", "dense_out": "net.8"}
+_FFN = {"Dense_0": "0", "Dense_1": "3"}
+_ROBERTA_LAYER = {
+    ("attention", "q_proj"): ("attention.self.query", "linear"),
+    ("attention", "k_proj"): ("attention.self.key", "linear"),
+    ("attention", "v_proj"): ("attention.self.value", "linear"),
+    ("attention", "out_proj"): ("attention.output.dense", "linear"),
+    ("attention_norm",): ("attention.output.LayerNorm", "ln"),
+    ("intermediate",): ("intermediate.dense", "linear"),
+    ("output",): ("output.dense", "linear"),
+    ("output_norm",): ("output.LayerNorm", "ln"),
+}
+_MHA_SLOT = {"q_proj": 0, "k_proj": 1, "v_proj": 2}
+
+
+def _flatten(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def _mha(base: str, proj: str):
+    if proj == "out_proj":
+        return f"{base}.out_proj", "linear"
+    return f"{base}|{_MHA_SLOT[proj]}", "mha"
+
+
+def _module(p: Tuple[str, ...]):
+    """flax module path -> (torch module key, kind)."""
+    if p == ("text_projector",):
+        return "text_projector.0", "linear"
+    if p == ("text_projector_ln",):
+        return "text_projector.1", "ln"
+    if p == ("class_embeddings",):
+        return "class_embeddings", "linear"
+    if p == ("decoder_query_proj",):
+        return "decoder_query_proj", "conv1"
+    if len(p) == 2 and p[0] in ("box_embeddings", "pos_embed"):
+        return (f"{p[0]}.position_embedding_head.{_POS[p[1]]}",
+                "bn" if p[1].startswith("BatchNorm") else "conv1")
+    if p[0] == "backbone_net" and len(p) == 4:
+        attr = "mlp_module" if p[1].startswith("sa") else "mlp"
+        m = re.fullmatch(r"(Dense|BatchNorm)_(\d+)", p[3])
+        layer = f"backbone_net.{p[1]}.{attr}.layer{m.group(2)}"
+        if m.group(1) == "Dense":
+            return f"{layer}.conv", "conv2"
+        return f"{layer}.bn.bn", "bn"
+    if p[0] == "points_obj_cls" and len(p) == 2:
+        if p[1].endswith("_bn"):
+            return f"points_obj_cls.bn{p[1][4]}", "bn"
+        return f"points_obj_cls.{p[1]}", "conv1"
+    if p[0].startswith("contrastive_align_projection") and len(p) == 2:
+        return f"{p[0]}.{_CONTRASTIVE[p[1]]}", "linear"
+    if (p[0] == "proposal_head" or p[0].startswith("prediction_head_")) \
+            and len(p) == 3:
+        head = ("proposal_head" if p[0] == "proposal_head"
+                else f"prediction_heads.{p[0].rsplit('_', 1)[1]}")
+        return (f"{head}.{p[1]}.{_TLM[p[2]]}",
+                "bn" if p[2].startswith("bn") else "conv1")
+    if p[0] == "cross_encoder":
+        base = f"cross_encoder.layers.{p[1].rsplit('_', 1)[1]}"
+        rest = p[2:]
+        if rest[0] in ("self_attention_visual", "self_attention_lang"):
+            if rest[1] == "self_attn":
+                return _mha(f"{base}.{rest[0]}.self_attn", rest[2])
+            return f"{base}.{rest[0]}.norm1", "ln"
+        if rest[0] == "cross_layer":
+            sub = f"{base}.cross_layer"
+            if rest[1] in ("cross_lv", "cross_vl", "cross_d"):
+                return _mha(f"{sub}.{rest[1]}", rest[2])
+            if rest[1].startswith("norm"):
+                return f"{sub}.{rest[1]}", "ln"
+            if rest[1].startswith("ffn"):
+                return f"{sub}.{rest[1]}.{_FFN[rest[2]]}", "linear"
+    if re.fullmatch(r"decoder_\d+", p[0]):
+        base = f"decoder.{p[0].rsplit('_', 1)[1]}"
+        rest = p[1:]
+        if rest[0] == "self_posembed":
+            return (f"{base}.self_posembed.position_embedding_head."
+                    f"{_POS[rest[1]]}",
+                    "bn" if rest[1].startswith("BatchNorm") else "conv1")
+        if rest[0] in ("self_attn", "cross_l", "cross_d", "cross_v"):
+            return _mha(f"{base}.{rest[0]}", rest[1])
+        if rest[0].startswith("norm"):
+            return f"{base}.{rest[0]}", "ln"
+        if rest[0] == "ffn":
+            return f"{base}.ffn.{_FFN[rest[1]]}", "linear"
+    if p[0] == "text_encoder":
+        if p[1] == "embeddings":
+            if p[2] == "layer_norm":
+                return "text_encoder.embeddings.LayerNorm", "ln"
+            return f"text_encoder.embeddings.{p[2]}", "embed"
+        i = p[1].rsplit("_", 1)[1]
+        key, kind = _ROBERTA_LAYER[p[2:]]
+        return f"text_encoder.encoder.layer.{i}.{key}", kind
+    raise KeyError(f"no port mapping for flax path {'/'.join(p)}")
+
+
+_LEAF = {
+    "bn": {"scale": "weight", "bias": "bias", "mean": "running_mean",
+           "var": "running_var"},
+    "ln": {"scale": "weight", "bias": "bias"},
+    "embed": {"embedding": "weight"},
+}
+
+
+def state_dict_from_jax(params: Dict, batch_stats: Dict
+                        ) -> "OrderedDict[str, torch.Tensor]":
+    """The port's state dict for JAX `{params, batch_stats}` trees."""
+    flat = _flatten(params)
+    flat.update(_flatten(batch_stats))
+    out: Dict[str, np.ndarray] = {}
+    mha: Dict[str, Dict[str, list]] = {}
+    for path, arr in flat.items():
+        arr = np.asarray(arr, np.float32)
+        if path == ("butd_class_embeddings",):
+            out["butd_class_embeddings.weight"] = arr
+            continue
+        key, kind = _module(path[:-1])
+        leaf = path[-1]
+        try:
+            if kind in _LEAF:
+                out[f"{key}.{_LEAF[kind][leaf]}"] = arr
+                if kind == "bn" and leaf == "scale":
+                    out[f"{key}.num_batches_tracked"] = np.zeros((),
+                                                                 np.int64)
+                continue
+            name = {"kernel": "weight", "bias": "bias"}[leaf]
+        except KeyError:
+            raise KeyError(f"unexpected leaf {'/'.join(path)}") from None
+        if name == "weight":
+            arr = arr.T
+            if kind == "conv1":
+                arr = arr[:, :, None]
+            elif kind == "conv2":
+                arr = arr[:, :, None, None]
+        if kind == "mha":
+            base, slot = key.split("|")
+            mha.setdefault(base, {"weight": [None] * 3,
+                                  "bias": [None] * 3})[name][int(slot)] = arr
+        else:
+            out[f"{key}.{name}"] = arr
+    for base, parts in mha.items():
+        for name in ("weight", "bias"):
+            if any(a is None for a in parts[name]):
+                raise KeyError(f"{base}: incomplete q/k/v {name}")
+            out[f"{base}.in_proj_{name}"] = np.concatenate(parts[name], 0)
+    return OrderedDict(
+        (k, torch.from_numpy(np.array(v)))  # a writable copy
+        for k, v in sorted(out.items()))

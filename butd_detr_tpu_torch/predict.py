@@ -1,0 +1,308 @@
+"""Inference API: (scene, utterance[, phrase, detected boxes]) -> grounded
+3D boxes, on the GPU.
+
+Counterpart of `butd_detr_tpu/predict.py`. `GroundingPredictor` runs the
+eval-mode BeaUTyDETR forward (FPS, ball query and attention as CUDA
+kernels on `cuda`), scores the queries against the phrase's token span —
+`bbs` (softmaxed soft-token scores) or `bbf` (contrastive query-token
+similarity) — and returns the top-k boxes (cxcyczwhd) with their scores.
+It runs on `cuda` unless the caller passes `device="cpu"`.
+
+Carries its own copies of the JAX package's host helpers it needs:
+`token_positive_map` (data/positive_map.py), `MEAN_RGB`
+(data/augment.py) and the scorers `span_scores`, `contrast_scores` and
+`pred_boxes` (eval/grounding.py).
+"""
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from butd_detr_tpu_torch.config import Config
+from butd_detr_tpu_torch.init import init_weights_
+from butd_detr_tpu_torch.lang.roberta import RobertaConfig, \
+    roberta_base_config
+from butd_detr_tpu_torch.lang.tokenizer import SimpleTokenizer
+from butd_detr_tpu_torch.models.bdetr import BeaUTyDETR
+
+NUM_BINS = 256
+MEAN_RGB = np.array([109.8, 97.2, 83.8]) / 256
+
+
+def resolve_device(device=None) -> torch.device:
+    """`cuda` unless the caller asks for another device; raises when CUDA
+    is asked for (or defaulted to) and no GPU is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
+# ------------------------------------------------ positive maps (host side)
+
+def normalize_caption(utterance: str) -> str:
+    return " ".join(utterance.replace(",", " ,").split())
+
+
+def find_char_spans(utterance: str, cat_names: Sequence[str],
+                    max_num_obj: int = 132) -> np.ndarray:
+    """Character [start, end) spans of each name in the padded caption:
+    exact ' name ' match, then prefix match, then a substring extended to
+    word boundaries (reference joint_det_dataset.py:856-884)."""
+    caption = " " + normalize_caption(utterance) + " "
+    spans = np.zeros((max_num_obj, 2))
+    for c, cat_name in enumerate(cat_names):
+        start = caption.find(f" {cat_name} ")
+        if start >= 0:
+            length = len(cat_name)
+        else:
+            start = caption.find(" " + cat_name)
+            if start >= 0:
+                length = len(caption[start + 1:].split()[0])
+            else:
+                start = caption.find(cat_name)
+                if start < 0:
+                    raise ValueError(f"{cat_name!r} not in {caption!r}")
+                orig = start
+                while caption[start - 1] != " ":
+                    start -= 1
+                length = len(cat_name) + orig - start
+                while caption[length + start] != " ":
+                    length += 1
+        spans[c] = start, start + length
+    return spans
+
+
+def get_positive_map(tokenized, char_spans: np.ndarray,
+                     batch_idx: int = 0) -> np.ndarray:
+    """(n, 2) char spans -> (n, 256) row-normalized token map, with the
+    reference's +-1/2/3 char_to_token probing."""
+    positive_map = np.zeros((len(char_spans), NUM_BINS), np.float32)
+    c2t = lambda ci: tokenized.char_to_token(batch_idx, ci)  # noqa: E731
+    for j, (beg, end) in enumerate(char_spans):
+        beg, end = int(beg), int(end)
+        beg_pos = c2t(beg)
+        if beg_pos is None:
+            beg_pos = c2t(beg + 1)
+            if beg_pos is None:
+                beg_pos = c2t(beg + 2)
+        end_pos = c2t(end - 1)
+        if end_pos is None:
+            end_pos = c2t(end - 2)
+            if end_pos is None:
+                end_pos = c2t(end - 3)
+        if beg_pos is None or end_pos is None:
+            continue
+        positive_map[j, beg_pos:min(end_pos + 1, NUM_BINS)] = 1.0
+    return positive_map / (positive_map.sum(-1, keepdims=True) + 1e-12)
+
+
+def token_positive_map(tokenizer, utterance: str, cat_names: Sequence[str],
+                       max_num_obj: int = 132, max_len: int = 256):
+    """(max_num_obj, 2) char spans and (max_num_obj, 256) token map."""
+    caption = normalize_caption(utterance)
+    spans = find_char_spans(utterance, cat_names, max_num_obj)
+    tokenized = tokenizer([caption], max_len=max_len)
+    pmap = np.zeros((max_num_obj, NUM_BINS), np.float32)
+    pmap[:len(cat_names)] = get_positive_map(tokenized,
+                                             spans[:len(cat_names)])
+    return spans, pmap
+
+
+# ------------------------------------------------------------ scoring
+
+def _pad_scores(scores: torch.Tensor, width: int) -> torch.Tensor:
+    t = scores.shape[-1]
+    if t < width:
+        scores = F.pad(scores, (0, width - t))
+    return scores[..., :width]
+
+
+def span_scores(end_points, prefix: str, width: int) -> torch.Tensor:
+    """(B, Q, width) softmaxed soft-token scores (`bbs`)."""
+    s = torch.softmax(end_points[f"{prefix}sem_cls_scores"].float(), -1)
+    return _pad_scores(s, width)
+
+
+def contrast_scores(end_points, prefix: str, width: int,
+                    temperature: float = 0.07) -> torch.Tensor:
+    """(B, Q, width) contrastive query-token scores (`bbf`)."""
+    sim = torch.einsum("bqd,btd->bqt",
+                       end_points[f"{prefix}proj_queries"].float(),
+                       end_points["proj_tokens"].float())
+    return _pad_scores(torch.softmax(sim / temperature, -1), width)
+
+
+def pred_boxes(end_points, prefix: str) -> torch.Tensor:
+    """(B, Q, 6) cxcyczwhd."""
+    return torch.cat([end_points[f"{prefix}center"].float(),
+                      end_points[f"{prefix}pred_size"].float()], -1)
+
+
+# ------------------------------------------------------------ inputs
+
+def prepare_point_cloud(pc: np.ndarray, num_points: int, use_color: bool,
+                        use_height: bool = False,
+                        rng: Optional[np.random.RandomState] = None
+                        ) -> np.ndarray:
+    """(N, 3) or (N, 6 xyz+rgb in [0, 1]) -> (num_points, C) model input:
+    mean-RGB subtraction, optional height, fixed-size subsample (with
+    replacement when the scene is smaller)."""
+    rng = rng or np.random.RandomState(1184)
+    pc = np.asarray(pc, np.float32)
+    n = pc.shape[0]
+    choice = (rng.choice(n, num_points, replace=n < num_points)
+              if n != num_points else np.arange(n))
+    pc = pc[choice]
+    feats = [pc[:, :3]]
+    if use_color:
+        if pc.shape[1] < 6:
+            raise ValueError("use_color requires an (N, 6) xyz+rgb cloud")
+        feats.append(pc[:, 3:6] - MEAN_RGB)
+    if use_height:
+        floor = np.percentile(pc[:, 2], 0.99)
+        feats.append((pc[:, 2] - floor)[:, None])
+    return np.concatenate(feats, axis=1).astype(np.float32)
+
+
+def build_model(cfg: Config, roberta_config: RobertaConfig,
+                backbone_npoints=(2048, 1024, 512, 256)) -> BeaUTyDETR:
+    """The model of `cfg`, on the CPU, parameters not yet filled."""
+    return BeaUTyDETR(
+        roberta_config,
+        num_class=256,
+        num_obj_class=485,
+        input_feature_dim=cfg.input_feature_dim,
+        num_queries=cfg.num_target,
+        num_encoder_layers=cfg.num_encoder_layers,
+        num_decoder_layers=cfg.num_decoder_layers,
+        self_position_embedding=cfg.self_position_embedding,
+        contrastive_align_loss=cfg.use_contrastive_align,
+        d_model=288,
+        butd=cfg.use_butd,
+        self_attend=cfg.self_attend,
+        backbone_npoints=tuple(backbone_npoints),
+        backbone_dtype=torch.bfloat16 if cfg.backbone_bf16
+        else torch.float32,
+        attn_precise=cfg.attn_precise,
+    )
+
+
+class GroundingPredictor:
+    """Single-scene grounding inference.
+
+    cfg: the model and input flags (`config.butd_cls_config()` for the
+        SR3D butd_cls setup).
+    tokenizer: `__call__`/`char_to_token` surface; defaults to
+        SimpleTokenizer over the RoBERTa vocabulary size.
+    state_dict: reference-named weights (e.g. a reference `.pth`'s
+        `model` entry, or `convert.state_dict_from_jax`); None fills the
+        model with seeded random weights from `seed`.
+    device: `cuda` unless given.
+    """
+
+    def __init__(self, cfg: Config, tokenizer=None, state_dict=None, *,
+                 roberta_config: Optional[RobertaConfig] = None,
+                 backbone_npoints=(2048, 1024, 512, 256), device=None,
+                 seed: int = 0):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        roberta_config = roberta_config or roberta_base_config()
+        self.tokenizer = tokenizer or SimpleTokenizer(
+            vocab_size=roberta_config.vocab_size, max_len=cfg.max_text_len)
+        model = build_model(cfg, roberta_config, backbone_npoints)
+        if state_dict is None:
+            init_weights_(model, seed)
+        else:
+            load_state_dict(model, state_dict)
+        self.model = model.to(self.device).eval()
+
+    def _span_map(self, utterance: str, phrase: str) -> np.ndarray:
+        """(1, 256) binarized token map of `phrase` inside `utterance`."""
+        if phrase.lower() not in utterance.lower():
+            raise ValueError(
+                f"phrase {phrase!r} not found in utterance {utterance!r}")
+        _, pmap = token_positive_map(self.tokenizer, utterance, [phrase],
+                                     max_num_obj=1)
+        if pmap[0, :self.cfg.max_text_len].sum() == 0:
+            raise ValueError(
+                f"phrase {phrase!r}: its tokens fall past max_text_len "
+                f"({self.cfg.max_text_len}) in {utterance!r}")
+        return (pmap > 0).astype(np.float32)
+
+    def make_inputs(self, point_cloud: np.ndarray, utterance: str,
+                    det_boxes: Optional[np.ndarray] = None,
+                    det_class_ids: Optional[Sequence[int]] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """The model's batch-of-one inputs, on the predictor's device."""
+        cfg = self.cfg
+        pc = prepare_point_cloud(point_cloud, cfg.num_points, cfg.use_color,
+                                 cfg.use_height)
+        tok = self.tokenizer([utterance], max_len=cfg.max_text_len)
+        G = cfg.max_det_boxes
+        boxes = np.zeros((G, 6), np.float32)
+        mask = np.zeros((G,), bool)
+        cids = np.zeros((G,), np.int64)
+        if det_boxes is not None:
+            d = min(len(det_boxes), G)
+            boxes[:d] = np.asarray(det_boxes, np.float32)[:d]
+            mask[:d] = True
+            if det_class_ids is not None:
+                cids[:d] = np.asarray(det_class_ids)[:d]
+        arrays = {
+            "point_clouds": pc[None],
+            "text_ids": np.asarray(tok.ids, np.int64),
+            "text_mask": np.asarray(tok.attention_mask, np.int64),
+            "det_boxes": boxes[None],
+            "det_bbox_label_mask": mask[None],
+            "det_class_ids": cids[None],
+        }
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in arrays.items()}
+
+    @torch.inference_mode()
+    def predict(self, point_cloud: np.ndarray, utterance: str,
+                phrase: Optional[str] = None,
+                det_boxes: Optional[np.ndarray] = None,
+                det_class_ids: Optional[Sequence[int]] = None,
+                mode: str = "bbf", top_k: int = 10) -> Dict[str, np.ndarray]:
+        """Ground `phrase` (default: the whole utterance) in the scene.
+
+        point_cloud: (N, 3) xyz or (N, 6) xyz+rgb in [0, 1]; det_boxes:
+        optional (D, 6) cxcyczwhd detected-box stream with class ids.
+        Returns {"boxes": (top_k, 6), "scores": (top_k,),
+        "query_index": (top_k,)} as numpy arrays."""
+        if mode not in ("bbf", "bbs"):
+            raise ValueError(f"unknown mode {mode!r} (use 'bbf' or 'bbs')")
+        if mode == "bbf" and not self.cfg.use_contrastive_align:
+            raise ValueError("mode='bbf' needs use_contrastive_align=True;"
+                             " use mode='bbs'")
+        pmap = self._span_map(utterance, phrase or utterance.rstrip(". "))
+        ep = self.model(self.make_inputs(point_cloud, utterance, det_boxes,
+                                         det_class_ids))
+        scorer = contrast_scores if mode == "bbf" else span_scores
+        s = scorer(ep, "last_", NUM_BINS)  # (1, Q, 256)
+        q_scores = torch.einsum(
+            "bqt,kt->bkq", s, torch.from_numpy(pmap).to(s.device)
+        )[0, 0].cpu().numpy()
+        order = np.argsort(-q_scores)[:top_k]
+        boxes = pred_boxes(ep, "last_")[0].cpu().numpy()
+        return {"boxes": boxes[order], "scores": q_scores[order],
+                "query_index": order}
+
+
+def load_state_dict(model: torch.nn.Module, state_dict) -> list:
+    """Load reference-named weights (a DDP `module.` prefix is dropped).
+    Every model parameter and buffer must be found; returns the reference
+    keys the model does not use (e.g. RoBERTa's pooler)."""
+    sd = {(k[len("module."):] if k.startswith("module.") else k):
+          torch.as_tensor(v) for k, v in state_dict.items()}
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    if missing:
+        raise KeyError(f"state dict lacks {len(missing)} model keys, "
+                       f"e.g. {missing[:5]}")
+    return sorted(unexpected)
