@@ -12,6 +12,10 @@ reference torch names. It inverts the JAX package's
                                        query/key/value/output.dense)
   * Embed embedding / raw table     -> Embedding weight
 Any flax path without a mapping raises KeyError naming it.
+
+`named_arrays_from_jax(tree)` applies the same name and layout map to any
+tree shaped like the JAX parameters — a tree of gradients, say — so that a
+test can lay `jax.grad`'s result beside `param.grad` by parameter name.
 """
 
 import re
@@ -134,11 +138,12 @@ _LEAF = {
 }
 
 
-def state_dict_from_jax(params: Dict, batch_stats: Dict
-                        ) -> "OrderedDict[str, torch.Tensor]":
-    """The port's state dict for JAX `{params, batch_stats}` trees."""
-    flat = _flatten(params)
-    flat.update(_flatten(batch_stats))
+def named_arrays_from_jax(*trees: Dict) -> Dict[str, np.ndarray]:
+    """Flax-shaped trees (parameters, batch statistics, gradients) ->
+    {port parameter or buffer name: array in the port's layout}."""
+    flat = {}
+    for tree in trees:
+        flat.update(_flatten(tree))
     out: Dict[str, np.ndarray] = {}
     mha: Dict[str, Dict[str, list]] = {}
     for path, arr in flat.items():
@@ -151,9 +156,6 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict
         try:
             if kind in _LEAF:
                 out[f"{key}.{_LEAF[kind][leaf]}"] = arr
-                if kind == "bn" and leaf == "scale":
-                    out[f"{key}.num_batches_tracked"] = np.zeros((),
-                                                                 np.int64)
                 continue
             name = {"kernel": "weight", "bias": "bias"}[leaf]
         except KeyError:
@@ -175,6 +177,16 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict
             if any(a is None for a in parts[name]):
                 raise KeyError(f"{base}: incomplete q/k/v {name}")
             out[f"{base}.in_proj_{name}"] = np.concatenate(parts[name], 0)
+    return out
+
+
+def state_dict_from_jax(params: Dict, batch_stats: Dict
+                        ) -> "OrderedDict[str, torch.Tensor]":
+    """The port's state dict for JAX `{params, batch_stats}` trees."""
+    out = named_arrays_from_jax(params, batch_stats)
+    for key in [k for k in out if k.endswith(".running_mean")]:
+        out[key[:-len("running_mean")] + "num_batches_tracked"] = np.zeros(
+            (), np.int64)
     return OrderedDict(
         (k, torch.from_numpy(np.array(v)))  # a writable copy
         for k, v in sorted(out.items()))

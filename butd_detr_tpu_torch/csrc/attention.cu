@@ -9,6 +9,15 @@
 //     normalized P is rounded to bf16 before P V with f32 accumulation
 //     (pallas_attention.py:270-278, :101-107). PRECISE keeps f32
 //     throughout.
+//   * dropout (training) acts on the NORMALIZED P, before its bf16
+//     rounding: an entry is kept iff its random bits >= min(int(p * 2^32),
+//     2^32 - 1) and kept entries are scaled by 1 / (1 - p)
+//     (pallas_attention.py:84-107). The bits come from Philox4x32-10
+//     (common.cuh), keyed by the seed and counted by the absolute
+//     (batch * heads + head, query row, key / 4), not by a tile: the TPU
+//     seeds its stateful generator per (B * H, q-block), which is not
+//     carried over. The backward kernels (attention_bwd.cu) and
+//     attention_dropout_mask_launch below regenerate the same mask.
 // Unlike the TPU wrapper, the head dimension is not padded to 128 and the
 // key length is not padded to a multiple of 128: Dh <= 64 is a runtime
 // value and the last key tile is masked, so no padded key ever enters a
@@ -38,6 +47,8 @@
 
 #include <cfloat>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kMaxD = 64;
@@ -57,18 +68,20 @@ struct Strides {
   long long b, h, l;
 };
 
-template <bool PRECISE>
+template <bool PRECISE, bool DROPOUT>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_fwd_kernel(const float* __restrict__ q, Strides qs,
                      const float* __restrict__ k, Strides ks,
                      const float* __restrict__ v, Strides vs,
                      const unsigned char* __restrict__ pad,
                      float* __restrict__ out, Strides os, int heads, int lq,
-                     int lk, int dh, float scale) {
+                     int lk, int dh, float scale, unsigned int drop_thresh,
+                     float inv_keep, unsigned long long seed) {
   __shared__ float q_s[kBlockQ][kMaxD];
   __shared__ float k_s[kTileK][kMaxD + 1];  // odd stride: no bank conflicts
   __shared__ float v_s[kTileK][kMaxD];
   __shared__ float p_s[kWarps][kRows][kTileK];
+  __shared__ float drop_s[kWarps][kRows][kTileK];  // 1 / (1 - p) or 0
   __shared__ unsigned char pad_s[kTileK];
 
   const int bh = blockIdx.y;
@@ -168,14 +181,29 @@ attention_fwd_kernel(const float* __restrict__ q, Strides qs,
     __syncthreads();
     load_tile(t0, true);
     __syncthreads();
+    if (DROPOUT) {
+      // the warp's 4 rows x 16 groups of 4 keys: two Philox draws a lane
+      for (int pi = lane; pi < kRows * (kTileK / 4); pi += 32) {
+        const int r = pi / (kTileK / 4), g = pi % (kTileK / 4);
+        const uint4 bits =
+            dropout_bits(seed, bh, q0 + warp * kRows + r, (t0 >> 2) + g);
+        float* dst = &drop_s[warp][r][g * 4];
+        dst[0] = bits.x >= drop_thresh ? inv_keep : 0.f;
+        dst[1] = bits.y >= drop_thresh ? inv_keep : 0.f;
+        dst[2] = bits.z >= drop_thresh ? inv_keep : 0.f;
+        dst[3] = bits.w >= drop_thresh ? inv_keep : 0.f;
+      }
+      __syncwarp();
+    }
     for (int jj = lane; jj < kTileK; jj += 32) {
       float s[kRows];
       scores(jj, s);
       const bool in = t0 + jj < lk;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        p_s[warp][r][jj] =
-            in ? operand<PRECISE>(expf(s[r] - m_run[r]) / l_run[r]) : 0.f;
+        float p = expf(s[r] - m_run[r]) / l_run[r];
+        if (DROPOUT) p *= drop_s[warp][r][jj];
+        p_s[warp][r][jj] = in ? operand<PRECISE>(p) : 0.f;
       }
     }
     __syncwarp();
@@ -203,31 +231,75 @@ attention_fwd_kernel(const float* __restrict__ q, Strides qs,
   }
 }
 
+// keep[bh, row, key] = 1 iff the dropout of (seed, threshold) keeps that
+// probability: the mask the kernels regenerate, written out so that the
+// plain versions can be fed the kernels' own mask. One thread per 4 keys.
+__global__ void attention_dropout_mask_kernel(unsigned char* __restrict__ keep,
+                                              int lq, int lk,
+                                              unsigned int drop_thresh,
+                                              unsigned long long seed) {
+  const int groups = (lk + 3) >> 2;
+  const int bh = blockIdx.y;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<long long>(lq) * groups) return;
+  const int row = static_cast<int>(t / groups);
+  const int g = static_cast<int>(t % groups);
+  const uint4 bits = dropout_bits(seed, bh, row, g);
+  const unsigned int b4[4] = {bits.x, bits.y, bits.z, bits.w};
+  unsigned char* dst =
+      keep + (static_cast<long long>(bh) * lq + row) * lk + g * 4;
+  for (int i = 0; i < 4 && g * 4 + i < lk; ++i) {
+    dst[i] = b4[i] >= drop_thresh ? 1 : 0;
+  }
+}
+
 }  // namespace
 
+extern "C" int attention_dropout_mask_launch(unsigned char* keep,
+                                             int batch_heads, int lq, int lk,
+                                             unsigned int drop_thresh,
+                                             unsigned long long seed,
+                                             void* stream) {
+  const long long threads = static_cast<long long>(lq) * ((lk + 3) >> 2);
+  const dim3 grid(static_cast<unsigned int>((threads + 255) / 256),
+                  batch_heads);
+  attention_dropout_mask_kernel<<<grid, 256, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      keep, lq, lk, drop_thresh, seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// drop_thresh == 0 runs without dropout (the serving path); otherwise an
+// entry of the normalized P is kept iff its Philox bits >= drop_thresh and
+// scaled by inv_keep.
 extern "C" int attention_fwd_launch(
     const float* q, long long qsb, long long qsh, long long qsl,
     const float* k, long long ksb, long long ksh, long long ksl,
     const float* v, long long vsb, long long vsh, long long vsl,
     const unsigned char* pad, float* out, long long osb, long long osh,
     long long osl, int batch, int heads, int lq, int lk, int dh, float scale,
-    int precise, void* stream) {
+    int precise, unsigned int drop_thresh, float inv_keep,
+    unsigned long long seed, void* stream) {
   if (dh > kMaxD || dh < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((lq + kBlockQ - 1) / kBlockQ, batch * heads);
   const dim3 block(kWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl},
       os{osb, osh, osl};
+#define BUTD_ATTENTION_FWD(PRECISE, DROPOUT)                               \
+  attention_fwd_kernel<PRECISE, DROPOUT><<<grid, block, 0, st>>>(           \
+      q, qs, k, ks, v, vs, pad, out, os, heads, lq, lk, dh, scale,          \
+      drop_thresh, inv_keep, seed)
   if (precise) {
-    attention_fwd_kernel<true><<<grid, block, 0, st>>>(
-        q, qs, k, ks, v, vs, pad, out, os, heads, lq, lk, dh, scale);
+    if (drop_thresh) BUTD_ATTENTION_FWD(true, true);
+    else BUTD_ATTENTION_FWD(true, false);
   } else {
-    attention_fwd_kernel<false><<<grid, block, 0, st>>>(
-        q, qs, k, ks, v, vs, pad, out, os, heads, lq, lk, dh, scale);
+    if (drop_thresh) BUTD_ATTENTION_FWD(false, true);
+    else BUTD_ATTENTION_FWD(false, false);
   }
+#undef BUTD_ATTENTION_FWD
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* attention_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+BUTD_ERROR_STRING(attention)

@@ -1,10 +1,17 @@
 """BeaUTyDETR, the 3D language-grounding model (reference models/bdetr.py;
-JAX counterpart butd_detr_tpu/models/bdetr.py), eval-mode forward.
+JAX counterpart butd_detr_tpu/models/bdetr.py), in eval and train mode.
 
 point cloud + tokenized text + detected-box stream -> `end_points` with the
 reference's key schema (per-layer prefixes `proposal_`, `{i}head_`,
 `last_`), channels-last. Parameter names are the reference torch names, so
 a reference state dict loads with `load_state_dict`.
+
+In train mode BatchNorm uses batch statistics and every dropout is live;
+all of them draw from the model's one `DropoutRng` (`model.rng`), which a
+trainer re-seeds once per step. The box estimates that feed the next
+decoder layer's position embedding are detached, and the text tower runs
+in eval mode under `no_grad` while `freeze_text` (the reference freezes
+it unconditionally, bdetr.py:76-77).
 """
 
 from typing import Dict
@@ -21,6 +28,7 @@ from butd_detr_tpu_torch.models.heads import (
     general_sampling,
 )
 from butd_detr_tpu_torch.nn.backbone import Pointnet2Backbone
+from butd_detr_tpu_torch.nn.dropout import Dropout, DropoutRng, bind_rng
 from butd_detr_tpu_torch.nn.mlp import PointwiseConv
 from butd_detr_tpu_torch.nn.position import PositionEmbeddingLearned
 
@@ -53,7 +61,8 @@ def prediction_prefixes(num_decoder_layers: int):
 class BeaUTyDETR(nn.Module):
     """`input_feature_dim` counts the per-point channels after xyz (3 with
     colour). `backbone_dtype` is the PointNet++ MLPs' compute dtype;
-    `attn_precise` selects the attention kernel's f32 mode."""
+    `attn_precise` selects the attention kernel's f32 mode; `freeze_text`
+    False lets gradients into the text tower."""
 
     def __init__(self, roberta: RobertaConfig, num_class: int = 256,
                  num_obj_class: int = 485, input_feature_dim: int = 3,
@@ -64,9 +73,15 @@ class BeaUTyDETR(nn.Module):
                  butd: bool = True, self_attend: bool = True,
                  text_hidden: int = 768, box_emb_dim: int = 128,
                  backbone_npoints=(2048, 1024, 512, 256),
-                 backbone_dtype=torch.float32, attn_precise: bool = False):
+                 backbone_dtype=torch.float32, attn_precise: bool = False,
+                 freeze_text: bool = True):
         super().__init__()
+        if num_queries > backbone_npoints[1]:
+            raise ValueError(
+                f"num_queries {num_queries} exceeds the {backbone_npoints[1]} "
+                "seed points the backbone returns (backbone_npoints[1])")
         d = d_model
+        self.freeze_text = freeze_text
         self.num_queries = num_queries
         self.num_decoder_layers = num_decoder_layers
         self.self_position_embedding = self_position_embedding
@@ -77,10 +92,11 @@ class BeaUTyDETR(nn.Module):
             input_feature_dim=input_feature_dim, output_dim=d,
             npoints=backbone_npoints, dtype=backbone_dtype)
         self.text_encoder = RobertaModel(roberta, precise=attn_precise)
-        self.text_encoder.requires_grad_(False)  # frozen (bdetr.py:76-77)
+        if freeze_text:
+            self.text_encoder.requires_grad_(False)
         self.text_projector = nn.Sequential(
             nn.Linear(roberta.hidden_size, d), nn.LayerNorm(d, eps=1e-12),
-            nn.Dropout(0.1))
+            Dropout(0.1))
         if butd:
             self.butd_class_embeddings = nn.Embedding(num_obj_class,
                                                       text_hidden)
@@ -105,6 +121,7 @@ class BeaUTyDETR(nn.Module):
         self.prediction_heads = nn.ModuleList(
             ClsAgnosticPredictHead(num_class, d)
             for _ in range(num_decoder_layers))
+        self.rng = bind_rng(self, DropoutRng())
 
     def forward(self, inputs: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -126,8 +143,10 @@ class BeaUTyDETR(nn.Module):
         end_points["seed_xyz"] = ep["fp2_xyz"]
         end_points["seed_features"] = ep["fp2_features"]
 
-        # text backbone (frozen) + projector
-        with torch.no_grad():
+        # text backbone + projector; the tower has no dropout of its own
+        # (the JAX model runs it with train=False, bdetr.py:129)
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.freeze_text):
             text_hidden = self.text_encoder(inputs["text_ids"],
                                             inputs["text_mask"])
         text_feats = self.text_projector(text_hidden)

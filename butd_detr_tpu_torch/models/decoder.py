@@ -9,6 +9,7 @@ from torch import nn
 
 from butd_detr_tpu_torch.models.encoder import FFN, LN_EPS
 from butd_detr_tpu_torch.nn.attention import MultiheadAttention
+from butd_detr_tpu_torch.nn.dropout import Dropout
 from butd_detr_tpu_torch.nn.position import PositionEmbeddingLearned
 
 
@@ -32,7 +33,7 @@ class BiDecoderLayer(nn.Module):
         self.norm_v = ln()
         self.ffn = FFN(d_model, dim_feedforward, dropout)
         self.norm2 = ln()
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         if self_position_embedding == "xyz_learned":
             self.self_posembed = PositionEmbeddingLearned(3, d_model)
         elif self_position_embedding == "loc_learned":

@@ -3,11 +3,13 @@ JAX counterpart butd_detr_tpu/models/encoder.py): per layer, visual and
 language self-attention (+ residual + LN, no FFN), then language <- vision
 cross-attention + FFN, vision <- (pre-update) language, vision <- detected
 boxes, and the vision FFN. Batch-first (B, L, F); masks True == PAD.
-Dropout layers are identity in eval, the only mode of this slice."""
+Dropout (0.1 on every residual branch, inside the FFNs and on the attention
+probabilities) is live in train mode and identity in eval."""
 
 from torch import nn
 
 from butd_detr_tpu_torch.nn.attention import MultiheadAttention
+from butd_detr_tpu_torch.nn.dropout import Dropout
 
 LN_EPS = 1e-5
 
@@ -19,8 +21,8 @@ class FFN(nn.Sequential):
                  dropout: float = 0.1):
         super().__init__(
             nn.Linear(d_model, dim_feedforward), nn.ReLU(),
-            nn.Dropout(dropout), nn.Linear(dim_feedforward, d_model),
-            nn.Dropout(dropout))
+            Dropout(dropout), nn.Linear(dim_feedforward, d_model),
+            Dropout(dropout))
 
 
 class SelfAttnNoFFN(nn.Module):
@@ -31,7 +33,7 @@ class SelfAttnNoFFN(nn.Module):
         self.self_attn = MultiheadAttention(d_model, n_heads, dropout,
                                             precise)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x, pos=None, key_padding_mask=None):
         qk = x if pos is None else x + pos
@@ -57,7 +59,7 @@ class CrossAttentionLayer(nn.Module):
             self.norm_d = ln()
         self.ffn_vl = FFN(d_model, dim_feedforward, dropout)
         self.norm_vl2 = ln()
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, vis_feats, vis_key_padding_mask, text_feats,
                 text_key_padding_mask, pos_feats, detected_feats=None,

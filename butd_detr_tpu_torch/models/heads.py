@@ -6,6 +6,7 @@ from typing import Dict
 
 from torch import nn
 
+from butd_detr_tpu_torch.nn.dropout import Dropout
 from butd_detr_tpu_torch.nn.mlp import BatchNorm, PointwiseConv
 from butd_detr_tpu_torch.ops import gather_points
 
@@ -42,9 +43,9 @@ class ThreeLayerMLP(nn.Module):
         super().__init__()
         self.net = nn.Sequential(
             PointwiseConv(dim, dim, bias=False), BatchNorm(dim), nn.ReLU(),
-            nn.Dropout(0.3),
+            Dropout(0.3),
             PointwiseConv(dim, dim, bias=False), BatchNorm(dim), nn.ReLU(),
-            nn.Dropout(0.3),
+            Dropout(0.3),
             PointwiseConv(dim, out_dim),
         )
 

@@ -5,8 +5,9 @@ Counterpart of `butd_detr_tpu/nn/mlp.py`. A 1x1 convolution over points is
 a dense layer applied per point; `PointwiseConv` computes it as one on a
 channels-last tensor while keeping the reference's Conv1d/Conv2d weight
 shape (out, in, 1[, 1]), so a reference state dict loads unchanged.
-BatchNorm runs on the last axis, in f32, with eps 1e-5 and (in eval) the
-running statistics.
+BatchNorm runs on the last axis, in f32, with eps 1e-5: in eval with the
+running statistics, in train mode with the batch's, updating the running
+ones as the JAX package's flax BatchNorm does.
 """
 
 from typing import Sequence
@@ -41,13 +42,31 @@ class PointwiseConv(nn.Module):
 
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over the last (channel) axis of a channels-last tensor,
-    computed in f32 and returned in the input's dtype."""
+    computed in f32 and returned in the input's dtype.
+
+    In train mode the batch is normalized with its biased variance, and
+    the running average takes that same BIASED variance, as flax's
+    `nn.BatchNorm` does; `torch.nn.BatchNorm1d` would store the unbiased
+    one (larger by n / (n - 1)). The port is held against the JAX package,
+    so the buffers are updated by hand here."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(x.reshape(-1, x.shape[-1]).float())
+        xf = x.reshape(-1, x.shape[-1]).float()
+        if not self.training:
+            return super().forward(xf).reshape(x.shape).to(x.dtype)
+        with torch.no_grad():
+            mean = xf.mean(dim=0)
+            # E[x^2] - E[x]^2, clipped at 0: flax's variance
+            var = ((xf * xf).mean(dim=0) - mean * mean).clamp_min(0.0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked += 1
+        y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
         return y.reshape(x.shape).to(x.dtype)
 
 
@@ -99,3 +118,31 @@ class ConvBNRelu1d(_ConvBNReLU):
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 1)
+
+
+class BNMomentumScheduler:
+    """Epoch-indexed BatchNorm-momentum schedule (reference
+    pytorch_utils.BNMomentumScheduler; JAX counterpart nn/mlp.py:86-110):
+    `step` evaluates `bn_lambda(epoch)` and sets it as the momentum (torch
+    convention: the weight of the new batch) of every BatchNorm of
+    `model`. BeaUTyDETR training does not use it (the reference sets 0.1
+    once); provided for parity."""
+
+    def __init__(self, model: nn.Module, bn_lambda, last_epoch: int = -1):
+        self.model = model
+        self.lmbd = bn_lambda
+        self.last_epoch = last_epoch
+
+    def step(self, epoch=None) -> float:
+        if epoch is None:
+            epoch = self.last_epoch + 1
+        self.last_epoch = epoch
+        momentum = float(self.lmbd(epoch))
+        for m in self.model.modules():
+            if isinstance(m, nn.BatchNorm1d):
+                m.momentum = momentum
+        return momentum
+
+    @property
+    def momentum(self) -> float:
+        return float(self.lmbd(max(self.last_epoch, 0)))

@@ -1,7 +1,15 @@
 """Point-cloud and attention ops of the port: plain PyTorch, with CUDA
-kernels for FPS, ball query and the attention forward."""
+kernels for FPS, ball query, attention (forward with dropout, backward)
+and the row scatter-add behind the gathers' gradients."""
 
-from butd_detr_tpu_torch.ops.attention import attention, attention_plain
+from butd_detr_tpu_torch.ops.attention import (
+    attention,
+    attention_backward,
+    attention_backward_plain,
+    attention_plain,
+    dropout_keep_mask,
+    dropout_keep_mask_plain,
+)
 from butd_detr_tpu_torch.ops.ball_query import ball_query, ball_query_plain
 from butd_detr_tpu_torch.ops.fps import (
     furthest_point_sample,
@@ -14,17 +22,27 @@ from butd_detr_tpu_torch.ops.pointcloud import (
     three_interpolate,
     three_nn,
 )
+from butd_detr_tpu_torch.ops.scatter import (
+    scatter_rows_add,
+    scatter_rows_add_plain,
+)
 
 __all__ = [
     "attention",
+    "attention_backward",
+    "attention_backward_plain",
     "attention_plain",
     "ball_query",
     "ball_query_plain",
+    "dropout_keep_mask",
+    "dropout_keep_mask_plain",
     "furthest_point_sample",
     "furthest_point_sample_plain",
     "gather_points",
     "group_points",
     "group_points_split",
+    "scatter_rows_add",
+    "scatter_rows_add_plain",
     "three_interpolate",
     "three_nn",
 ]

@@ -36,6 +36,8 @@ KERNELS: Dict[str, list] = {
     "fps": ["-fmad=false"],
     "ball_query": ["-fmad=false"],
     "attention": [],
+    "attention_bwd": [],
+    "scatter": [],
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -45,6 +47,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
+_U, _ULL = ctypes.c_uint, ctypes.c_ulonglong
+_STRIDED = [_VP, _LL, _LL, _LL]  # a (B, H, L, Dh) view: pointer + 3 strides
+_DROPOUT = [_U, _F, _ULL]  # threshold, 1 / (1 - p), seed
 _SIGNATURES = {
     "fps": {
         "fps_launch": [_VP, _I, _I, _I, _VP, _VP, _VP],
@@ -54,9 +59,16 @@ _SIGNATURES = {
         "ball_query_launch": [_VP, _VP, _I, _I, _I, _I, _F, _VP, _VP],
     },
     "attention": {
-        "attention_fwd_launch": [_VP, _LL, _LL, _LL, _VP, _LL, _LL, _LL,
-                                 _VP, _LL, _LL, _LL, _VP, _VP, _LL, _LL,
-                                 _LL, _I, _I, _I, _I, _I, _F, _I, _VP],
+        "attention_fwd_launch": [*_STRIDED * 3, _VP, *_STRIDED,
+                                 _I, _I, _I, _I, _I, _F, _I, *_DROPOUT, _VP],
+        "attention_dropout_mask_launch": [_VP, _I, _I, _I, _U, _ULL, _VP],
+    },
+    "attention_bwd": {
+        "attention_bwd_launch": [*_STRIDED * 3, _VP, *_STRIDED * 4, _VP,
+                                 _I, _I, _I, _I, _I, _F, _I, *_DROPOUT, _VP],
+    },
+    "scatter": {
+        "scatter_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     },
 }
 

@@ -1,16 +1,19 @@
-"""Point-cloud ops in plain PyTorch (forward only), channels-last.
+"""Point-cloud ops, channels-last.
 
 Counterparts of `butd_detr_tpu/ops/pointcloud.py`, with the reference's
 quirks (pointnet2 `_ext_src`). FPS and ball query dispatch to the CUDA
-kernels for CUDA tensors (ops/fps.py, ops/ball_query.py); the gathers are
-plain indexing. The scatter-add backward of the gathers comes with the
-training slice.
+kernels for CUDA tensors (ops/fps.py, ops/ball_query.py). The row gathers
+are plain indexing forward; their backward is the row scatter-add
+(ops/scatter.py: the CUDA kernel for CUDA tensors), accumulated in f32 and
+cast back to the cotangent's dtype, as the JAX package's custom VJPs do
+(pointcloud.py:142-151, 837-848, 885-897). Indices get no gradient.
 """
 
 import torch
 
 from butd_detr_tpu_torch.ops.ball_query import ball_query
 from butd_detr_tpu_torch.ops.fps import furthest_point_sample
+from butd_detr_tpu_torch.ops.scatter import scatter_rows_add
 
 __all__ = [
     "ball_query",
@@ -23,10 +26,61 @@ __all__ = [
 ]
 
 
-def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[b, j] = points[b, idx[b, j]]: (B, N, C), (B, M) -> (B, M, C)."""
+def _take_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     C = points.shape[-1]
     return torch.gather(points, 1, idx.long()[..., None].expand(-1, -1, C))
+
+
+def _scatter_back(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Gradient of a row gather: (B, ..., C) cotangent rows added into the
+    (B, n, C) source, in the cotangent's dtype."""
+    B, C = g.shape[0], g.shape[-1]
+    return scatter_rows_add(g.reshape(B, -1, C), idx.reshape(B, -1),
+                            n).to(g.dtype)
+
+
+class _GatherRows(torch.autograd.Function):
+    """out[b, j] = points[b, idx[b, j]] for (B, N, C), (B, M)."""
+
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = points.shape[1]
+        return _take_rows(points, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return _scatter_back(g, idx, ctx.n), None
+
+
+class _GroupSplit(torch.autograd.Function):
+    """One gather of [xyz, feats] by a shared (B, m, ns) index; each source
+    gets its own scatter-add, and only if it needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, xyz, feats, idx):
+        B, m, ns = idx.shape
+        ctx.save_for_backward(idx)
+        ctx.n = xyz.shape[1]
+        cat = torch.cat([xyz, feats.to(xyz.dtype)], dim=-1)
+        g = _take_rows(cat, idx.reshape(B, m * ns)).reshape(B, m, ns, -1)
+        return g[..., :3], g[..., 3:].to(feats.dtype)
+
+    @staticmethod
+    def backward(ctx, gx, gf):
+        (idx,) = ctx.saved_tensors
+        grad_x = grad_f = None
+        if ctx.needs_input_grad[0]:
+            grad_x = _scatter_back(gx, idx, ctx.n)
+        if ctx.needs_input_grad[1]:
+            grad_f = _scatter_back(gf, idx, ctx.n)
+        return grad_x, grad_f, None
+
+
+def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[b, j] = points[b, idx[b, j]]: (B, N, C), (B, M) -> (B, M, C)."""
+    return _GatherRows.apply(points, idx)
 
 
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -43,9 +97,7 @@ def group_points_split(xyz: torch.Tensor, feats: torch.Tensor,
     with one shared index: ONE gather of the concatenation, the features
     leg cast back — the JAX package's default path
     (pointcloud.py:871-878)."""
-    cat = torch.cat([xyz, feats.to(xyz.dtype)], dim=-1)
-    g = group_points(cat, idx)
-    return g[..., :3], g[..., 3:].to(feats.dtype)
+    return _GroupSplit.apply(xyz, feats, idx)
 
 
 def three_nn(unknown: torch.Tensor, known: torch.Tensor):
@@ -66,6 +118,8 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor):
 def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
                       weight: torch.Tensor) -> torch.Tensor:
     """out[b, j] = sum_t weight[b, j, t] * features[b, idx[b, j, t]]:
-    (B, m, C), (B, n, 3), (B, n, 3) -> (B, n, C) in features' dtype."""
+    (B, m, C), (B, n, 3), (B, n, 3) -> (B, n, C) in features' dtype. The
+    feature gradient is the row scatter-add; the weight gradient is
+    autograd's."""
     g = group_points(features, idx)  # (B, n, 3, C)
     return torch.einsum("bnt,bntc->bnc", weight.to(g.dtype), g)

@@ -189,6 +189,7 @@ def build_model(cfg: Config, roberta_config: RobertaConfig,
         backbone_dtype=torch.bfloat16 if cfg.backbone_bf16
         else torch.float32,
         attn_precise=cfg.attn_precise,
+        freeze_text=cfg.freeze_text_encoder,
     )
 
 

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one GPU: build, check, serve.
+"""Smoke test of the PyTorch/CUDA port on one GPU: build, check, serve,
+train.
 
-    python3 chip_smoke.py [--seed 0] [--requests 3] [--report PATH]
+    python3 chip_smoke.py [--seed 0] [--requests 3] [--train-steps 3]
+                          [--train-batch 8] [--report PATH]
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit. Phases, in order; any failure exits non-zero before
@@ -9,13 +11,21 @@ the last line is printed:
 
 1. build: compile butd_detr_tpu_torch/csrc/*.cu with nvcc (in parallel)
    and print the seconds and ptxas's register/shared-memory report;
-2. kernels vs plain versions on the card, at the serving path's shapes:
-   FPS and ball query bit-equal at the 4 SA tiers (plus an all-zero cloud
-   and centers with no neighbour), attention within its stated bound in
+2. kernels vs plain versions on the card, at the paths' shapes:
+   FPS and ball query bit-equal at the 4 SA tiers (one scene, and again
+   on the training batch's clouds; plus an all-zero cloud and centers
+   with no neighbour), attention within its stated bound in
    both modes at every (Lq, Lk, Dh) the forward uses, with key padding and
-   a fully masked row; each timed against its plain version (and, for
-   attention, against torch's scaled_dot_product_attention as a
-   yardstick the port never calls);
+   a fully masked row; with dropout 0.1 against the plain version fed the
+   kernel's own mask (which must equal the plain Philox generator's and
+   keep 90 % within 4 sigma); the attention backward against its plain
+   version at every shape the training forward differentiates, both
+   modes, p in {0, 0.1}, bit-equal between two runs; the row scatter-add
+   against its plain version at every gather of a training step (real
+   ball-query and 3-NN indices at the training batch), f32 and bf16, with
+   dropped entries and with all rows on one index. Each is timed against
+   its plain version and a library yardstick the port never calls
+   (scaled_dot_product_attention and autograd through it, index_add_);
 3. serving: GroundingPredictor at the full width of the SR3D butd_cls
    model (50k points, RoBERTa-base shape, 3 encoder + 6 decoder layers)
    with seeded random weights answers `--requests` synthetic requests; the
@@ -24,7 +34,18 @@ the last line is printed:
 4. card vs CPU: one request again in f32 with the precise attention mode,
    on the card and with the plain versions on the CPU (same weights):
    integer end points equal (the kps order up to f32 near-ties, see
-   compare_card_cpu), floats within 1e-3 + 5e-3 * std.
+   compare_card_cpu), floats within 1e-3 + 5e-3 * std;
+5. gradients, card vs CPU: the loss and every parameter's gradient of a
+   small model (2 encoder + 2 decoder layers, 4096 points, 2 scenes; f32,
+   precise attention, eval mode so that no dropout mask differs) computed
+   on the card (forward and backward kernels) and on the CPU (plain
+   versions), same weights: loss to 1e-4 relative, each gradient within
+   5e-3 * max|g| + 1e-6;
+6. training: `Trainer` at the same full width (dropout 0.1, bf16 backbone,
+   RoBERTa frozen) takes 1 warm-up and `--train-steps` timed optimizer
+   steps on synthetic batches of `--train-batch` scenes: finite losses and
+   gradient norm, the text tower unchanged, and per step 4 FPS, 4 ball
+   query, 51 attention, 39 attention-backward and 13 scatter-add launches.
 
 Prints the `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. `--report PATH` also writes a fuller JSON
@@ -236,6 +257,37 @@ def check_point_kernels(tiers):
     return fps_row, bq_row
 
 
+def check_point_kernels_batched(tiers, fps_row, bq_row):
+    """K1 and K2 once more on the training batch's clouds (B scenes, one
+    block or warp set per scene): bit-equal to the plain versions, and
+    timed (`training_ms`, the 4 tiers of one step)."""
+    import torch
+
+    from butd_detr_tpu_torch.ops import (
+        ball_query,
+        ball_query_plain,
+        furthest_point_sample,
+        furthest_point_sample_plain,
+    )
+
+    fps_row["training_ms"] = bq_row["training_ms"] = 0.0
+    for xyz, new_xyz, npoint, r, ns in tiers:
+        B, N = xyz.shape[:2]
+        check(torch.equal(furthest_point_sample(xyz, npoint),
+                          furthest_point_sample_plain(xyz, npoint)),
+              f"FPS kernel != plain at B={B}, N={N}")
+        check(torch.equal(ball_query(r, ns, xyz, new_xyz),
+                          ball_query_plain(r, ns, xyz, new_xyz)),
+              f"ball query kernel != plain at B={B}, N={N}")
+        fps_row["training_ms"] += time_ms(
+            lambda: furthest_point_sample(xyz, npoint), 3)
+        bq_row["training_ms"] += time_ms(
+            lambda: ball_query(r, ns, xyz, new_xyz), 5)
+    log(f"  B={tiers[0][0].shape[0]} (training batch), 4 tiers: fps "
+        f"{fps_row['training_ms']:.3f} ms, ball query "
+        f"{bq_row['training_ms']:.3f} ms: equal")
+
+
 def attention_shapes(cfg, roberta, npoints):
     """(name, H, Lq, Lk, Dh, key-padding kind, launches per request) for
     every attention of the serving forward."""
@@ -347,6 +399,416 @@ def check_attention(shapes, gen):
     row["bound_by"] = "operations" if all(
         s["bound_by"] == "operations" for s in row["shapes"]) else "bytes"
     return row
+
+
+def check_dropout(gen, seed):
+    """K3 with p = 0.1: the kernels' mask writer equals the plain Philox
+    generator, keeps 90 % within 4 sigma, and the forward equals the plain
+    version fed that mask."""
+    import torch
+
+    from butd_detr_tpu_torch.ops import (
+        attention,
+        attention_plain,
+        dropout_keep_mask,
+        dropout_keep_mask_plain,
+    )
+
+    p = 0.1
+    out = dict(p=p, shapes=[])
+    for B, H, Lq, Lk, Dh in ((2, 8, 1024, 1024, 36), (2, 8, 256, 132, 36),
+                             (3, 12, 50, 67, 64)):
+        mask = dropout_keep_mask(seed, B, H, Lq, Lk, p, device="cuda")
+        plain = dropout_keep_mask_plain(seed, B, H, Lq, Lk, p,
+                                        device="cuda")
+        check(torch.equal(mask, plain),
+              f"dropout mask kernel != plain Philox at {(B, H, Lq, Lk)}")
+        n = mask.numel()
+        rate = mask.float().mean().item()
+        sigma = (p * (1 - p) / n) ** 0.5
+        check(abs(rate - (1 - p)) <= 4 * sigma,
+              f"keep rate {rate} is not within 4 sigma of {1 - p} (n={n})")
+        q, k, v = (torch.randn(B, L, H, Dh, device="cuda",
+                               generator=gen).transpose(1, 2)
+                   for L in (Lq, Lk, Lk))
+        pad = torch.zeros(B, Lk, dtype=torch.bool, device="cuda")
+        pad[0, Lk - 9:] = True
+        for precise, (atol, rtol) in ((True, (2e-5, 1e-4)),
+                                      (False, (4e-3, 4e-3))):
+            got = attention(q, k, v, pad, sm_scale=Dh ** -0.5, dropout_p=p,
+                            seed=seed, precise=precise)
+            want = attention_plain(q, k, v, pad, sm_scale=Dh ** -0.5,
+                                   precise=precise, keep_mask=mask,
+                                   dropout_p=p)
+            err = (got - want).abs().max().item()
+            check(torch.allclose(got, want, atol=atol, rtol=rtol),
+                  f"attention with dropout {(B, H, Lq, Lk, Dh)} "
+                  f"precise={precise}: max err {err}")
+        other = dropout_keep_mask(seed + 1, B, H, Lq, Lk, p, device="cuda")
+        check(not torch.equal(mask, other), "two seeds gave one mask")
+        out["shapes"].append(dict(B=B, H=H, Lq=Lq, Lk=Lk, keep_rate=rate,
+                                  sigma=sigma))
+        log(f"  dropout B={B} H={H} {Lq}x{Lk}: mask == plain Philox, keep "
+            f"rate {rate:.5f} (4 sigma {4 * sigma:.5f}), forward within "
+            f"bound")
+    return out
+
+
+def check_attention_backward(shapes, gen, seed, batch):
+    """K4 against attention_backward_plain at every shape the training
+    forward differentiates (all but the frozen text tower's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from butd_detr_tpu_torch.ops import (
+        attention,
+        attention_backward,
+        attention_backward_plain,
+        dropout_keep_mask,
+    )
+
+    # f32 mode: reassociation only. bf16 mode: dS and D o P are rounded to
+    # bf16 after f32 sums whose order differs, so entries may land one bf16
+    # step (2^-8 relative) away: bounded by 4e-3 of the largest gradient.
+    row = dict(name="attention_bwd", ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               library_ms=0.0, forward_ms=0.0, max_abs_err=0.0, shapes=[])
+    worst = {True: 0.0, False: 0.0}
+
+    def inputs(B, H, Lq, Lk, Dh, pad_kind, fully_masked):
+        q, k, v, do = (torch.randn(B, L, H, Dh, device="cuda",
+                                   generator=gen).transpose(1, 2)
+                       for L in (Lq, Lk, Lk, Lq))
+        pad = torch.zeros(B, Lk, dtype=torch.bool, device="cuda")
+        if pad_kind == "text":
+            pad[:, 14:] = True
+        elif pad_kind == "boxes":
+            pad[:, 12:] = True
+        else:
+            pad[0, Lk - 5:] = True
+        if fully_masked:
+            pad[-1] = True
+        return q, k, v, do, pad
+
+    for name, H, Lq, Lk, Dh, pad_kind, per_step in shapes:
+        if name == "roberta_self":
+            continue  # frozen: runs under no_grad, never differentiated
+        scale = Dh ** -0.5
+        q, k, v, do, pad = inputs(2, H, Lq, Lk, Dh, pad_kind, True)
+        for p in (0.0, 0.1):
+            keep = dropout_keep_mask(seed, 2, H, Lq, Lk, p, device="cuda") \
+                if p else None
+            for precise in (True, False):
+                kw = dict(sm_scale=scale, dropout_p=p, precise=precise)
+                got = attention_backward(q, k, v, do, pad, seed=seed, **kw)
+                again = attention_backward(q, k, v, do, pad, seed=seed, **kw)
+                want = attention_backward_plain(q, k, v, do, pad,
+                                                keep_mask=keep, **kw)
+                for what, g, a, w in zip("qkv", got, again, want):
+                    check(torch.equal(g, a),
+                          f"attention backward {name} d{what}: two runs "
+                          f"differ")
+                    err = (g - w).abs().max().item()
+                    if precise:
+                        ok = torch.allclose(g, w, atol=2e-5, rtol=1e-4)
+                    else:
+                        ok = err <= 4e-3 + 4e-3 * w.abs().max().item()
+                    check(ok, f"attention backward {name} d{what} p={p} "
+                              f"precise={precise}: max err {err}")
+                    worst[precise] = max(worst[precise], err)
+        del keep, got, again, want
+        # timed at the training batch, in the training mode (bf16
+        # operands, p = 0.1), without a fully masked row
+        q, k, v, do, pad = inputs(batch, H, Lq, Lk, Dh, pad_kind, False)
+        kw = dict(sm_scale=scale, dropout_p=0.1, precise=False)
+        ms = time_ms(lambda: attention_backward(q, k, v, do, pad, seed=seed,
+                                                **kw), 10)
+        # the forward of the same call (K3 with dropout at this batch)
+        fms = time_ms(lambda: attention(q, k, v, pad, seed=seed, **kw), 10)
+        keep = dropout_keep_mask(seed, batch, H, Lq, Lk, 0.1, device="cuda")
+        pms = time_ms(lambda: attention_backward_plain(
+            q, k, v, do, pad, keep_mask=keep, **kw), 5)
+        del keep
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=~pad[:, None, None, :], scale=scale)
+        lms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                  retain_graph=True), 10)
+        del out, leaves
+        pairs = batch * H * Lq * Lk
+        nbytes = 4 * batch * H * Dh * (3 * Lq + 4 * Lk) + batch * Lk
+        b_ms, by = bound_ms(nbytes, [(10 * pairs * Dh, BF16_OPS_PER_S),
+                                     (12 * pairs, F32_OPS_PER_S)])
+        row["shapes"].append(dict(name=name, B=batch, H=H, Lq=Lq, Lk=Lk,
+                                  Dh=Dh, per_step=per_step, ms=ms,
+                                  forward_ms=fms, plain_ms=pms,
+                                  library_ms=lms,
+                                  bound_ms=b_ms, bound_by=by))
+        row["ms"] += per_step * ms
+        row["plain_ms"] += per_step * pms
+        row["library_ms"] += per_step * lms
+        row["forward_ms"] += per_step * fms
+        row["bound_ms"] += per_step * b_ms
+        log(f"  bwd {name:20s} B={batch} Lq={Lq:4d} Lk={Lk:4d}: {ms:.3f} ms "
+            f"(plain {pms:.3f}, sdpa autograd {lms:.3f}, bound {b_ms:.4f} "
+            f"by {by}; forward with dropout {fms:.3f}) x{per_step}")
+    row["max_abs_err"] = worst[False]
+    row["max_abs_err_precise"] = worst[True]
+    row["bound_by"] = "operations" if all(
+        s["bound_by"] == "operations" for s in row["shapes"]) else "bytes"
+    return row
+
+
+def training_gathers(tiers, npoints, cfg, gen):
+    """(name, dtype, launches per step, idx (B, M), n, C) of every row
+    gather whose backward a training step runs, with the own ball-query
+    and 3-NN indices of the training batch's `sa_tiers`. The backbone legs
+    carry bf16 cotangents, the kps and matched-box gathers f32."""
+    import torch
+
+    from butd_detr_tpu_torch.ops import ball_query, three_nn
+
+    B = tiers[0][0].shape[0]
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = []
+    for i, c in ((1, 128), (2, 256), (3, 256)):
+        xyz, new_xyz, _, r, ns = tiers[i]
+        idx = ball_query(r, ns, xyz, new_xyz)
+        out.append((f"sa{i + 1}_group", bf16, 1, idx.reshape(B, -1),
+                    xyz.shape[1], c))
+    xyz2, xyz3, xyz4 = tiers[1][1], tiers[2][1], tiers[3][1]
+    for name, unknown, known in (("fp1_interpolate", xyz3, xyz4),
+                                 ("fp2_interpolate", xyz2, xyz3)):
+        _, idx = three_nn(unknown, known)
+        out.append((name, bf16, 1, idx.reshape(B, -1), known.shape[1], 256))
+
+    def distinct(m, n):
+        return torch.stack([torch.randperm(n, device="cuda",
+                                           generator=gen)[:m]
+                            for _ in range(B)]).to(torch.int32)
+
+    out.append(("kps_features", f32, 1, distinct(cfg.num_target, npoints[1]),
+                npoints[1], 288))
+    out.append(("matched_boxes", f32, cfg.num_decoder_layers + 1,
+                distinct(cfg.max_num_obj, cfg.num_target), cfg.num_target,
+                6))
+    return out
+
+
+def check_scatter(gathers, gen):
+    """K5 against scatter_rows_add_plain: |err| <= 1e-5 * sum |g| per
+    output (the order of the atomic f32 additions is not fixed)."""
+    import torch
+
+    from butd_detr_tpu_torch.ops import (
+        scatter_rows_add,
+        scatter_rows_add_plain,
+    )
+
+    row = dict(name="scatter", ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               library_ms=0.0, max_abs_err=0.0, run_to_run=0.0, shapes=[])
+
+    def compare(g, idx, n, what):
+        got = scatter_rows_add(g, idx, n)
+        want = scatter_rows_add_plain(g, idx, n)
+        lim = 1e-5 * scatter_rows_add_plain(g.abs(), idx, n) + 1e-30
+        err = (got - want).abs()
+        check(bool((err <= lim).all()),
+              f"scatter {what}: max err {err.max().item()} over its bound")
+        check(got.dtype == torch.float32 and got.shape == want.shape,
+              f"scatter {what}: {got.dtype} {tuple(got.shape)}")
+        return got, err.max().item()
+
+    for name, dtype, per_step, idx, n, C in gathers:
+        B, M = idx.shape
+        for dt in (torch.float32, torch.bfloat16):
+            g = torch.randn(B, M, C, device="cuda", generator=gen).to(dt)
+            got, err = compare(g, idx, n, f"{name} {dt}")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            again = scatter_rows_add(g, idx, n)
+            row["run_to_run"] = max(row["run_to_run"],
+                                    (got - again).abs().max().item())
+            dropped = idx.clone()
+            dropped[:, ::5] = n  # entries >= n are ignored
+            compare(g, dropped, n, f"{name} {dt} with idx = n")
+            compare(g, torch.full_like(idx, n // 2), n,
+                    f"{name} {dt} all rows on one index")
+        g = torch.randn(B, M, C, device="cuda", generator=gen).to(dtype)
+        ms = time_ms(lambda: scatter_rows_add(g, idx, n), 20)
+        pms = time_ms(lambda: scatter_rows_add_plain(g, idx, n), 20)
+        flat = (idx.long() + n * torch.arange(B, device="cuda")[:, None]) \
+            .reshape(-1)
+        gf = g.reshape(B * M, C).float()
+        lms = time_ms(lambda: torch.zeros(B * n, C, device="cuda")
+                      .index_add_(0, flat, gf), 20)
+        nbytes = B * (M * C * g.element_size() + M * 4 + n * C * 4)
+        b_ms, by = bound_ms(nbytes, [(B * M * C, F32_OPS_PER_S)])
+        row["shapes"].append(dict(name=name, B=B, M=M, C=C, n=n,
+                                  dtype=str(dtype), per_step=per_step, ms=ms,
+                                  plain_ms=pms, library_ms=lms, bound_ms=b_ms,
+                                  bound_by=by))
+        row["ms"] += per_step * ms
+        row["plain_ms"] += per_step * pms
+        row["library_ms"] += per_step * lms
+        row["bound_ms"] += per_step * b_ms
+        log(f"  scatter {name:16s} B={B} M={M:6d} C={C:3d} n={n:5d} "
+            f"{str(dtype)[6:]}: {ms:.4f} ms (plain {pms:.4f}, index_add_ "
+            f"{lms:.4f}, bound {b_ms:.5f} by {by}) x{per_step}")
+    row["bound_by"] = "operations" if all(
+        s["bound_by"] == "operations" for s in row["shapes"]) else "bytes"
+    log(f"  scatter: largest |kernel - plain| {row['max_abs_err']:.3g}, "
+        f"largest run-to-run difference {row['run_to_run']:.3g}")
+    return row
+
+
+# ------------------------------------------------------------- phase 5
+
+def compare_gradients_card_cpu(args):
+    """One backward pass of a small model on the card and on the CPU, same
+    seeded weights and batch, without dropout (eval mode, gradients on):
+    the whole chain of kernels against the whole chain of plain versions.
+    Integer end points must be equal; should the kps selection differ (an
+    f32 near-tie, see compare_card_cpu) the check fails and says so.
+
+    Bound per parameter: 5e-3 * max|g| + 1e-6. The two devices sum in
+    other orders, and where that flips a ReLU or a max-pool winner at an
+    f32 near-tie a whole row of a gradient moves: the largest error seen
+    over seeds 0-5 on an H100 was 1.5e-3 * max|g| (sa1's first conv
+    weight, seed 0), the others under 7e-4."""
+    import torch
+
+    from butd_detr_tpu_torch.config import butd_cls_config
+    from butd_detr_tpu_torch.data import synthetic_batch
+    from butd_detr_tpu_torch.lang import tiny_roberta_config
+    from butd_detr_tpu_torch.ops import _cuda
+    from butd_detr_tpu_torch.train import Trainer
+
+    cfg = butd_cls_config(num_target=64, num_encoder_layers=2,
+                          num_decoder_layers=2, num_points=4096,
+                          max_num_obj=16, max_det_boxes=16,
+                          backbone_bf16=False, attn_precise=True)
+    roberta = tiny_roberta_config()
+    batch = synthetic_batch(
+        batch_size=2, num_points=cfg.num_points,
+        max_text_len=cfg.max_text_len, max_num_obj=cfg.max_num_obj,
+        max_det_boxes=cfg.max_det_boxes, n_true_det=8, seed=args.seed,
+        vocab_size=roberta.vocab_size, spatial_sort=cfg.spatial_sort)
+    out = []
+    _cuda.reset_launches()
+    for dev in ("cuda", "cpu"):
+        trainer = Trainer(cfg, roberta_config=roberta,
+                          backbone_npoints=(512, 256, 128, 64), device=dev,
+                          seed=args.seed)
+        trainer.model.eval()
+        loss, ep = trainer.loss(trainer.forward(trainer.to_device(batch)))
+        loss.backward()
+        out.append((
+            float(loss.detach()),
+            {k: ep[k].cpu() for k in ("sa1_inds", "seed_inds",
+                                      "query_points_sample_inds")},
+            {n: p.grad.cpu() for n, p in trainer.model.named_parameters()
+             if p.grad is not None}))
+    launches = dict(_cuda.LAUNCHES)
+    check(launches["attention_bwd"] > 0 and launches["scatter"] > 0,
+          f"the small model's backward launched no kernel: {launches}")
+    (loss_c, ints_c, grads_c), (loss_p, ints_p, grads_p) = out
+    for k in ints_p:
+        check(torch.equal(ints_c[k], ints_p[k]),
+              f"gradients card vs CPU: {k} differs, so the two backward "
+              f"passes are not of one function")
+    check(abs(loss_c - loss_p) <= 1e-4 * abs(loss_p),
+          f"gradients card vs CPU: loss {loss_c} vs {loss_p}")
+    check(set(grads_c) == set(grads_p) and len(grads_p) > 100,
+          "gradients card vs CPU: other parameters have gradients")
+    worst = (0.0, "", 0.0, 0.0)
+    for name, want in grads_p.items():
+        check(bool(torch.isfinite(grads_c[name]).all()),
+              f"card: gradient of {name} not finite")
+        err = float((grads_c[name] - want).abs().max())
+        lim = 5e-3 * float(want.abs().max()) + 1e-6
+        check(err <= lim, f"gradients card vs CPU: {name} err {err} > {lim}")
+        worst = max(worst, (err / lim, name, err, lim))
+    log(f"  loss {loss_c:.6f} (card) vs {loss_p:.6f} (CPU); "
+        f"{len(grads_p)} gradients within bound, worst {worst[1]} "
+        f"{worst[2]:.3g} <= {worst[3]:.3g}; launches {launches}")
+    return dict(loss_card=loss_c, loss_cpu=loss_p, gradients=len(grads_p),
+                worst=dict(name=worst[1], err=worst[2], lim=worst[3]),
+                launches=launches)
+
+
+# ------------------------------------------------------------- phase 6
+
+TRAIN_LAUNCHES = {"fps": 4, "ball_query": 4}
+
+
+def train_steps(args, cfg, roberta, npoints, batches):
+    """`Trainer` at full width: 1 warm-up step, then the timed steps."""
+    import math
+
+    import torch
+
+    from butd_detr_tpu_torch.ops import _cuda
+    from butd_detr_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, steps_per_epoch=1000, roberta_config=roberta,
+                      backbone_npoints=npoints, device="cuda",
+                      seed=args.seed)
+    model = trainer.model
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    log(f"  trainer built in {time.perf_counter() - t0:.1f} s "
+        f"({n_train / 1e6:.1f}M trainable parameters)")
+    text_before = [p.detach().clone()
+                   for p in model.text_encoder.parameters()]
+    probe = model.decoder_query_proj.weight.detach().clone()
+    bn = model.backbone_net.sa1.mlp_module.layer0.bn.bn
+    bn_before = bn.running_var.detach().clone()
+
+    trainer.train_step(batches[0])  # warm-up: handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    step_ms, metrics = [], []
+    for batch in batches[1:]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        metrics.append(m)
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(step_ms)
+
+    att = (roberta.num_hidden_layers + 5 * cfg.num_encoder_layers
+           + 4 * cfg.num_decoder_layers)
+    expect = dict(TRAIN_LAUNCHES, attention=att,
+                  attention_bwd=att - roberta.num_hidden_layers,
+                  scatter=6 + cfg.num_decoder_layers + 1)
+    for name, n in expect.items():
+        check(launches[name] == n * steps,
+              f"{name}: {launches[name]} launches in {steps} training "
+              f"steps, expected {n} each")
+    for i, m in enumerate(metrics):
+        check(all(math.isfinite(v) for v in m.values()),
+              f"training step {i}: non-finite metrics {m}")
+        check(m["grad_norm"] > 0, f"training step {i}: zero gradient")
+    check(all(torch.equal(a, b) for a, b in
+              zip(text_before, model.text_encoder.parameters())),
+          "the frozen text tower changed")
+    check(not torch.equal(probe, model.decoder_query_proj.weight),
+          "decoder_query_proj did not move")
+    check(not torch.equal(bn_before, bn.running_var)
+          and bool(torch.isfinite(bn.running_var).all()),
+          "BatchNorm running statistics did not move or are not finite")
+    losses = ", ".join(f"{m['loss']:.3f}" for m in metrics)
+    norms = ", ".join(f"{m['grad_norm']:.1f}" for m in metrics)
+    log(f"  {steps} steps at B={args.train_batch}: "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} ms; loss {losses}; grad "
+        f"norm {norms}; peak device memory {peak / 2 ** 30:.2f} GiB; "
+        f"launches {launches}")
+    return dict(batch=args.train_batch, steps=steps, step_ms=step_ms,
+                metrics=metrics, launches=launches, per_step=expect,
+                peak_memory_bytes=peak, trainable_parameters=n_train)
 
 
 # ------------------------------------------------------------- phase 4
@@ -468,7 +930,28 @@ def run(args):
     tiers = sa_tiers(xyz, npoints, (0.2, 0.4, 0.8, 1.2), (64, 32, 16, 16))
     fps_row, bq_row = check_point_kernels(tiers)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    att_row = check_attention(attention_shapes(cfg, roberta, npoints), gen)
+    shapes = attention_shapes(cfg, roberta, npoints)
+    att_row = check_attention(shapes, gen)
+    report["dropout"] = check_dropout(gen, 0x5EED0000 + args.seed)
+    bwd_row = check_attention_backward(shapes, gen, 0x5EED0000 + args.seed,
+                                       args.train_batch)
+    from butd_detr_tpu_torch.data import synthetic_batch
+
+    def train_batch(i):
+        return synthetic_batch(
+            batch_size=args.train_batch, num_points=cfg.num_points,
+            max_text_len=cfg.max_text_len, max_num_obj=cfg.max_num_obj,
+            max_det_boxes=cfg.max_det_boxes, seed=args.seed + i,
+            vocab_size=roberta.vocab_size, spatial_sort=cfg.spatial_sort)
+
+    batches = [train_batch(i) for i in range(args.train_steps + 1)]
+    cloud = torch.from_numpy(batches[0]["point_clouds"][..., :3].copy())
+    train_tiers = sa_tiers(cloud.cuda(), npoints, (0.2, 0.4, 0.8, 1.2),
+                           (64, 32, 16, 16))
+    check_point_kernels_batched(train_tiers, fps_row, bq_row)
+    sc_row = check_scatter(training_gathers(train_tiers, npoints, cfg, gen),
+                           gen)
+    del train_tiers
     torch.cuda.synchronize()
 
     # 3. serving at full width
@@ -527,19 +1010,38 @@ def run(args):
     log("== phase 4: one request on the card and on the CPU (f32, precise)")
     report["card_vs_cpu"] = compare_card_cpu(args, roberta, npoints,
                                              scenes[0], REQUESTS[0][0])
+    torch.cuda.empty_cache()
+
+    # 5. gradients of a small model, card vs CPU
+    log("== phase 5: gradients of a small model on the card and on the CPU")
+    report["gradients_card_vs_cpu"] = compare_gradients_card_cpu(args)
+    torch.cuda.empty_cache()
+
+    # 6. training at full width
+    log(f"== phase 6: {args.train_steps} training steps at full width, "
+        f"B={args.train_batch}")
+    report["training"] = train_steps(args, cfg, roberta, npoints, batches)
+    train_launches = report["training"]["launches"]
 
     kernels = []
     replaces = {
         "fps": "butd_detr_tpu/ops/pallas_fps.py:142",
         "ball_query": "butd_detr_tpu/ops/pallas_ball_query.py:178",
         "attention": "butd_detr_tpu/ops/pallas_attention.py:213",
+        "attention_bwd": "butd_detr_tpu/ops/pallas_attention.py:219",
+        "scatter": "butd_detr_tpu/ops/pallas_scatter.py:108",
     }
-    for row in (fps_row, bq_row, att_row):
+    for row in (fps_row, bq_row, att_row, bwd_row, sc_row):
         name = row["name"]
+        check(train_launches[name] > 0,
+              f"{name}: not launched on the training path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"butd_detr_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name],
+            "launches": launches[name] + train_launches[name],
+            "launches_serving": launches[name],
+            "launches_training": train_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -547,7 +1049,8 @@ def run(args):
         })
     report["kernels"] = kernels
     report["detail"] = {"fps": fps_row, "ball_query": bq_row,
-                        "attention": att_row}
+                        "attention": att_row, "attention_bwd": bwd_row,
+                        "scatter": sc_row}
     return report
 
 
@@ -555,11 +1058,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--train-steps", type=int, default=3)
+    ap.add_argument("--train-batch", type=int, default=8)
     ap.add_argument("--report", default=None,
                     help="also write the full JSON report to this path")
     args = ap.parse_args(argv)
-    if args.requests < 1:
-        ap.error("--requests must be >= 1")
+    if args.requests < 1 or args.train_steps < 1 or args.train_batch < 1:
+        ap.error("--requests, --train-steps and --train-batch must be >= 1")
 
     import torch
 

@@ -202,6 +202,16 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_attention_dropout_is_not_ported():
+    """It is ported now (the name is kept): dropout needs an explicit
+    seed, drops about p of the probabilities and is a function of the
+    seed; tests/test_torch_train_ops.py holds its arithmetic."""
     x = torch.randn(1, 2, 4, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed"):
         attention(x, x, x, dropout_p=0.1)
+    with pytest.raises(ValueError, match="dropout_p"):
+        attention(x, x, x, dropout_p=1.0, seed=1)
+    plain = attention(x, x, x)
+    dropped = attention(x, x, x, dropout_p=0.5, seed=1)
+    assert dropped.shape == plain.shape and not torch.equal(dropped, plain)
+    assert torch.equal(dropped, attention(x, x, x, dropout_p=0.5, seed=1))
+    assert not torch.equal(dropped, attention(x, x, x, dropout_p=0.5, seed=2))
