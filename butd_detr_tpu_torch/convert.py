@@ -16,6 +16,9 @@ Any flax path without a mapping raises KeyError naming it.
 `named_arrays_from_jax(tree)` applies the same name and layout map to any
 tree shaped like the JAX parameters — a tree of gradients, say — so that a
 test can lay `jax.grad`'s result beside `param.grad` by parameter name.
+
+The evaluation epoch (harness, evaluators, checkpoints) adds no parameter,
+so its tests move one set of weights across with this map unchanged.
 """
 
 import re

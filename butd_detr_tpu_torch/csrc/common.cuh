@@ -49,7 +49,31 @@ __device__ __forceinline__ uint4 dropout_bits(unsigned long long seed, int bh,
                  static_cast<unsigned int>(seed >> 32)));
 }
 
-#define BUTD_ERROR_STRING(prefix)                                  \
+// Copy unit `k` of a row, or write zeros when the row has no source
+// (`src_row == nullptr`). A unit is 16, 4 or 2 bytes; the wrapper picks the
+// largest that divides the row's bytes and the three base pointers, so every
+// access is aligned. The copy moves bits, never values: -0.0, NaN payloads
+// and denormals arrive unchanged whatever the element type.
+__device__ __forceinline__ void copy_row_unit(void* dst_row,
+                                              const void* src_row, int unit,
+                                              unsigned int k) {
+  if (unit == 16) {
+    const uint4 v = src_row ? __ldg(static_cast<const uint4*>(src_row) + k)
+                            : make_uint4(0u, 0u, 0u, 0u);
+    static_cast<uint4*>(dst_row)[k] = v;
+  } else if (unit == 4) {
+    const unsigned int v =
+        src_row ? __ldg(static_cast<const unsigned int*>(src_row) + k) : 0u;
+    static_cast<unsigned int*>(dst_row)[k] = v;
+  } else {
+    const unsigned short v =
+        src_row ? __ldg(static_cast<const unsigned short*>(src_row) + k)
+                : static_cast<unsigned short>(0);
+    static_cast<unsigned short*>(dst_row)[k] = v;
+  }
+}
+
+#define BUTD_ERROR_STRING(prefix)                                 \
   extern "C" const char* prefix##_error_string(int code) {         \
     return cudaGetErrorString(static_cast<cudaError_t>(code));     \
   }

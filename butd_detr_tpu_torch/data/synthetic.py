@@ -4,6 +4,8 @@ The port's copy of `butd_detr_tpu/data/synthetic.py:synthetic_batch` (and
 of `data/scan.py:hilbert_code`, which it needs): same arguments, same numpy
 random stream, so the same seed gives the same batch in both packages.
 Shapes mirror `Joint3DDataset.__getitem__` after fixed-shape collation.
+`SyntheticGroundingDataset` cuts such batches into per-sample dicts, with
+the evaluators' extras, for a loader to batch again.
 """
 
 from typing import Dict
@@ -134,3 +136,39 @@ def synthetic_batch(
         "positive_map": pmap,
         "point_instance_label": pil,
     }
+
+
+class SyntheticGroundingDataset:
+    """`n` seeded synthetic scenes in memory, one dict per sample: the keys
+    of `synthetic_batch` plus what the grounding evaluators read from a
+    real sample: `all_bboxes` / `all_bbox_label_mask` (the scene's true
+    boxes, cxcyczwhd, in a seeded order of their own as a scan lists its
+    objects in no relation to the utterance's, and which rows are real) and
+    the seeded flags `is_view_dep`, `is_hard`, `is_unique`. A map-style dataset for
+    `data.loader.DataLoader`: `__len__` and `get(index, rng)`; samples are
+    fixed, so `rng` is not drawn from. `batch_kwargs` go to
+    `synthetic_batch` (num_points, max_text_len, ...)."""
+
+    def __init__(self, n: int, seed: int = 0, **batch_kwargs):
+        batch = synthetic_batch(batch_size=n, seed=seed, **batch_kwargs)
+        rng = np.random.RandomState(seed + 7919)
+        boxes = np.concatenate(
+            [batch["center_label"], batch["size_gts"]], axis=-1)
+        real = batch["box_label_mask"] > 0
+        for b in range(n):
+            rows = np.flatnonzero(real[b])
+            boxes[b, rows] = boxes[b, rng.permutation(rows)]
+        batch["all_bboxes"] = boxes
+        batch["all_bbox_label_mask"] = real
+        for key in ("is_view_dep", "is_hard", "is_unique"):
+            batch[key] = rng.rand(n) < 0.5
+        self._batch = batch
+        self._n = n
+
+    def __len__(self) -> int:
+        return self._n
+
+    def get(self, index: int, rng=None) -> Dict[str, np.ndarray]:
+        if not 0 <= index < self._n:
+            raise IndexError(index)
+        return {k: v[index] for k, v in self._batch.items()}

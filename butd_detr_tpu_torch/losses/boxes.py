@@ -40,6 +40,14 @@ def pairwise_iou3d(box_a, box_b):
     return inter / union.clamp_min(_EPS_VOL), union
 
 
+def matched_iou3d(boxes1, boxes2):
+    """Elementwise IoU for aligned (..., 6) corner boxes."""
+    inter = _clipped_volume(torch.maximum(boxes1[..., :3], boxes2[..., :3]),
+                            torch.minimum(boxes1[..., 3:], boxes2[..., 3:]))
+    union = box_volume(boxes1) + box_volume(boxes2) - inter
+    return inter / union.clamp_min(_EPS_VOL)
+
+
 def generalized_box_iou3d(boxes1, boxes2):
     """Pairwise GIoU (..., N, M) for corner boxes (losses.py:70-91)."""
     iou, union = pairwise_iou3d(boxes1, boxes2)

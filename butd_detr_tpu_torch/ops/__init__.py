@@ -1,6 +1,7 @@
 """Point-cloud and attention ops of the port: plain PyTorch, with CUDA
-kernels for FPS, ball query, attention (forward with dropout, backward)
-and the row scatter-add behind the gathers' gradients."""
+kernels for FPS, ball query, attention (forward with dropout, backward),
+the row gathers (one payload, or xyz and features under one index) and the
+row scatter-add behind the gathers' gradients."""
 
 from butd_detr_tpu_torch.ops.attention import (
     attention,
@@ -14,6 +15,14 @@ from butd_detr_tpu_torch.ops.ball_query import ball_query, ball_query_plain
 from butd_detr_tpu_torch.ops.fps import (
     furthest_point_sample,
     furthest_point_sample_plain,
+)
+from butd_detr_tpu_torch.ops.gather import (
+    gather_rows,
+    gather_rows_plain,
+    group_rows,
+    group_rows_plain,
+    group_rows_split,
+    group_rows_split_plain,
 )
 from butd_detr_tpu_torch.ops.pointcloud import (
     gather_points,
@@ -39,8 +48,14 @@ __all__ = [
     "furthest_point_sample",
     "furthest_point_sample_plain",
     "gather_points",
+    "gather_rows",
+    "gather_rows_plain",
     "group_points",
     "group_points_split",
+    "group_rows",
+    "group_rows_plain",
+    "group_rows_split",
+    "group_rows_split_plain",
     "scatter_rows_add",
     "scatter_rows_add_plain",
     "three_interpolate",

@@ -38,6 +38,8 @@ KERNELS: Dict[str, list] = {
     "attention": [],
     "attention_bwd": [],
     "scatter": [],
+    "gather": [],
+    "group_gather": [],
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -69,6 +71,13 @@ _SIGNATURES = {
     },
     "scatter": {
         "scatter_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    },
+    "gather": {
+        "gather_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    },
+    "group_gather": {
+        "group_gather_launch": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                _I, _I, _VP],
     },
 }
 

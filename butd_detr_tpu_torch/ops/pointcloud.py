@@ -1,18 +1,26 @@
 """Point-cloud ops, channels-last.
 
 Counterparts of `butd_detr_tpu/ops/pointcloud.py`, with the reference's
-quirks (pointnet2 `_ext_src`). FPS and ball query dispatch to the CUDA
-kernels for CUDA tensors (ops/fps.py, ops/ball_query.py). The row gathers
-are plain indexing forward; their backward is the row scatter-add
-(ops/scatter.py: the CUDA kernel for CUDA tensors), accumulated in f32 and
-cast back to the cotangent's dtype, as the JAX package's custom VJPs do
-(pointcloud.py:142-151, 837-848, 885-897). Indices get no gradient.
+quirks (pointnet2 `_ext_src`). For CUDA tensors every op that the JAX
+package gave a TPU kernel launches its CUDA kernel: FPS and ball query
+(ops/fps.py, ops/ball_query.py), the row gathers forward (ops/gather.py:
+`gather_points`, `group_points` and so `three_interpolate` through the row
+gather kernel, `group_points_split` and the large `group_points` through
+the grouped gather kernel) and the row scatter-add as their backward
+(ops/scatter.py), accumulated in f32 and cast back to the cotangent's
+dtype, as the JAX package's custom VJPs do (pointcloud.py:142-151, 837-848,
+885-897). CPU tensors take the plain versions. Indices get no gradient.
 """
 
 import torch
 
 from butd_detr_tpu_torch.ops.ball_query import ball_query
 from butd_detr_tpu_torch.ops.fps import furthest_point_sample
+from butd_detr_tpu_torch.ops.gather import (
+    gather_rows,
+    group_rows,
+    group_rows_split,
+)
 from butd_detr_tpu_torch.ops.scatter import scatter_rows_add
 
 __all__ = [
@@ -26,11 +34,6 @@ __all__ = [
 ]
 
 
-def _take_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    C = points.shape[-1]
-    return torch.gather(points, 1, idx.long()[..., None].expand(-1, -1, C))
-
-
 def _scatter_back(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """Gradient of a row gather: (B, ..., C) cotangent rows added into the
     (B, n, C) source, in the cotangent's dtype."""
@@ -39,14 +42,27 @@ def _scatter_back(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
                             n).to(g.dtype)
 
 
+def _is_large_grouping(n: int, m: int, ns: int) -> bool:
+    """The groupings the JAX package hands to its windowed gather
+    (pointcloud.py:804-811): the first set-abstraction tier."""
+    return n >= 16384 and m >= 512 and ns >= 32
+
+
 class _GatherRows(torch.autograd.Function):
-    """out[b, j] = points[b, idx[b, j]] for (B, N, C), (B, M)."""
+    """out[b, ...] = points[b, idx[b, ...]] for (B, N, C) and a (B, M) or
+    (B, m, ns) index, in the source's dtype."""
 
     @staticmethod
     def forward(ctx, points, idx):
         ctx.save_for_backward(idx)
-        ctx.n = points.shape[1]
-        return _take_rows(points, idx)
+        B, n, C = points.shape
+        ctx.n = n
+        if idx.dim() == 3 and _is_large_grouping(n, *idx.shape[1:]):
+            out = group_rows(points, idx)
+        else:
+            out = gather_rows(points, idx.reshape(B, -1)).reshape(
+                *idx.shape, C)
+        return out.to(points.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -55,17 +71,16 @@ class _GatherRows(torch.autograd.Function):
 
 
 class _GroupSplit(torch.autograd.Function):
-    """One gather of [xyz, feats] by a shared (B, m, ns) index; each source
-    gets its own scatter-add, and only if it needs a gradient."""
+    """xyz and features grouped by a shared (B, m, ns) index, each in its
+    own dtype; each source gets its own scatter-add, and only if it needs
+    a gradient."""
 
     @staticmethod
     def forward(ctx, xyz, feats, idx):
-        B, m, ns = idx.shape
         ctx.save_for_backward(idx)
         ctx.n = xyz.shape[1]
-        cat = torch.cat([xyz, feats.to(xyz.dtype)], dim=-1)
-        g = _take_rows(cat, idx.reshape(B, m * ns)).reshape(B, m, ns, -1)
-        return g[..., :3], g[..., 3:].to(feats.dtype)
+        gx, gf = group_rows_split(xyz, feats, idx)
+        return gx.to(xyz.dtype), gf.to(feats.dtype)
 
     @staticmethod
     def backward(ctx, gx, gf):
@@ -86,17 +101,14 @@ def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[b, j, k] = points[b, idx[b, j, k]]: (B, N, C), (B, m, ns) ->
     (B, m, ns, C)."""
-    B, m, ns = idx.shape
-    return gather_points(points, idx.reshape(B, m * ns)).reshape(
-        B, m, ns, -1)
+    return _GatherRows.apply(points, idx)
 
 
 def group_points_split(xyz: torch.Tensor, feats: torch.Tensor,
                        idx: torch.Tensor):
     """Group xyz (kept in its own dtype, f32) and features (e.g. bf16)
-    with one shared index: ONE gather of the concatenation, the features
-    leg cast back — the JAX package's default path
-    (pointcloud.py:871-878)."""
+    with one shared index, read once for both:
+    (B, N, 3), (B, N, Cf), (B, m, ns) -> (B, m, ns, 3), (B, m, ns, Cf)."""
     return _GroupSplit.apply(xyz, feats, idx)
 
 

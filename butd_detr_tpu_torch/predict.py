@@ -9,18 +9,22 @@ similarity) — and returns the top-k boxes (cxcyczwhd) with their scores.
 It runs on `cuda` unless the caller passes `device="cpu"`.
 
 Carries its own copies of the JAX package's host helpers it needs:
-`token_positive_map` (data/positive_map.py), `MEAN_RGB`
-(data/augment.py) and the scorers `span_scores`, `contrast_scores` and
-`pred_boxes` (eval/grounding.py).
+`token_positive_map` (data/positive_map.py) and `MEAN_RGB`
+(data/augment.py); the scorers `span_scores`, `contrast_scores` and
+`pred_boxes` are the port's evaluators' (eval/grounding.py).
 """
 
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from butd_detr_tpu_torch.config import Config
+from butd_detr_tpu_torch.eval.grounding import (
+    contrast_scores,
+    pred_boxes,
+    span_scores,
+)
 from butd_detr_tpu_torch.init import init_weights_
 from butd_detr_tpu_torch.lang.roberta import RobertaConfig, \
     roberta_base_config
@@ -111,36 +115,6 @@ def token_positive_map(tokenizer, utterance: str, cat_names: Sequence[str],
     pmap[:len(cat_names)] = get_positive_map(tokenized,
                                              spans[:len(cat_names)])
     return spans, pmap
-
-
-# ------------------------------------------------------------ scoring
-
-def _pad_scores(scores: torch.Tensor, width: int) -> torch.Tensor:
-    t = scores.shape[-1]
-    if t < width:
-        scores = F.pad(scores, (0, width - t))
-    return scores[..., :width]
-
-
-def span_scores(end_points, prefix: str, width: int) -> torch.Tensor:
-    """(B, Q, width) softmaxed soft-token scores (`bbs`)."""
-    s = torch.softmax(end_points[f"{prefix}sem_cls_scores"].float(), -1)
-    return _pad_scores(s, width)
-
-
-def contrast_scores(end_points, prefix: str, width: int,
-                    temperature: float = 0.07) -> torch.Tensor:
-    """(B, Q, width) contrastive query-token scores (`bbf`)."""
-    sim = torch.einsum("bqd,btd->bqt",
-                       end_points[f"{prefix}proj_queries"].float(),
-                       end_points["proj_tokens"].float())
-    return _pad_scores(torch.softmax(sim / temperature, -1), width)
-
-
-def pred_boxes(end_points, prefix: str) -> torch.Tensor:
-    """(B, Q, 6) cxcyczwhd."""
-    return torch.cat([end_points[f"{prefix}center"].float(),
-                      end_points[f"{prefix}pred_size"].float()], -1)
 
 
 # ------------------------------------------------------------ inputs

@@ -1,5 +1,12 @@
-"""Training of the port: optimizer, schedules and the train/eval steps."""
+"""Training of the port: optimizer, schedules, the train/eval steps,
+checkpoints and the epoch harness."""
 
+from butd_detr_tpu_torch.train.checkpoint import (
+    latest_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
+from butd_detr_tpu_torch.train.harness import TrainTester
 from butd_detr_tpu_torch.train.optimizer import (
     clip_by_global_norm_,
     make_optimizer,
@@ -12,16 +19,22 @@ from butd_detr_tpu_torch.train.step import (
     Trainer,
     build_model,
     criterion_config,
+    metrics_to_host,
 )
 
 __all__ = [
     "INPUT_KEYS",
     "METRIC_KEYS",
     "TARGET_KEYS",
+    "TrainTester",
     "Trainer",
     "build_model",
     "clip_by_global_norm_",
     "criterion_config",
+    "latest_checkpoint",
+    "load_checkpoint",
     "make_optimizer",
     "make_schedule",
+    "metrics_to_host",
+    "save_checkpoint",
 ]

@@ -81,6 +81,8 @@ class Trainer:
     steps_per_epoch: converts the schedule's epochs into steps.
     state_dict: reference-named weights; None fills the model with seeded
         random weights from `seed`.
+    model: a model built by the caller (`build_model`), used instead of
+        building one from `roberta_config` and `backbone_npoints`.
     device: `cuda` unless given.
     seed: also seeds the trainer's `torch.Generator` (on the host), from
         which each step draws the seed of its dropout masks.
@@ -89,11 +91,12 @@ class Trainer:
     def __init__(self, cfg: Config, steps_per_epoch: int = 1, *,
                  roberta_config: Optional[RobertaConfig] = None,
                  backbone_npoints=(2048, 1024, 512, 256), state_dict=None,
-                 device=None, seed: int = 0):
+                 model=None, device=None, seed: int = 0):
         self.cfg = cfg
         self.device = resolve_device(device)
-        model = build_model(cfg, roberta_config or roberta_base_config(),
-                            backbone_npoints)
+        if model is None:
+            model = build_model(cfg, roberta_config or roberta_base_config(),
+                                backbone_npoints)
         if state_dict is None:
             init_weights_(model, seed)
         else:
@@ -153,15 +156,24 @@ class Trainer:
         self.step += 1
         return grad_norm
 
-    def train_step(self, batch: Dict) -> Dict[str, float]:
+    def train_step_on_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """One optimizer step on `batch`; returns the losses under
         METRIC_KEYS and the gradients' global norm before clipping
-        (`grad_norm`), read back in one copy."""
+        (`grad_norm`) as 0-d tensors on the device, not read back."""
         batch = self.to_device(batch)
         self.begin_step()
         loss, end_points = self.loss(self.forward(batch))
         loss.backward()
-        return self._metrics(end_points, self.apply_gradients())
+        grad_norm = self.apply_gradients()
+        named = {k: torch.as_tensor(end_points[k], dtype=torch.float32,
+                                    device=grad_norm.device).detach()
+                 for k in METRIC_KEYS if k in end_points}
+        named["grad_norm"] = grad_norm
+        return named
+
+    def train_step(self, batch: Dict) -> Dict[str, float]:
+        """`train_step_on_device`, its metrics read back in one copy."""
+        return metrics_to_host(self.train_step_on_device(batch))
 
     @torch.no_grad()
     def eval_step(self, batch: Dict, with_loss: bool = True
@@ -173,16 +185,12 @@ class Trainer:
         end_points = self.forward(batch)
         return self.loss(end_points)[1] if with_loss else end_points
 
-    @staticmethod
-    def _metrics(end_points, grad_norm: torch.Tensor) -> Dict[str, float]:
-        named = {k: end_points[k] for k in METRIC_KEYS if k in end_points}
-        named["grad_norm"] = grad_norm
-        values = torch.stack([
-            torch.as_tensor(v, dtype=torch.float32,
-                            device=grad_norm.device).detach()
-            for v in named.values()]).cpu()
-        return dict(zip(named, values.tolist()))
+
+def metrics_to_host(named: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """0-d tensors on one device -> floats, in one copy."""
+    values = torch.stack([v.float() for v in named.values()]).cpu()
+    return dict(zip(named, values.tolist()))
 
 
 __all__ = ["INPUT_KEYS", "METRIC_KEYS", "TARGET_KEYS", "Trainer",
-           "build_model", "criterion_config"]
+           "build_model", "criterion_config", "metrics_to_host"]

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU: build, check, serve,
-train.
+train, evaluate.
 
     python3 chip_smoke.py [--seed 0] [--requests 3] [--train-steps 3]
-                          [--train-batch 8] [--report PATH]
+                          [--train-batch 8] [--eval-scenes 20]
+                          [--report PATH]
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit. Phases, in order; any failure exits non-zero before
@@ -23,14 +24,18 @@ the last line is printed:
    modes, p in {0, 0.1}, bit-equal between two runs; the row scatter-add
    against its plain version at every gather of a training step (real
    ball-query and 3-NN indices at the training batch), f32 and bf16, with
-   dropped entries and with all rows on one index. Each is timed against
-   its plain version and a library yardstick the port never calls
-   (scaled_dot_product_attention and autograd through it, index_add_);
+   dropped entries and with all rows on one index; the row gather and the
+   grouped gather bit-equal (as integer views) to their plain versions at
+   every shape the three paths launch them, f32 and bf16 rows, one scene
+   and the batch, strided sources, int64 indices and an index out of
+   range. Each is timed against its plain version and a library yardstick
+   the port never calls (scaled_dot_product_attention and autograd through
+   it, index_add_, torch.gather and the concatenate-gather-cast);
 3. serving: GroundingPredictor at the full width of the SR3D butd_cls
    model (50k points, RoBERTa-base shape, 3 encoder + 6 decoder layers)
    with seeded random weights answers `--requests` synthetic requests; the
-   launch counters must show 4 FPS, 4 ball-query and 51 attention
-   launches per request;
+   launch counters must show 4 FPS, 4 ball-query, 51 attention, 8 row
+   gather and 4 grouped gather launches per request;
 4. card vs CPU: one request again in f32 with the precise attention mode,
    on the card and with the plain versions on the CPU (same weights):
    integer end points equal (the kps order up to f32 near-ties, see
@@ -45,7 +50,17 @@ the last line is printed:
    RoBERTa frozen) takes 1 warm-up and `--train-steps` timed optimizer
    steps on synthetic batches of `--train-batch` scenes: finite losses and
    gradient norm, the text tower unchanged, and per step 4 FPS, 4 ball
-   query, 51 attention, 39 attention-backward and 13 scatter-add launches.
+   query, 51 attention, 39 attention-backward, 13 scatter-add, 15 row
+   gather and 4 grouped gather launches;
+7. evaluation: the weights of phase 6 are saved with `save_checkpoint`,
+   a fresh `TrainTester` restores them (`--eval`, `--checkpoint_path`) and
+   runs `evaluate_one_epoch` over `--eval-scenes` synthetic scenes in
+   batches of `--train-batch` (20 and 8: two full batches and a padded
+   tail of 4) at the same full width: the restored parameters equal the
+   saved ones, every batch launches 4 FPS, 4 ball query, 51 attention, 8
+   row gather and 4 grouped gather kernels and no backward kernel, the
+   evaluator counts every scene once per prefix and mode, and every
+   accuracy lies in [0, 1]. A second, warm epoch is timed (scenes/s).
 
 Prints the `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. `--report PATH` also writes a fuller JSON
@@ -660,6 +675,239 @@ def check_scatter(gathers, gen):
     return row
 
 
+def forward_gathers(tiers, npoints, cfg, gen):
+    """Every row gather of the forward and the loss, with the own FPS,
+    ball-query and 3-NN indices of `tiers` (one scene or the batch).
+
+    Returns (row gathers, grouped gathers). A row gather is (name, dtype,
+    n, C, idx (B, M), launches a request or evaluation batch, launches a
+    training step); a grouped gather (name, n, Cf, idx (B, m, ns)), the
+    four set-abstraction groupings of the bf16 backbone: xyz in f32 beside
+    bf16 features. Dtypes are the default (bf16 backbone) mode's; the f32
+    mode's groupings are listed last with no launch on these paths."""
+    import torch
+
+    from butd_detr_tpu_torch.ops import (
+        ball_query,
+        furthest_point_sample,
+        three_nn,
+    )
+
+    B = tiers[0][0].shape[0]
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows, groups = [], []
+    feat_c = (3, 128, 256, 256)  # channels entering each SA tier
+    ball = []
+    for i, (xyz, new_xyz, npoint, r, ns) in enumerate(tiers):
+        inds = furthest_point_sample(xyz, npoint)
+        rows.append((f"sa{i + 1}_new_xyz", f32, xyz.shape[1], 3, inds, 1, 1))
+        ball.append(ball_query(r, ns, xyz, new_xyz))
+        groups.append((f"sa{i + 1}_group", xyz.shape[1], feat_c[i],
+                       ball[-1]))
+    xyz2, xyz3, xyz4 = tiers[1][1], tiers[2][1], tiers[3][1]
+    for name, unknown, known in (("fp1_interpolate", xyz3, xyz4),
+                                 ("fp2_interpolate", xyz2, xyz3)):
+        _, idx = three_nn(unknown, known)
+        rows.append((name, bf16, known.shape[1], 256, idx.reshape(B, -1),
+                     1, 1))
+
+    def distinct(m, n, dtype):
+        return torch.stack([torch.randperm(n, device="cuda",
+                                           generator=gen)[:m]
+                            for _ in range(B)]).to(dtype)
+
+    kps = distinct(cfg.num_target, npoints[1], torch.int32)
+    rows.append(("kps_xyz", f32, npoints[1], 3, kps, 1, 1))
+    rows.append(("kps_features", f32, npoints[1], 288, kps, 1, 1))
+    # the matcher's assignment arrives as int64
+    rows.append(("matched_boxes", f32, cfg.num_target, 6,
+                 distinct(cfg.max_num_obj, cfg.num_target, torch.int64),
+                 0, cfg.num_decoder_layers + 1))
+    # f32 mode: xyz and features concatenated, one payload
+    for i in (1, 2, 3):
+        rows.append((f"sa{i + 1}_group_f32", f32, tiers[i][0].shape[1],
+                     3 + feat_c[i], ball[i].reshape(B, -1), 0, 0))
+    return rows, groups
+
+
+def _bits(t):
+    """The tensor's bits as integers: equality then includes -0.0, NaN
+    payloads and denormals."""
+    import torch
+
+    return t.contiguous().view(torch.int32 if t.element_size() == 4
+                               else torch.int16)
+
+
+def _special_rows(src):
+    """Plant -0.0, an infinity, a denormal and a NaN in row 0 of every
+    scene (as many as the row holds)."""
+    import torch
+
+    vals = torch.tensor([-0.0, float("inf"), 1e-42, float("nan")],
+                        device=src.device)[:src.shape[-1]].to(src.dtype)
+    src[:, 0, :len(vals)] = vals
+    return src
+
+
+def _distinct_rows(idx, n):
+    """How many different source rows the index names: what a gather must
+    read of its source on this data."""
+    import torch
+
+    B = idx.shape[0]
+    seen = torch.zeros(B, n, dtype=torch.bool, device=idx.device)
+    seen.scatter_(1, idx.reshape(B, -1).long(), True)
+    return int(seen.sum())
+
+
+def check_gathers(rows, groups, gen, batched):
+    """K6 and K7 against their plain versions, bit for bit, and timed.
+    `batched` says whether these are the batch's shapes (the evaluation
+    batch and the training step) or one scene's (a request)."""
+    import torch
+
+    from butd_detr_tpu_torch.ops import (
+        gather_rows,
+        gather_rows_plain,
+        group_rows,
+        group_rows_plain,
+        group_rows_split,
+        group_rows_split_plain,
+    )
+
+    g_row = dict(name="gather", ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                 library_ms=0.0, step_ms=0.0, max_abs_err=0, shapes=[])
+    gg_row = dict(name="group_gather", ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                  library_ms=0.0, step_ms=0.0, max_abs_err=0, shapes=[])
+
+    def same(got, want, what):
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"{what}: {got.dtype} {tuple(got.shape)}")
+        check(torch.equal(_bits(got), _bits(want)),
+              f"{what}: kernel and plain version differ in some bit")
+
+    for name, dtype, n, C, idx, per_batch, per_step in rows:
+        B, M = idx.shape
+        for dt in (torch.float32, torch.bfloat16):
+            src = _special_rows(torch.randn(B, n, C, device="cuda",
+                                            generator=gen).to(dt))
+            probe = idx.clone()
+            probe[:, 0] = 0  # the row of special values
+            same(gather_rows(src, probe), gather_rows_plain(src, probe),
+                 f"gather {name} {dt}")
+            same(gather_rows(src, probe.long()),
+                 gather_rows_plain(src, probe), f"gather {name} {dt} int64")
+        # a strided source (a channel slice of a wider cloud) and an index
+        # out of range
+        wide = torch.randn(B, n, C + 3, device="cuda", generator=gen)
+        same(gather_rows(wide[..., :C], idx),
+             gather_rows_plain(wide[..., :C], idx), f"gather {name} strided")
+        out = idx.clone()
+        out[:, -1] = n
+        got = gather_rows(wide[..., :C], out)
+        same(got, gather_rows_plain(wide[..., :C], out),
+             f"gather {name} index out of range")
+        check(float(got[:, -1].abs().max()) == 0.0,
+              f"gather {name}: an index out of range gave no zero row")
+        del wide
+        src = torch.randn(B, n, C, device="cuda", generator=gen).to(dtype)
+        ms = time_ms(lambda: gather_rows(src, idx), 20)
+        pms = time_ms(lambda: gather_rows_plain(src, idx), 20)
+        wide_idx = idx.long()[..., None].expand(-1, -1, C)
+        lms = time_ms(lambda: torch.gather(src, 1, wide_idx), 20)
+        row_bytes = C * src.element_size()
+        nbytes = B * M * 4 + (_distinct_rows(idx, n) + B * M) * row_bytes
+        b_ms, by = bound_ms(nbytes, [])
+        g_row["shapes"].append(dict(
+            name=name, B=B, n=n, M=M, C=C, dtype=str(dtype),
+            per_batch=per_batch, per_step=per_step, ms=ms, plain_ms=pms,
+            library_ms=lms, bound_ms=b_ms, bound_by=by))
+        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                         ("bound_ms", b_ms)):
+            g_row[key] += per_batch * val
+        g_row["step_ms"] += per_step * ms
+        log(f"  gather {name:18s} B={B} n={n:5d} M={M:6d} C={C:3d} "
+            f"{str(dtype)[6:]}: {ms:.4f} ms (plain {pms:.4f}, torch.gather "
+            f"{lms:.4f}, bound {b_ms:.5f}) x{per_batch} a batch, "
+            f"x{per_step} a step: bit-equal")
+
+    for name, n, cf, idx in groups:
+        B, m, ns = idx.shape
+        cloud = _special_rows(torch.randn(B, n, 3 + cf, device="cuda",
+                                          generator=gen))
+        xyz = cloud[..., :3]  # strided, as the backbone hands it over
+        probe = idx.clone()
+        probe[:, 0, 0] = 0
+        for dt in (torch.bfloat16, torch.float32):
+            feats = cloud[..., 3:].to(dt)
+            gx, gf = group_rows_split(xyz, feats, probe.long())
+            wx, wf = group_rows_split_plain(xyz, feats, probe)
+            same(gx, wx, f"group_gather {name} xyz beside {dt}")
+            same(gf, wf, f"group_gather {name} features {dt}")
+        out = idx.clone()
+        out[:, -1, -1] = n
+        gx, gf = group_rows_split(xyz, feats, out)
+        check(float(gx[:, -1, -1].abs().max()) == 0.0
+              and float(gf[:, -1, -1].abs().max()) == 0.0,
+              f"group_gather {name}: an index out of range gave no zero row")
+        feats = cloud[..., 3:].to(torch.bfloat16)
+        xyz = xyz.contiguous()
+        del cloud
+        ms = time_ms(lambda: group_rows_split(xyz, feats, idx), 20)
+        pms = time_ms(lambda: group_rows_split_plain(xyz, feats, idx), 10)
+
+        def concat_gather_cast():
+            cat = torch.cat([xyz, feats.to(xyz.dtype)], dim=-1)
+            g = torch.gather(cat, 1, idx.reshape(B, m * ns).long()[..., None]
+                             .expand(-1, -1, 3 + cf)).reshape(B, m, ns, -1)
+            return g[..., :3], g[..., 3:].to(feats.dtype)
+
+        lms = time_ms(concat_gather_cast, 10)
+        row_bytes = 12 + 2 * cf
+        nbytes = (B * m * ns * 4
+                  + (_distinct_rows(idx, n) + B * m * ns) * row_bytes)
+        b_ms, by = bound_ms(nbytes, [])
+        gg_row["shapes"].append(dict(
+            name=name, B=B, n=n, m=m, ns=ns, Cf=cf, per_batch=1, per_step=1,
+            ms=ms, plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=by))
+        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                         ("bound_ms", b_ms), ("step_ms", ms)):
+            gg_row[key] += val
+        log(f"  group_gather {name:10s} B={B} n={n:5d} m={m:4d} ns={ns:2d} "
+            f"3 f32 + {cf:3d} bf16: {ms:.4f} ms (plain {pms:.4f}, "
+            f"concatenate-gather-cast {lms:.4f}, bound {b_ms:.5f}): "
+            f"bit-equal")
+
+    # the one-payload form at the first tier: the f32 mode's grouping of
+    # the (xyz, colour) cloud; on no default path, so it adds to no sum
+    name, n, cf, idx = groups[0]
+    B, m, ns = idx.shape
+    for dt in (torch.float32, torch.bfloat16):
+        cloud = torch.randn(B, n, 3 + cf, device="cuda", generator=gen).to(dt)
+        same(group_rows(cloud, idx), group_rows_plain(cloud, idx),
+             f"group_gather {name} one payload {dt}")
+    cloud = cloud.float()
+    ms = time_ms(lambda: group_rows(cloud, idx), 20)
+    pms = time_ms(lambda: group_rows_plain(cloud, idx), 10)
+    wide_idx = idx.reshape(B, m * ns).long()[..., None].expand(-1, -1, 3 + cf)
+    lms = time_ms(lambda: torch.gather(cloud, 1, wide_idx), 10)
+    nbytes = (B * m * ns * 4
+              + (_distinct_rows(idx, n) + B * m * ns) * 4 * (3 + cf))
+    b_ms, by = bound_ms(nbytes, [])
+    gg_row["shapes"].append(dict(
+        name=name + "_one_payload_f32", B=B, n=n, m=m, ns=ns, Cf=cf,
+        per_batch=0, per_step=0, ms=ms, plain_ms=pms, library_ms=lms,
+        bound_ms=b_ms, bound_by=by))
+    log(f"  group_gather {name} one payload of {3 + cf} f32: {ms:.4f} ms "
+        f"(plain {pms:.4f}, torch.gather {lms:.4f}, bound {b_ms:.5f}): "
+        f"bit-equal")
+    for row in (g_row, gg_row):
+        row["bound_by"] = "bytes"
+        row["batched"] = batched
+    return g_row, gg_row
+
+
 # ------------------------------------------------------------- phase 5
 
 def compare_gradients_card_cpu(args):
@@ -710,6 +958,15 @@ def compare_gradients_card_cpu(args):
     launches = dict(_cuda.LAUNCHES)
     check(launches["attention_bwd"] > 0 and launches["scatter"] > 0,
           f"the small model's backward launched no kernel: {launches}")
+    # f32 mode at 4096 points: 4 new_xyz, the 4 groupings (none large
+    # enough for the grouped gather), 2 interpolations, 2 kps gathers and
+    # the matched boxes of each loss prefix
+    want_gather = 12 + cfg.num_decoder_layers + 1
+    check(launches["gather"] == want_gather
+          and launches["group_gather"] == 0,
+          f"the small model launched {launches['gather']} row gathers and "
+          f"{launches['group_gather']} grouped gathers, expected "
+          f"{want_gather} and 0")
     (loss_c, ints_c, grads_c), (loss_p, ints_p, grads_p) = out
     for k in ints_p:
         check(torch.equal(ints_c[k], ints_p[k]),
@@ -737,11 +994,12 @@ def compare_gradients_card_cpu(args):
 
 # ------------------------------------------------------------- phase 6
 
-TRAIN_LAUNCHES = {"fps": 4, "ball_query": 4}
+TRAIN_LAUNCHES = {"fps": 4, "ball_query": 4, "group_gather": 4}
 
 
 def train_steps(args, cfg, roberta, npoints, batches):
-    """`Trainer` at full width: 1 warm-up step, then the timed steps."""
+    """`Trainer` at full width: 1 warm-up step, then the timed steps.
+    Returns the phase's report and the trainer."""
     import math
 
     import torch
@@ -783,7 +1041,9 @@ def train_steps(args, cfg, roberta, npoints, batches):
            + 4 * cfg.num_decoder_layers)
     expect = dict(TRAIN_LAUNCHES, attention=att,
                   attention_bwd=att - roberta.num_hidden_layers,
-                  scatter=6 + cfg.num_decoder_layers + 1)
+                  scatter=6 + cfg.num_decoder_layers + 1,
+                  gather=FORWARD_LAUNCHES["gather"]
+                  + cfg.num_decoder_layers + 1)
     for name, n in expect.items():
         check(launches[name] == n * steps,
               f"{name}: {launches[name]} launches in {steps} training "
@@ -808,7 +1068,128 @@ def train_steps(args, cfg, roberta, npoints, batches):
         f"launches {launches}")
     return dict(batch=args.train_batch, steps=steps, step_ms=step_ms,
                 metrics=metrics, launches=launches, per_step=expect,
-                peak_memory_bytes=peak, trainable_parameters=n_train)
+                peak_memory_bytes=peak,
+                trainable_parameters=n_train), trainer
+
+
+# ------------------------------------------------------------- phase 7
+
+# one eval-mode forward in the bf16-backbone mode: 4 new_xyz, 2
+# interpolation and 2 kps row gathers; the 4 groupings are grouped gathers
+FORWARD_LAUNCHES = {"fps": 4, "ball_query": 4, "gather": 8,
+                    "group_gather": 4}
+
+
+def evaluation_epoch(args, cfg, roberta, npoints, trainer):
+    """Save the trainer's weights, restore them into a fresh `TrainTester`
+    and run `evaluate_one_epoch` over synthetic scenes through
+    `TrainTester.main` (`--eval` with a checkpoint); then a second, warm
+    epoch for the time."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from butd_detr_tpu_torch.data import SyntheticGroundingDataset
+    from butd_detr_tpu_torch.ops import _cuda
+    from butd_detr_tpu_torch.predict import build_model
+    from butd_detr_tpu_torch.train import TrainTester, save_checkpoint
+
+    n, B = args.eval_scenes, args.train_batch
+    scenes = dict(num_points=cfg.num_points, max_text_len=cfg.max_text_len,
+                  max_num_obj=cfg.max_num_obj,
+                  max_det_boxes=cfg.max_det_boxes,
+                  vocab_size=roberta.vocab_size,
+                  spatial_sort=cfg.spatial_sort)
+    test_set = SyntheticGroundingDataset(n, seed=args.seed + 1000, **scenes)
+    epochs = []
+
+    class SmokeTester(TrainTester):
+        def get_datasets(self):
+            return test_set, test_set
+
+        def _roberta_config(self):
+            return roberta
+
+        def get_model(self):
+            return build_model(self.cfg, roberta, npoints)
+
+        def evaluate_one_epoch(self, epoch, test_loader, trainer):
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t = time.perf_counter()
+            evaluator = super().evaluate_one_epoch(epoch, test_loader,
+                                                   trainer)
+            torch.cuda.synchronize()
+            epochs.append(dict(seconds=time.perf_counter() - t,
+                               launches=dict(_cuda.LAUNCHES),
+                               batches=len(test_loader),
+                               evaluator=evaluator))
+            return evaluator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, args.train_steps, trainer)
+        size = os.path.getsize(path)
+        log(f"  saved {size / 2 ** 20:.0f} MiB of checkpoint in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ecfg = dataclasses.replace(
+            cfg, batch_size=B, num_workers=0, eval=True,
+            checkpoint_path=path, log_dir=os.path.join(tmp, "log"),
+            rng_seed=args.seed + 1, print_freq=1)
+        tester = SmokeTester(ecfg, device="cuda")
+        restored = tester.main()  # the first epoch: restore, evaluate
+        saved = trainer.model.state_dict()
+        got = restored.model.state_dict()
+        check(set(saved) == set(got), "restored model has other entries")
+        for k, v in saved.items():
+            check(torch.equal(got[k], v), f"restored {k} != saved")
+        check(restored.step == trainer.step,
+              f"restored step {restored.step} != {trainer.step}")
+        check(restored.device.type == "cuda"
+              and next(restored.model.parameters()).is_cuda,
+              "the evaluation did not run on the card")
+        _, test_loader = tester.get_loaders()
+        tester.evaluate_one_epoch(args.train_steps + 1, test_loader,
+                                  restored)  # the warm, timed epoch
+    check(len(epochs) == 2, f"{len(epochs)} evaluation epochs ran, not 2")
+
+    att = (roberta.num_hidden_layers + 5 * cfg.num_encoder_layers
+           + 4 * cfg.num_decoder_layers)
+    per_batch = dict(FORWARD_LAUNCHES, attention=att, attention_bwd=0,
+                     scatter=0)
+    batches = -(-n // B)
+    accuracies = {}
+    for ep in epochs:
+        check(ep["batches"] == batches, f"{ep['batches']} batches")
+        for name, k in per_batch.items():
+            check(ep["launches"][name] == k * batches,
+                  f"{name}: {ep['launches'][name]} launches in {batches} "
+                  f"evaluation batches, expected {k} each")
+        ev = ep.pop("evaluator")
+        for p in tester.prefixes():
+            for m in ("bbs", "bbf"):
+                check(ev.gts[(p, m)] == n,
+                      f"evaluator counted {ev.gts[(p, m)]} samples for "
+                      f"{p}{m}, not {n}")
+                acc = ev.accuracy(p, m)
+                check(0.0 <= acc <= 1.0, f"accuracy {p}{m} = {acc}")
+                accuracies[p + m] = acc
+        flags = sum(ev.gts[f] for f in ("easy", "hard"))
+        check(abs(flags - n) < 1e-6, f"breakdown counted {flags} samples")
+    first, warm = epochs
+    rate = n / warm["seconds"]
+    log(f"  {n} scenes in {batches} batches of {B} (tail of "
+        f"{n - (batches - 1) * B}): first epoch {first['seconds']:.2f} s, "
+        f"warm epoch {warm['seconds'] * 1e3:.1f} ms = {rate:.1f} scenes/s; "
+        f"launches {warm['launches']}")
+    log("  accuracies " + ", ".join(f"{k} {v:.3f}"
+                                    for k, v in accuracies.items()))
+    return dict(scenes=n, batch=B, batches=batches,
+                first_epoch_seconds=first["seconds"],
+                warm_epoch_seconds=warm["seconds"], scenes_per_second=rate,
+                launches=warm["launches"], per_batch=per_batch,
+                accuracies=accuracies, checkpoint_bytes=size)
 
 
 # ------------------------------------------------------------- phase 4
@@ -831,6 +1212,7 @@ def compare_card_cpu(args, roberta, npoints, scene, utterance):
 
     from butd_detr_tpu_torch.config import butd_cls_config
     from butd_detr_tpu_torch.models import top_k_stable
+    from butd_detr_tpu_torch.ops import _cuda
     from butd_detr_tpu_torch.predict import GroundingPredictor
 
     cfg32 = butd_cls_config(backbone_bf16=False, attn_precise=True)
@@ -843,8 +1225,17 @@ def compare_card_cpu(args, roberta, npoints, scene, utterance):
     with torch.inference_mode():
         t = time.perf_counter()
         pc = preds["cuda"]
+        _cuda.reset_launches()
         card = pc.model(pc.make_inputs(cloud, utterance, boxes, cids))
         card = {k: v.cpu() for k, v in card.items()}
+        # f32 mode: xyz and features are grouped as one payload, at the
+        # first tier by the grouped gather and at the others by the row
+        # gather, beside its 8 launches of the default mode
+        check(_cuda.LAUNCHES["gather"] == FORWARD_LAUNCHES["gather"] + 3
+              and _cuda.LAUNCHES["group_gather"] == 1,
+              f"f32 request: {_cuda.LAUNCHES['gather']} row gathers and "
+              f"{_cuda.LAUNCHES['group_gather']} grouped gathers, expected "
+              f"{FORWARD_LAUNCHES['gather'] + 3} and 1")
         log(f"  card forward {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         pp = preds["cpu"]
@@ -930,6 +1321,9 @@ def run(args):
     tiers = sa_tiers(xyz, npoints, (0.2, 0.4, 0.8, 1.2), (64, 32, 16, 16))
     fps_row, bq_row = check_point_kernels(tiers)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    log("  row gathers of one request (B = 1)")
+    g1_row, gg1_row = check_gathers(
+        *forward_gathers(tiers, npoints, cfg, gen), gen, batched=False)
     shapes = attention_shapes(cfg, roberta, npoints)
     att_row = check_attention(shapes, gen)
     report["dropout"] = check_dropout(gen, 0x5EED0000 + args.seed)
@@ -951,6 +1345,12 @@ def run(args):
     check_point_kernels_batched(train_tiers, fps_row, bq_row)
     sc_row = check_scatter(training_gathers(train_tiers, npoints, cfg, gen),
                            gen)
+    log(f"  row gathers of one batch (B = {args.train_batch})")
+    g_row, gg_row = check_gathers(
+        *forward_gathers(train_tiers, npoints, cfg, gen), gen, batched=True)
+    for row, one in ((g_row, g1_row), (gg_row, gg1_row)):
+        row["request_ms"] = one["ms"]
+        row["request_shapes"] = one["shapes"]
     del train_tiers
     torch.cuda.synchronize()
 
@@ -983,7 +1383,7 @@ def run(args):
     launches = dict(_cuda.LAUNCHES)
     per_req_att = (roberta.num_hidden_layers + 5 * cfg.num_encoder_layers
                    + 4 * cfg.num_decoder_layers)
-    expect = {"fps": 4, "ball_query": 4, "attention": per_req_att}
+    expect = dict(FORWARD_LAUNCHES, attention=per_req_att)
     for name, n in expect.items():
         check(launches[name] == n * args.requests,
               f"{name}: {launches[name]} launches for {args.requests} "
@@ -1020,8 +1420,17 @@ def run(args):
     # 6. training at full width
     log(f"== phase 6: {args.train_steps} training steps at full width, "
         f"B={args.train_batch}")
-    report["training"] = train_steps(args, cfg, roberta, npoints, batches)
+    report["training"], trainer = train_steps(args, cfg, roberta, npoints,
+                                              batches)
     train_launches = report["training"]["launches"]
+
+    # 7. an evaluation epoch at full width, from a checkpoint
+    log(f"== phase 7: checkpoint round trip and an evaluation epoch of "
+        f"{args.eval_scenes} scenes at full width, B={args.train_batch}")
+    report["evaluation"] = evaluation_epoch(args, cfg, roberta, npoints,
+                                            trainer)
+    eval_launches = report["evaluation"]["launches"]
+    del trainer
 
     kernels = []
     replaces = {
@@ -1030,18 +1439,26 @@ def run(args):
         "attention": "butd_detr_tpu/ops/pallas_attention.py:213",
         "attention_bwd": "butd_detr_tpu/ops/pallas_attention.py:219",
         "scatter": "butd_detr_tpu/ops/pallas_scatter.py:108",
+        "gather": "butd_detr_tpu/ops/pallas_scatter.py:198",
+        "group_gather": "butd_detr_tpu/ops/pallas_window_gather.py:101",
     }
-    for row in (fps_row, bq_row, att_row, bwd_row, sc_row):
+    backward_only = ("attention_bwd", "scatter")
+    for row in (fps_row, bq_row, att_row, bwd_row, sc_row, g_row, gg_row):
         name = row["name"]
         check(train_launches[name] > 0,
               f"{name}: not launched on the training path")
+        check(name in backward_only or (launches[name] > 0
+                                        and eval_launches[name] > 0),
+              f"{name}: not launched on the serving or evaluation path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"butd_detr_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": launches[name] + train_launches[name],
+            "launches": (launches[name] + train_launches[name]
+                         + eval_launches[name]),
             "launches_serving": launches[name],
             "launches_training": train_launches[name],
+            "launches_evaluation": eval_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -1050,7 +1467,8 @@ def run(args):
     report["kernels"] = kernels
     report["detail"] = {"fps": fps_row, "ball_query": bq_row,
                         "attention": att_row, "attention_bwd": bwd_row,
-                        "scatter": sc_row}
+                        "scatter": sc_row, "gather": g_row,
+                        "group_gather": gg_row}
     return report
 
 
@@ -1060,11 +1478,14 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--train-steps", type=int, default=3)
     ap.add_argument("--train-batch", type=int, default=8)
+    ap.add_argument("--eval-scenes", type=int, default=20)
     ap.add_argument("--report", default=None,
                     help="also write the full JSON report to this path")
     args = ap.parse_args(argv)
-    if args.requests < 1 or args.train_steps < 1 or args.train_batch < 1:
-        ap.error("--requests, --train-steps and --train-batch must be >= 1")
+    if min(args.requests, args.train_steps, args.train_batch,
+           args.eval_scenes) < 1:
+        ap.error("--requests, --train-steps, --train-batch and "
+                 "--eval-scenes must be >= 1")
 
     import torch
 

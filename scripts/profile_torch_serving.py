@@ -32,6 +32,8 @@ GROUPS = (
     ("fps", "fps_kernel"),
     ("ball_query", "ball_query_kernel"),
     ("attention", "attention_fwd_kernel"),
+    ("group_gather", "group_gather_kernel"),
+    ("gather", "gather_rows_kernel"),
     ("matmul", ("gemm", "sgemm", "cutlass", "gemv", "xmma", "nvjet")),
 )
 

@@ -37,6 +37,8 @@ GROUPS = (
     ("attention", "attention_fwd_kernel"),
     ("attention_bwd", "attention_bwd_"),
     ("scatter", "scatter_rows_add_"),
+    ("group_gather", "group_gather_kernel"),
+    ("gather", "gather_rows_kernel"),
     ("matmul", ("gemm", "sgemm", "cutlass", "gemv", "xmma", "nvjet")),
 )
 STAGES = ("to_device", "forward", "loss", "backward", "optimizer")

@@ -5,8 +5,8 @@ it skips. On the card, with no JAX installed:
     python -m pytest -m cuda --noconftest -p no:cacheprovider \
         tests/test_torch_cuda.py
 
-Integers bit-equal; attention, its backward and the scatter-add within the
-bounds of chip_smoke.py.
+Integers and the row gathers bit-equal; attention, its backward and the
+scatter-add within the bounds of chip_smoke.py.
 """
 
 import numpy as np
@@ -26,7 +26,14 @@ from butd_detr_tpu_torch.ops import (
     furthest_point_sample,
     furthest_point_sample_plain,
     gather_points,
+    gather_rows,
+    gather_rows_plain,
+    group_points,
     group_points_split,
+    group_rows,
+    group_rows_plain,
+    group_rows_split,
+    group_rows_split_plain,
     scatter_rows_add,
     scatter_rows_add_plain,
 )
@@ -214,6 +221,135 @@ def test_gather_gradients_run_the_scatter_kernel(gpu):
     pts = torch.randn(2, 50, 5, device=gpu, requires_grad=True)
     gather_points(pts, idx[:, :, 0]).sum().backward()
     assert _cuda.LAUNCHES["scatter"] == before + 2
+
+
+def _bits(t):
+    """The tensor's bits as integers: equality then includes -0.0, NaN
+    payloads and denormals."""
+    return t.contiguous().view(torch.int32 if t.element_size() == 4
+                               else torch.int16)
+
+
+def _rows(seed, b, n, c, dtype):
+    """Rows with the values a bit-exact copy must keep: -0.0, a NaN with a
+    payload, a denormal, an infinity."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, n, c).astype(np.float32))
+    flat = x.view(-1)
+    specials = torch.tensor([-0.0, float("inf"), 1e-42], dtype=torch.float32)
+    flat[: len(specials)] = specials[: flat.numel()]
+    if flat.numel() > 3:
+        flat[3:4].view(torch.int32)[0] = 0x7FC12345  # NaN with a payload
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,c", [(50, 1, 1), (777, 333, 3), (64, 1000, 5),
+                                   (5000, 257, 6), (1024, 255, 288),
+                                   (300, 70, 256), (40, 9, 8)])
+def test_gather_kernel_bit_equal(gpu, dtype, n, m, c):
+    src = _rows(n + c, 3, n, c, dtype)
+    rng = np.random.RandomState(m)
+    idx = torch.from_numpy(rng.randint(0, n, (3, m)))  # int64
+    idx[0, 0] = 0  # the row of special values
+    want = gather_rows_plain(src, idx)
+    before = _cuda.LAUNCHES["gather"]
+    got = gather_rows(src.to(gpu), idx.to(gpu))
+    assert _cuda.LAUNCHES["gather"] == before + 1
+    assert got.dtype == dtype and got.shape == (3, m, c)
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+    got32 = gather_rows(src.to(gpu), idx.to(gpu, torch.int32))
+    assert torch.equal(_bits(got32), _bits(got))
+
+
+def test_gather_kernel_non_contiguous_and_misaligned_sources(gpu):
+    cloud = _rows(1, 2, 400, 6, torch.float32).to(gpu)
+    idx = torch.randint(0, 400, (2, 77), device=gpu)
+    xyz = cloud[..., :3]  # a strided view, as the backbone hands it over
+    assert not xyz.is_contiguous()
+    assert torch.equal(_bits(gather_rows(xyz, idx)),
+                       _bits(gather_rows_plain(xyz, idx)))
+    # rows of 16 bytes whose base is 4 bytes off a 16-byte boundary
+    flat = torch.randn(2 * 400 * 4 + 1, device=gpu)
+    off = flat[1:].view(2, 400, 4)
+    assert off.data_ptr() % 16 == 4 and off.is_contiguous()
+    assert torch.equal(_bits(gather_rows(off, idx)),
+                       _bits(gather_rows_plain(off, idx)))
+    # bf16 rows of an odd channel count: 2-byte units
+    odd = _rows(2, 2, 400, 5, torch.bfloat16).to(gpu)
+    assert torch.equal(_bits(gather_rows(odd, idx)),
+                       _bits(gather_rows_plain(odd, idx)))
+
+
+def test_gather_kernel_out_of_range_index_gives_a_zero_row(gpu):
+    src = torch.ones(2, 30, 7, device=gpu)
+    idx = torch.tensor([[0, 30, -1, 29], [2 ** 31 - 1, 5, 31, 1]],
+                       device=gpu, dtype=torch.int32)
+    got = gather_rows(src, idx)
+    want = torch.ones(2, 4, 7)
+    want[0, 1:3] = 0
+    want[1, 0] = 0
+    want[1, 2] = 0
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(gather_rows_plain(src.cpu(), idx.cpu()), want)
+    pts = torch.ones(2, 30, 3, device=gpu)
+    gx, gf = group_rows_split(pts, src.to(torch.bfloat16),
+                              idx.reshape(2, 2, 2))
+    assert torch.equal(gx.cpu(), want[..., :3].reshape(2, 2, 2, 3))
+    assert torch.equal(gf.float().cpu(), want.reshape(2, 2, 2, 7))
+
+
+def test_gather_kernel_widens_other_dtypes_to_f32(gpu):
+    src = torch.randn(1, 20, 4, device=gpu).half()
+    idx = torch.randint(0, 20, (1, 6), device=gpu)
+    got = gather_rows(src, idx)
+    assert got.dtype == torch.float32
+    assert torch.equal(got.cpu(), gather_rows_plain(src.cpu(), idx.cpu()))
+    assert gather_points(src, idx).dtype == torch.float16
+
+
+@pytest.mark.parametrize("fdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,m,ns,cf", [(3000, 130, 64, 3), (512, 100, 32, 128),
+                                       (256, 33, 16, 256), (100, 7, 5, 1),
+                                       (90, 3, 2, 5)])
+def test_group_gather_kernel_bit_equal(gpu, fdtype, n, m, ns, cf):
+    cloud = _rows(n, 2, n, 3 + cf, torch.float32)
+    xyz = cloud[..., :3]  # strided
+    feats = cloud[..., 3:].to(fdtype)
+    rng = np.random.RandomState(ns)
+    idx = torch.from_numpy(rng.randint(0, n, (2, m, ns)))  # int64
+    idx[0, 0, 0] = 0
+    wx, wf = group_rows_split_plain(xyz, feats, idx)
+    before = dict(_cuda.LAUNCHES)
+    gx, gf = group_rows_split(xyz.to(gpu), feats.to(gpu), idx.to(gpu))
+    assert _cuda.LAUNCHES["group_gather"] == before["group_gather"] + 1
+    assert _cuda.LAUNCHES["gather"] == before["gather"]
+    assert gx.dtype == torch.float32 and gf.dtype == fdtype
+    assert gx.shape == (2, m, ns, 3) and gf.shape == (2, m, ns, cf)
+    assert torch.equal(_bits(gx.cpu()), _bits(wx))
+    assert torch.equal(_bits(gf.cpu()), _bits(wf))
+    one = group_rows(feats.to(gpu), idx.to(gpu, torch.int32))
+    assert _cuda.LAUNCHES["group_gather"] == before["group_gather"] + 2
+    assert torch.equal(_bits(one.cpu()), _bits(group_rows_plain(feats, idx)))
+
+
+def test_pointcloud_gathers_launch_their_kernels(gpu):
+    """gather_points and a small group_points launch the row gather, a
+    grouping of the first tier's size and group_points_split the grouped
+    gather; none of them anything else."""
+    pts = torch.randn(1, 16384, 6, device=gpu)
+    small = torch.randint(0, 16384, (1, 40, 8), device=gpu)
+    large = torch.randint(0, 16384, (1, 512, 32), device=gpu)
+    before = dict(_cuda.LAUNCHES)
+    gather_points(pts, small[:, :, 0])
+    group_points(pts, small)
+    assert _cuda.LAUNCHES["gather"] == before["gather"] + 2
+    assert _cuda.LAUNCHES["group_gather"] == before["group_gather"]
+    got = group_points(pts, large)
+    group_points_split(pts[..., :3], pts[..., 3:].to(torch.bfloat16), small)
+    assert _cuda.LAUNCHES["gather"] == before["gather"] + 2
+    assert _cuda.LAUNCHES["group_gather"] == before["group_gather"] + 2
+    assert torch.equal(got.cpu(), group_rows_plain(pts.cpu(), large.cpu()))
 
 
 def test_attention_rejects_what_the_kernel_does_not_take(gpu):
