@@ -256,11 +256,12 @@ __global__ void attention_dropout_mask_kernel(unsigned char* __restrict__ keep,
 
 }  // namespace
 
-extern "C" int attention_dropout_mask_launch(unsigned char* keep,
+extern "C" int attention_dropout_mask_launch(int device, unsigned char* keep,
                                              int batch_heads, int lq, int lk,
                                              unsigned int drop_thresh,
                                              unsigned long long seed,
                                              void* stream) {
+  const DeviceScope on(device);
   const long long threads = static_cast<long long>(lq) * ((lk + 3) >> 2);
   const dim3 grid(static_cast<unsigned int>((threads + 255) / 256),
                   batch_heads);
@@ -274,7 +275,7 @@ extern "C" int attention_dropout_mask_launch(unsigned char* keep,
 // entry of the normalized P is kept iff its Philox bits >= drop_thresh and
 // scaled by inv_keep.
 extern "C" int attention_fwd_launch(
-    const float* q, long long qsb, long long qsh, long long qsl,
+    int device, const float* q, long long qsb, long long qsh, long long qsl,
     const float* k, long long ksb, long long ksh, long long ksl,
     const float* v, long long vsb, long long vsh, long long vsl,
     const unsigned char* pad, float* out, long long osb, long long osh,
@@ -282,6 +283,7 @@ extern "C" int attention_fwd_launch(
     int precise, unsigned int drop_thresh, float inv_keep,
     unsigned long long seed, void* stream) {
   if (dh > kMaxD || dh < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceScope on(device);
   const dim3 grid((lq + kBlockQ - 1) / kBlockQ, batch * heads);
   const dim3 block(kWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -302,4 +304,6 @@ extern "C" int attention_fwd_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+BUTD_PACKED(attention_dropout_mask_launch)
+BUTD_PACKED(attention_fwd_launch)
 BUTD_ERROR_STRING(attention)

@@ -14,55 +14,71 @@
 // 221-222). PRECISE keeps f32 throughout. q' is the scaled (and rounded) q,
 // so the gradient of the caller's q is scale * dQ'; the dQ kernel applies
 // that factor once, at its store. A fully masked row is uniform over its
-// keys and has a gradient; the last key tile is masked, never padded.
+// keys and has a gradient; the last key or query tile is masked, never
+// padded into a softmax.
 //
-// What bounds it on this card: as for the forward, the bytes are the bound
-// of the work (q, k, v, dO read, dQ, dK, dV written once; the five products
-// would take less on the tensor cores). This kernel is bound by its own
-// f32 instruction rate: per (row, key) pair it runs ten Dh-long
-// multiply-add chains on CUDA cores.
+// What bounds it on this card: the bytes of the work (q, k, v, dO read, dQ,
+// dK, dV written once); its five products are a few GFLOP at the training
+// shapes, milliseconds' worth on CUDA cores but microseconds on the tensor
+// cores. So the two modes are two designs:
 //
-// Design. The TPU accumulates dK and dV across q-blocks in a resident
-// output block because its grid runs in order; here blocks run in parallel,
-// so there are two kernels and no atomics, which makes the result
-// deterministic:
-//   1. attention_bwd_dq_kernel, grid (Lq / 16, B * H), 4 warps x 4 query
-//      rows, K and V through shared memory in tiles of 32 keys (one key a
-//      lane). Three passes over the keys: row max and row sum (as the
-//      forward's pass 1); then rowsum(dPt o P), which every dS of the row
-//      needs; then dS, staged in shared memory and multiplied into K. It
-//      writes dQ and one (max, sum, rowsum) triple per query row.
-//   2. attention_bwd_dkv_kernel, grid (Lk / 16, B * H), 4 warps x 4 keys.
-//      It loops over the query rows in tiles of 32 (one row a lane), reads
-//      the row triples, recomputes P, dS and D o P for its 16 keys, stages
-//      them and accumulates dK and dV over the rows in order.
-// A warp's 4 keys in kernel 2 are one group of 4 of the dropout counter, so
-// a lane draws its row's bits with one Philox call; kernel 1 stages the
-// bits of (4 rows x 8 groups) per tile, one call a lane.
-// Tensor cores (mma / wgmma) are later work.
+// Default mode (bf16 operands): the five products are exactly bf16 x bf16
+// products with f32 accumulation, and run on the tensor cores
+// (mma.sync.m16n8k16, operands from shared memory by ldmatrix). What is
+// left is the exp of every (row, key) pair, the Philox draws of the dropout
+// mask and the traffic of the tiles.
+//   1. attention_bwd_dq_mma_kernel, grid (Lq / 64, B * H), 4 warps x 16
+//      query rows. q' and dO of the block are loaded once and kept in
+//      registers as mma A fragments. K and V pass in tiles of 64 keys,
+//      double-buffered: the f32 loads of the next tile are issued into
+//      registers before the products of this one and rounded to bf16 as
+//      they are stored to shared memory after them (cp.async would copy the
+//      f32 bytes; the rounding has to pass through registers anyway). Two
+//      walks over the keys: the first keeps, per thread, an online row max,
+//      row sum and unnormalised sum of e^(s - m) dPt, rescaled with the max
+//      like the sum, and merges them across the 4 threads of a row at the
+//      end, which gives delta = rowsum(dPt o P) without a third walk; the
+//      second recomputes S and dPt, forms dS and accumulates dS K, with dS
+//      taken from the accumulator registers as the next mma's A operand.
+//      It writes dQ and one (max, sum, delta) triple per query row.
+//   2. attention_bwd_dkv_mma_kernel, grid (Lk / 64, B * H), 4 warps x 16
+//      keys. K and V of the block are A fragments in registers; q', dO and
+//      the row triples pass in double-buffered tiles of 64 rows. It computes
+//      S^T = K q'^T and dPt^T = V dO^T, so that P^T, dS^T and (D o P)^T come
+//      out of the accumulator in the register layout of the A operand of
+//      dK += dS^T q' and dV += (D o P)^T dO (FlashAttention-2's reuse): no
+//      trip through shared memory.
+//   The head dimension is zero-padded in shared memory to the mma depth
+//   (Dh 36 -> 48; the kernels are instantiated for 16, 32, 48, 64). Dropout
+//   bits: the counter's groups of 4 keys do not line up with a fragment,
+//   where a thread holds 2 adjacent keys of 2 rows, so each warp stages its
+//   own rows' keep bits for the tile in shared memory, one Philox call per
+//   group of 4 keys (8 a lane a tile), instead of two threads drawing each
+//   group. The mask is drawn once a call: the dQ kernel's first walk
+//   stores the bits (1 bit a pair, 8 MB at the largest training shape) and
+//   its second walk and the dK/dV kernel read them back, where drawing
+//   them again took a third of the kernels' time.
+// Precise mode (f32): the products stay on CUDA cores (TF32 would break its
+// bound), in two kernels of the same split: attention_bwd_dq_f32_kernel,
+// grid (Lq / 16, B * H), 4 warps x 4 query rows, three walks over keys in
+// tiles of 32 (row max and sum; delta; dS staged and multiplied into K),
+// and attention_bwd_dkv_f32_kernel, 4 warps x 4 keys, over query rows in
+// tiles of 32.
+// In both modes the dQ kernel and the dK/dV kernel each own their outputs,
+// so there are no atomics and two runs are bit-equal.
 
 #include <cuda_bf16.h>
 #include <math_constants.h>
 
 #include <cfloat>
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxD = 64;
-constexpr int kWarps = 4;
-constexpr int kOwn = 4;                 // rows (or keys) a warp owns
-constexpr int kBlock = kWarps * kOwn;   // rows (or keys) a block owns
-constexpr int kTile = 32;               // keys (or rows) per staged tile
-constexpr int kStride = kMaxD + 1;      // odd: a lane per row, no conflicts
 constexpr float kMaskValue = -FLT_MAX;  // torch.finfo(float32).min
-
-template <bool PRECISE>
-__device__ __forceinline__ float operand(float x) {
-  if (PRECISE) return x;
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 struct Strides {
   long long b, h, l;
@@ -74,34 +90,661 @@ struct Dropout {
   unsigned long long seed;
 };
 
-__device__ __forceinline__ void keep_scales(const Dropout& dr, int bh, int row,
-                                            int group, float (&d)[4]) {
+// The keep bits of one group of 4 keys, key 4 g + i at bit i.
+__device__ __forceinline__ unsigned int keep4(const Dropout& dr, int bh,
+                                              int row, int group) {
   const uint4 bits = dropout_bits(dr.seed, bh, row, group);
-  d[0] = bits.x >= dr.thresh ? dr.inv_keep : 0.f;
-  d[1] = bits.y >= dr.thresh ? dr.inv_keep : 0.f;
-  d[2] = bits.z >= dr.thresh ? dr.inv_keep : 0.f;
-  d[3] = bits.w >= dr.thresh ? dr.inv_keep : 0.f;
+  return static_cast<unsigned int>(bits.x >= dr.thresh) |
+         (static_cast<unsigned int>(bits.y >= dr.thresh) << 1) |
+         (static_cast<unsigned int>(bits.z >= dr.thresh) << 2) |
+         (static_cast<unsigned int>(bits.w >= dr.thresh) << 3);
+}
+
+// ============================================ default mode: tensor cores
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kBlockRows = 16 * kMmaWarps;  // rows (dQ) or keys (dK/dV)
+constexpr int kTile = 64;                   // keys (dQ) or rows (dK/dV)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 matrices; lanes 8i .. 8i + 7 give the row addresses of
+// matrix i, and register i of a lane holds its row lane / 4, columns
+// 2 (lane % 4) and 2 (lane % 4) + 1 (.trans: that column pair's rows).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a b for a 16x16 bf16 A (row-major fragment), a 16x8 bf16 B (column
+// fragment) and a 16x8 f32 accumulator. With g = lane / 4, t = lane % 4:
+// a[0] = A[g][2t..], a[1] = A[g+8][2t..], a[2] = A[g][2t+8..],
+// a[3] = A[g+8][2t+8..]; b0 = B[2t..][g], b1 = B[2t+8..][g];
+// d[0..1] = D[g][2t, 2t+1], d[2..3] = D[g+8][2t, 2t+1].
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to bf16, `lo` in the low half: the pair (2t, 2t + 1).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragment of a 16x16 tile whose two 16x8 halves are accumulators:
+// the accumulator layout of columns (2t, 2t + 1) is the A layout.
+__device__ __forceinline__ void accum_to_a(uint32_t (&a)[4],
+                                           const float (&x)[2][4]) {
+  a[0] = pack_bf16(x[0][0], x[0][1]);
+  a[1] = pack_bf16(x[0][2], x[0][3]);
+  a[2] = pack_bf16(x[1][0], x[1][1]);
+  a[3] = pack_bf16(x[1][2], x[1][3]);
+}
+
+// The next tile's loads are issued as cp.async copies of the f32 rows into
+// a staging area of shared memory, so that they fly while this tile's
+// products run without holding registers; after the products each thread
+// waits for its own copies and rounds exactly the slots it copied to bf16
+// (after scaling) into the other tile buffer, whose rows have a stride of
+// DP + 8 (16-byte aligned rows whose ldmatrix phases hit distinct banks).
+// A thread never reads another's staged slots, so the pipeline needs one
+// barrier a tile. Rows >= len and columns >= dh arrive as zeros (cp.async
+// zero-fills what its source size leaves out).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
+               ::: "memory");
+}
+
+template <int DP>
+struct TileCopy {
+  static constexpr int kSlots = kTile * DP / 4 / kMmaThreads;  // DP / 8
+
+  // a thread's slot i: 4 consecutive columns of one row
+  static __device__ __forceinline__ int row(int i) {
+    return (threadIdx.x + i * kMmaThreads) / (DP / 4);
+  }
+  static __device__ __forceinline__ int col(int i) {
+    return (threadIdx.x + i * kMmaThreads) % (DP / 4) * 4;
+  }
+
+  static __device__ __forceinline__ void issue(float* stage,
+                                               const float* base,
+                                               long long ld, int r0, int len,
+                                               int dh, bool vec) {
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int r = row(i), c = col(i);
+      float* dst = stage + r * DP + c;
+      const float* src = base + (r0 + r) * ld + c;
+      const bool in = r0 + r < len;
+      if (vec) {
+        const bool ok = in && c < dh;
+        cp_async16(dst, ok ? src : base, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = in && c + e < dh;
+          cp_async4(dst + e, ok ? src + e : base, ok ? 4 : 0);
+        }
+      }
+    }
+  }
+
+  static __device__ __forceinline__ void convert(const float* stage,
+                                                 __nv_bfloat16* s,
+                                                 float mul) {
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int r = row(i), c = col(i);
+      const float4 x = *reinterpret_cast<const float4*>(stage + r * DP + c);
+      uint2 w;
+      w.x = pack_bf16(x.x * mul, x.y * mul);
+      w.y = pack_bf16(x.z * mul, x.w * mul);
+      *reinterpret_cast<uint2*>(s + r * (DP + 8) + c) = w;
+    }
+  }
+};
+
+// Shared memory of either kernel: a staging area for two f32 tiles, two
+// buffers of two bf16 tiles, then the kernel's small arrays.
+template <int DP>
+struct MmaSmem {
+  static constexpr int kStage = 2 * kTile * DP;       // floats
+  static constexpr int kBf16 = 2 * 2 * kTile * (DP + 8);  // bf16 values
+  static constexpr size_t kBytes =
+      kStage * sizeof(float) + kBf16 * sizeof(__nv_bfloat16) + 2048;
+};
+
+// ldmatrix addresses of a lane, for a tile stored [row][col] at stride S:
+// the A fragment of rows r0.., columns c0..c0+15;
+__device__ __forceinline__ int a_offset(int lane, int r0, int c0, int S) {
+  return (r0 + (lane & 15)) * S + c0 + (lane >> 4) * 8;
+}
+// the B fragments of two 8-wide n tiles n0, n0 + 8 over k = c0..c0+15
+// when the tile is stored [n][k] (non-transposed load);
+__device__ __forceinline__ int b_offset(int lane, int n0, int c0, int S) {
+  return (n0 + (lane & 7) + ((lane >> 4) << 3)) * S + c0 +
+         ((lane >> 3) & 1) * 8;
+}
+// the B fragments of n tiles c0, c0 + 8 over k = k0..k0+15 when the tile is
+// stored [k][n] (transposed load).
+__device__ __forceinline__ int bt_offset(int lane, int k0, int c0, int S) {
+  return (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + c0 +
+         (lane >> 4) * 8;
 }
 
 // ------------------------------------------------------------------ dQ
 
-template <bool PRECISE, bool DROPOUT>
+template <int DP, bool DROPOUT>
+__global__ void __launch_bounds__(kMmaThreads)
+attention_bwd_dq_mma_kernel(const float* __restrict__ q, Strides qs,
+                            const float* __restrict__ k, Strides ks,
+                            const float* __restrict__ v, Strides vs,
+                            const unsigned char* __restrict__ pad,
+                            const float* __restrict__ dout, Strides dos,
+                            float* __restrict__ dq, Strides dqs,
+                            float* __restrict__ stats,
+                            unsigned int* __restrict__ keep_bits, int heads,
+                            int lq, int lk, int dh, float scale, Dropout dr,
+                            bool vec) {
+  constexpr int S = DP + 8;
+  constexpr int KD = DP / 16;  // k steps over the head dimension
+  constexpr int ND = DP / 8;   // n tiles over the head dimension
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* stage_k = reinterpret_cast<float*>(smem);
+  float* stage_v = stage_k + kTile * DP;
+  __nv_bfloat16 (*kv_s)[2][kTile * S] =  // [buf][K, V]
+      reinterpret_cast<__nv_bfloat16 (*)[2][kTile * S]>(
+          stage_k + MmaSmem<DP>::kStage);
+  unsigned int (*keep_s)[16][kTile / 32] =  // a bit a key
+      reinterpret_cast<unsigned int (*)[16][kTile / 32]>(kv_s + 2);
+  unsigned char (*pad_s)[kTile] =
+      reinterpret_cast<unsigned char (*)[kTile]>(keep_s + kMmaWarps);
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = blockIdx.x * kBlockRows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  const float* qp = q + b * qs.b + h * qs.h;
+  const float* kp = k + b * ks.b + h * ks.h;
+  const float* vp = v + b * vs.b + h * vs.h;
+  const float* dop = dout + b * dos.b + h * dos.h;
+  const unsigned char* padp = pad ? pad + static_cast<long long>(b) * lk
+                                  : nullptr;
+  // the keep bits of the warp's rows: (B * H, Lq, words) 32-bit words
+  const int words = (lk + 31) >> 5;
+  unsigned int* keep_row =
+      DROPOUT ? keep_bits + (static_cast<long long>(bh) * lq + q0 +
+                             warp * 16) * words
+              : nullptr;
+
+  // q' and dO of the block's rows, through buffer 1, kept as A fragments
+  TileCopy<DP>::issue(stage_k, qp, qs.l, q0, lq, dh, vec);
+  TileCopy<DP>::issue(stage_v, dop, dos.l, q0, lq, dh, vec);
+  cp_async_wait_all();
+  TileCopy<DP>::convert(stage_k, kv_s[1][0], scale);
+  TileCopy<DP>::convert(stage_v, kv_s[1][1], 1.f);
+  unsigned char pad_r = 0;
+  auto issue_kv = [&](int t0) {
+    TileCopy<DP>::issue(stage_k, kp, ks.l, t0, lk, dh, vec);
+    TileCopy<DP>::issue(stage_v, vp, vs.l, t0, lk, dh, vec);
+    if (tid < kTile) pad_r = (padp && t0 + tid < lk) ? padp[t0 + tid] : 0;
+  };
+  auto land_kv = [&](int buf) {
+    cp_async_wait_all();
+    TileCopy<DP>::convert(stage_k, kv_s[buf][0], 1.f);
+    TileCopy<DP>::convert(stage_v, kv_s[buf][1], 1.f);
+    if (tid < kTile) pad_s[buf][tid] = pad_r;
+  };
+  issue_kv(0);
+  land_kv(0);
+  __syncthreads();
+  uint32_t qa[KD][4], da[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    ldsm_x4(qa[kk], kv_s[1][0] + a_offset(lane, warp * 16, kk * 16, S));
+    ldsm_x4(da[kk], kv_s[1][1] + a_offset(lane, warp * 16, kk * 16, S));
+  }
+  __syncthreads();  // buffer 1 is free for the key tiles
+
+  // rows g (index 0) and g + 8 (index 1) of the warp's 16
+  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_r[2] = {0.f, 0.f}, u_r[2] = {0.f, 0.f};
+  float inv_l[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int n_tiles = (lk + kTile - 1) / kTile;
+  const int steps = 2 * n_tiles;  // walk 1 (statistics), walk 2 (dS K)
+  for (int s = 0; s < steps; ++s) {
+    const int buf = s & 1;
+    const bool second = s >= n_tiles;
+    const int t0 = (second ? s - n_tiles : s) * kTile;
+    if (s + 1 < steps) issue_kv(((s + 1) % n_tiles) * kTile);
+    if (s == n_tiles) {
+      // merge the 4 threads of each row: max, then the rescaled sums
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float m = m_r[hr];
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        const float a = __expf(m_r[hr] - m);  // 0 for a thread with no key
+        float l = l_r[hr] * a, u = u_r[hr] * a;
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        u += __shfl_xor_sync(0xffffffffu, u, 1);
+        u += __shfl_xor_sync(0xffffffffu, u, 2);
+        m_r[hr] = m;
+        l_r[hr] = l;
+        inv_l[hr] = 1.f / l;
+        delta[hr] = u / l;
+      }
+    }
+    if (DROPOUT) {
+      // the keep bits of the warp's 16 rows x the tile's 64 keys: lane
+      // (r, half) owns word `half` (keys 32 half ..) of row r. The first
+      // walk draws it (8 groups of 4 keys) and stores it for the second
+      // walk and the dK/dV kernel, which read it back.
+      const int r = lane & 15, half = lane >> 4;
+      const int row = q0 + warp * 16 + r;
+      const int word = (t0 >> 5) + half;
+      const bool stored = row < lq && word < words;
+      unsigned int w = 0;
+      if (!second) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          w |= keep4(dr, bh, row, (t0 >> 2) + half * 8 + i) << (4 * i);
+        }
+        if (stored) keep_row[static_cast<long long>(r) * words + word] = w;
+      } else if (stored) {
+        w = keep_row[static_cast<long long>(r) * words + word];
+      }
+      keep_s[warp][r][half] = w;
+      __syncwarp();
+    }
+    const __nv_bfloat16* ks_ = kv_s[buf][0];
+    const __nv_bfloat16* vs_ = kv_s[buf][1];
+#pragma unroll
+    for (int c = 0; c < kTile / 16; ++c) {
+      // S and dPt of the warp's 16 rows x keys 16 c .. 16 c + 15
+      float sc[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t bk[4], bv[4];
+        const int off = b_offset(lane, c * 16, kk * 16, S);
+        ldsm_x4(bk, ks_ + off);
+        ldsm_x4(bv, vs_ + off);
+        mma_bf16(sc[0], qa[kk], bk[0], bk[1]);
+        mma_bf16(sc[1], qa[kk], bk[2], bk[3]);
+        mma_bf16(dp[0], da[kk], bv[0], bv[1]);
+        mma_bf16(dp[1], da[kk], bv[2], bv[3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = c * 16 + nt * 8 + 2 * t;  // elements 0, 2; +1: 1, 3
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cc = col + (e & 1);
+          if (t0 + cc >= lk) {
+            sc[nt][e] = -CUDART_INF_F;  // past the last key: no weight
+          } else if (pad_s[buf][cc]) {
+            sc[nt][e] = kMaskValue;
+          }
+        }
+        if (DROPOUT) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const unsigned int bits =
+                keep_s[warp][g + 8 * hr][col >> 5] >> (col & 31);
+            dp[nt][2 * hr] *= (bits & 1u) ? dr.inv_keep : 0.f;
+            dp[nt][2 * hr + 1] *= (bits & 2u) ? dr.inv_keep : 0.f;
+          }
+        }
+      }
+      if (!second) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const float cm = fmaxf(fmaxf(sc[0][2 * hr], sc[0][2 * hr + 1]),
+                                 fmaxf(sc[1][2 * hr], sc[1][2 * hr + 1]));
+          const float mn = fmaxf(m_r[hr], cm);
+          if (mn == -CUDART_INF_F) continue;  // no key of this row here yet
+          const float a = __expf(m_r[hr] - mn);
+          float ls = 0.f, us = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+              const float x = __expf(sc[nt][e] - mn);
+              ls += x;
+              us += x * dp[nt][e];
+            }
+          }
+          l_r[hr] = l_r[hr] * a + ls;
+          u_r[hr] = u_r[hr] * a + us;
+          m_r[hr] = mn;
+        }
+      } else {
+        float ds[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hr = e >> 1;
+            const float p = __expf(sc[nt][e] - m_r[hr]) * inv_l[hr];
+            ds[nt][e] = p * (dp[nt][e] - delta[hr]);
+          }
+        }
+        uint32_t a[4];
+        accum_to_a(a, ds);
+#pragma unroll
+        for (int nd = 0; nd < ND; nd += 2) {
+          uint32_t bk[4];
+          ldsm_x4_t(bk, ks_ + bt_offset(lane, c * 16, nd * 8, S));
+          mma_bf16(acc[nd], a, bk[0], bk[1]);
+          mma_bf16(acc[nd + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+    if (s + 1 < steps) land_kv(buf ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + warp * 16 + g + 8 * hr;
+    if (row >= lq) continue;
+    float* op = dq + b * dqs.b + h * dqs.h + row * dqs.l;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      const int col = nd * 8 + 2 * t;
+      if (col < dh) op[col] = acc[nd][2 * hr] * scale;
+      if (col + 1 < dh) op[col + 1] = acc[nd][2 * hr + 1] * scale;
+    }
+    if (t == 0) {
+      float* st = stats + (static_cast<long long>(bh) * lq + row) * 3;
+      st[0] = m_r[hr];
+      st[1] = l_r[hr];
+      st[2] = delta[hr];
+    }
+  }
+}
+
+// --------------------------------------------------------------- dK, dV
+
+template <int DP, bool DROPOUT>
+__global__ void __launch_bounds__(kMmaThreads)
+attention_bwd_dkv_mma_kernel(const float* __restrict__ q, Strides qs,
+                             const float* __restrict__ k, Strides ks,
+                             const float* __restrict__ v, Strides vs,
+                             const unsigned char* __restrict__ pad,
+                             const float* __restrict__ dout, Strides dos,
+                             const float* __restrict__ stats,
+                             const unsigned int* __restrict__ keep_bits,
+                             float* __restrict__ dk, Strides dks,
+                             float* __restrict__ dv, Strides dvs, int heads,
+                             int lq, int lk, int dh, float scale, Dropout dr,
+                             bool vec) {
+  constexpr int S = DP + 8;
+  constexpr int KD = DP / 16;
+  constexpr int ND = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* stage_q = reinterpret_cast<float*>(smem);
+  float* stage_d = stage_q + kTile * DP;
+  __nv_bfloat16 (*qd_s)[2][kTile * S] =  // [buf][q', dO]
+      reinterpret_cast<__nv_bfloat16 (*)[2][kTile * S]>(
+          stage_q + MmaSmem<DP>::kStage);
+  float (*st_s)[kTile][3] =  // max, 1 / sum, delta of a row
+      reinterpret_cast<float (*)[kTile][3]>(qd_s + 2);
+  unsigned short (*keep_s)[kTile] =  // the warp's 16 keys
+      reinterpret_cast<unsigned short (*)[kTile]>(st_s + 2);
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int k0 = blockIdx.x * kBlockRows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  const float* qp = q + b * qs.b + h * qs.h;
+  const float* kp = k + b * ks.b + h * ks.h;
+  const float* vp = v + b * vs.b + h * vs.h;
+  const float* dop = dout + b * dos.b + h * dos.h;
+  const float* stp = stats + static_cast<long long>(bh) * lq * 3;
+
+  // K and V of the block's keys, through buffer 1, kept as A fragments
+  TileCopy<DP>::issue(stage_q, kp, ks.l, k0, lk, dh, vec);
+  TileCopy<DP>::issue(stage_d, vp, vs.l, k0, lk, dh, vec);
+  cp_async_wait_all();
+  TileCopy<DP>::convert(stage_q, qd_s[1][0], 1.f);
+  TileCopy<DP>::convert(stage_d, qd_s[1][1], 1.f);
+  float st_r[3] = {0.f, 0.f, 0.f};
+  auto issue_qd = [&](int i0) {
+    TileCopy<DP>::issue(stage_q, qp, qs.l, i0, lq, dh, vec);
+    TileCopy<DP>::issue(stage_d, dop, dos.l, i0, lq, dh, vec);
+    if (tid < kTile) {
+      const int row = i0 + tid;
+      if (row < lq) {
+        st_r[0] = stp[row * 3 + 0];
+        st_r[1] = 1.f / stp[row * 3 + 1];
+        st_r[2] = stp[row * 3 + 2];
+      } else {  // no row: P = 0
+        st_r[0] = st_r[1] = st_r[2] = 0.f;
+      }
+    }
+  };
+  auto land_qd = [&](int buf) {
+    cp_async_wait_all();
+    TileCopy<DP>::convert(stage_q, qd_s[buf][0], scale);
+    TileCopy<DP>::convert(stage_d, qd_s[buf][1], 1.f);
+    if (tid < kTile) {
+      st_s[buf][tid][0] = st_r[0];
+      st_s[buf][tid][1] = st_r[1];
+      st_s[buf][tid][2] = st_r[2];
+    }
+  };
+  issue_qd(0);
+  land_qd(0);
+  __syncthreads();
+  uint32_t ka[KD][4], va[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    ldsm_x4(ka[kk], qd_s[1][0] + a_offset(lane, warp * 16, kk * 16, S));
+    ldsm_x4(va[kk], qd_s[1][1] + a_offset(lane, warp * 16, kk * 16, S));
+  }
+  __syncthreads();  // buffer 1 is free for the row tiles
+
+  // the thread's keys: g (index 0) and g + 8 (index 1) of the warp's 16
+  bool in_k[2], pad_k[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = k0 + warp * 16 + g + 8 * hr;
+    in_k[hr] = key < lk;
+    pad_k[hr] = pad && in_k[hr] &&
+                pad[static_cast<long long>(b) * lk + key] != 0;
+  }
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  }
+
+  // the warp's 16 keys are one half of one word of each row's keep bits
+  const int words = (lk + 31) >> 5;
+  const int word = (k0 + warp * 16) >> 5, shift = (warp & 1) * 16;
+  const unsigned int* keep_bh =
+      DROPOUT ? keep_bits + static_cast<long long>(bh) * lq * words : nullptr;
+  const int n_tiles = (lq + kTile - 1) / kTile;
+  for (int s = 0; s < n_tiles; ++s) {
+    const int buf = s & 1;
+    const int i0 = s * kTile;
+    if (s + 1 < n_tiles) issue_qd(i0 + kTile);
+    if (DROPOUT) {
+      // the dQ kernel's keep bits of rows lane and lane + 32 of the tile
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int rl = lane + 32 * hr;
+        const int row = i0 + rl;
+        const unsigned int w =
+            row < lq && word < words
+                ? keep_bh[static_cast<long long>(row) * words + word]
+                : 0u;
+        keep_s[warp][rl] = static_cast<unsigned short>(w >> shift);
+      }
+      __syncwarp();
+    }
+    const __nv_bfloat16* qs_ = qd_s[buf][0];
+    const __nv_bfloat16* ds_ = qd_s[buf][1];
+#pragma unroll
+    for (int c = 0; c < kTile / 16; ++c) {
+      // S^T and dPt^T of the warp's 16 keys x rows 16 c .. 16 c + 15
+      float sc[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t bq[4], bd[4];
+        const int off = b_offset(lane, c * 16, kk * 16, S);
+        ldsm_x4(bq, qs_ + off);
+        ldsm_x4(bd, ds_ + off);
+        mma_bf16(sc[0], ka[kk], bq[0], bq[1]);
+        mma_bf16(sc[1], ka[kk], bq[2], bq[3]);
+        mma_bf16(dp[0], va[kk], bd[0], bd[1]);
+        mma_bf16(dp[1], va[kk], bd[2], bd[3]);
+      }
+      float dst[2][4], pdt[2][4];  // dS^T, (D o P)^T
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          const int rl = c * 16 + nt * 8 + 2 * t + (e & 1);
+          const float m = st_s[buf][rl][0], il = st_s[buf][rl][1];
+          const float s_ = pad_k[hr] ? kMaskValue : sc[nt][e];
+          float p = in_k[hr] ? __expf(s_ - m) * il : 0.f;
+          float dpt = dp[nt][e], pe = p;
+          if (DROPOUT) {
+            const float d = (keep_s[warp][rl] >> (g + 8 * hr)) & 1u
+                                ? dr.inv_keep
+                                : 0.f;
+            dpt *= d;
+            pe *= d;
+          }
+          dst[nt][e] = p * (dpt - st_s[buf][rl][2]);
+          pdt[nt][e] = pe;
+        }
+      }
+      uint32_t a_ds[4], a_pd[4];
+      accum_to_a(a_ds, dst);
+      accum_to_a(a_pd, pdt);
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2) {
+        uint32_t bq[4], bd[4];
+        const int off = bt_offset(lane, c * 16, nd * 8, S);
+        ldsm_x4_t(bq, qs_ + off);
+        ldsm_x4_t(bd, ds_ + off);
+        mma_bf16(dk_acc[nd], a_ds, bq[0], bq[1]);
+        mma_bf16(dk_acc[nd + 1], a_ds, bq[2], bq[3]);
+        mma_bf16(dv_acc[nd], a_pd, bd[0], bd[1]);
+        mma_bf16(dv_acc[nd + 1], a_pd, bd[2], bd[3]);
+      }
+    }
+    if (s + 1 < n_tiles) land_qd(buf ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (!in_k[hr]) continue;
+    const int key = k0 + warp * 16 + g + 8 * hr;
+    float* dkp = dk + b * dks.b + h * dks.h + key * dks.l;
+    float* dvp = dv + b * dvs.b + h * dvs.h + key * dvs.l;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      const int col = nd * 8 + 2 * t;
+      if (col < dh) {
+        dkp[col] = dk_acc[nd][2 * hr];
+        dvp[col] = dv_acc[nd][2 * hr];
+      }
+      if (col + 1 < dh) {
+        dkp[col + 1] = dk_acc[nd][2 * hr + 1];
+        dvp[col + 1] = dv_acc[nd][2 * hr + 1];
+      }
+    }
+  }
+}
+
+// ============================================ precise mode: CUDA cores
+
+constexpr int kWarps = 4;
+constexpr int kOwn = 4;                 // rows (or keys) a warp owns
+constexpr int kBlock = kWarps * kOwn;   // rows (or keys) a block owns
+constexpr int kF32Tile = 32;            // keys (or rows) per staged tile
+constexpr int kStride = kMaxD + 1;      // odd: a lane per row, no conflicts
+
+__device__ __forceinline__ void keep_scales(const Dropout& dr, int bh, int row,
+                                            int group, float (&d)[4]) {
+  const unsigned int bits = keep4(dr, bh, row, group);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] = (bits >> i) & 1u ? dr.inv_keep : 0.f;
+}
+
+// ------------------------------------------------------------------ dQ
+
+template <bool DROPOUT>
 __global__ void __launch_bounds__(kWarps * 32)
-attention_bwd_dq_kernel(const float* __restrict__ q, Strides qs,
-                        const float* __restrict__ k, Strides ks,
-                        const float* __restrict__ v, Strides vs,
-                        const unsigned char* __restrict__ pad,
-                        const float* __restrict__ dout, Strides dos,
-                        float* __restrict__ dq, Strides dqs,
-                        float* __restrict__ stats, int heads, int lq, int lk,
-                        int dh, float scale, Dropout dr) {
+attention_bwd_dq_f32_kernel(const float* __restrict__ q, Strides qs,
+                            const float* __restrict__ k, Strides ks,
+                            const float* __restrict__ v, Strides vs,
+                            const unsigned char* __restrict__ pad,
+                            const float* __restrict__ dout, Strides dos,
+                            float* __restrict__ dq, Strides dqs,
+                            float* __restrict__ stats, int heads, int lq,
+                            int lk, int dh, float scale, Dropout dr) {
   __shared__ float q_s[kBlock][kMaxD];
   __shared__ float do_s[kBlock][kMaxD];
-  __shared__ float k_s[kTile][kStride];
-  __shared__ float v_s[kTile][kStride];
-  __shared__ float ds_s[kWarps][kOwn][kTile];
-  __shared__ float drop_s[kWarps][kOwn][kTile];
-  __shared__ unsigned char pad_s[kTile];
+  __shared__ float k_s[kF32Tile][kStride];
+  __shared__ float v_s[kF32Tile][kStride];
+  __shared__ float ds_s[kWarps][kOwn][kF32Tile];
+  __shared__ float drop_s[kWarps][kOwn][kF32Tile];
+  __shared__ unsigned char pad_s[kF32Tile];
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
@@ -122,19 +765,19 @@ attention_bwd_dq_kernel(const float* __restrict__ q, Strides qs,
     const int r = idx / dh, d = idx % dh;
     const int row = q0 + r;
     const bool in = row < lq;
-    q_s[r][d] = in ? operand<PRECISE>(qp[row * qs.l + d] * scale) : 0.f;
-    do_s[r][d] = in ? operand<PRECISE>(dop[row * dos.l + d]) : 0.f;
+    q_s[r][d] = in ? qp[row * qs.l + d] * scale : 0.f;
+    do_s[r][d] = in ? dop[row * dos.l + d] : 0.f;
   }
 
   auto load_tile = [&](int t0, bool with_v) {
-    for (int idx = tid; idx < kTile * dh; idx += kWarps * 32) {
+    for (int idx = tid; idx < kF32Tile * dh; idx += kWarps * 32) {
       const int j = idx / dh, d = idx % dh;
       const int key = t0 + j;
       const bool in = key < lk;
-      k_s[j][d] = in ? operand<PRECISE>(kp[key * ks.l + d]) : 0.f;
-      if (with_v) v_s[j][d] = in ? operand<PRECISE>(vp[key * vs.l + d]) : 0.f;
+      k_s[j][d] = in ? kp[key * ks.l + d] : 0.f;
+      if (with_v) v_s[j][d] = in ? vp[key * vs.l + d] : 0.f;
     }
-    if (tid < kTile) {
+    if (tid < kF32Tile) {
       const int key = t0 + tid;
       pad_s[tid] = (padp && key < lk) ? padp[key] : 0;
     }
@@ -188,7 +831,7 @@ attention_bwd_dq_kernel(const float* __restrict__ q, Strides qs,
     m_run[r] = -CUDART_INF_F;
     l_run[r] = 0.f;
   }
-  for (int t0 = 0; t0 < lk; t0 += kTile) {
+  for (int t0 = 0; t0 < lk; t0 += kF32Tile) {
     __syncthreads();
     load_tile(t0, false);
     __syncthreads();
@@ -220,11 +863,11 @@ attention_bwd_dq_kernel(const float* __restrict__ q, Strides qs,
     }
   }
 
-  // ---- pass 2: delta = rowsum(dPt o P), with P normalized and unrounded
+  // ---- pass 2: delta = rowsum(dPt o P), with P normalized
   float delta[kOwn];
 #pragma unroll
   for (int r = 0; r < kOwn; ++r) delta[r] = 0.f;
-  for (int t0 = 0; t0 < lk; t0 += kTile) {
+  for (int t0 = 0; t0 < lk; t0 += kF32Tile) {
     __syncthreads();
     load_tile(t0, true);
     __syncthreads();
@@ -250,11 +893,11 @@ attention_bwd_dq_kernel(const float* __restrict__ q, Strides qs,
     }
   }
 
-  // ---- pass 3: dS (rounded in the default mode) times K
+  // ---- pass 3: dS times K
   float acc[kOwn][2];
 #pragma unroll
   for (int r = 0; r < kOwn; ++r) acc[r][0] = acc[r][1] = 0.f;
-  for (int t0 = 0; t0 < lk; t0 += kTile) {
+  for (int t0 = 0; t0 < lk; t0 += kF32Tile) {
     __syncthreads();
     load_tile(t0, true);
     __syncthreads();
@@ -269,12 +912,11 @@ attention_bwd_dq_kernel(const float* __restrict__ q, Strides qs,
       for (int r = 0; r < kOwn; ++r) {
         const float p = expf(s[r] - m_run[r]) / l_run[r];
         const float dpt = DROPOUT ? dsc[r] * dov[r] : dov[r];
-        ds_s[warp][r][lane] =
-            in ? operand<PRECISE>(p * (dpt - delta[r])) : 0.f;
+        ds_s[warp][r][lane] = in ? p * (dpt - delta[r]) : 0.f;
       }
     }
     __syncwarp();
-    const int nk = min(kTile, lk - t0);
+    const int nk = min(kF32Tile, lk - t0);
     for (int j = 0; j < nk; ++j) {
       const float k0 = k_s[j][lane];
       const float k1 = k_s[j][lane + 32];
@@ -306,24 +948,24 @@ attention_bwd_dq_kernel(const float* __restrict__ q, Strides qs,
 
 // --------------------------------------------------------------- dK, dV
 
-template <bool PRECISE, bool DROPOUT>
+template <bool DROPOUT>
 __global__ void __launch_bounds__(kWarps * 32)
-attention_bwd_dkv_kernel(const float* __restrict__ q, Strides qs,
-                         const float* __restrict__ k, Strides ks,
-                         const float* __restrict__ v, Strides vs,
-                         const unsigned char* __restrict__ pad,
-                         const float* __restrict__ dout, Strides dos,
-                         const float* __restrict__ stats,
-                         float* __restrict__ dk, Strides dks,
-                         float* __restrict__ dv, Strides dvs, int heads,
-                         int lq, int lk, int dh, float scale, Dropout dr) {
+attention_bwd_dkv_f32_kernel(const float* __restrict__ q, Strides qs,
+                             const float* __restrict__ k, Strides ks,
+                             const float* __restrict__ v, Strides vs,
+                             const unsigned char* __restrict__ pad,
+                             const float* __restrict__ dout, Strides dos,
+                             const float* __restrict__ stats,
+                             float* __restrict__ dk, Strides dks,
+                             float* __restrict__ dv, Strides dvs, int heads,
+                             int lq, int lk, int dh, float scale, Dropout dr) {
   __shared__ float kb_s[kBlock][kMaxD];
   __shared__ float vb_s[kBlock][kMaxD];
-  __shared__ float q_s[kTile][kStride];
-  __shared__ float do_s[kTile][kStride];
-  __shared__ float st_s[kTile][3];
-  __shared__ float ds_s[kWarps][kOwn][kTile];
-  __shared__ float dp_s[kWarps][kOwn][kTile];
+  __shared__ float q_s[kF32Tile][kStride];
+  __shared__ float do_s[kF32Tile][kStride];
+  __shared__ float st_s[kF32Tile][3];
+  __shared__ float ds_s[kWarps][kOwn][kF32Tile];
+  __shared__ float dp_s[kWarps][kOwn][kF32Tile];
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
@@ -344,8 +986,8 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, Strides qs,
     const int j = idx / dh, d = idx % dh;
     const int key = k0 + j;
     const bool in = key < lk;
-    kb_s[j][d] = in ? operand<PRECISE>(kp[key * ks.l + d]) : 0.f;
-    vb_s[j][d] = in ? operand<PRECISE>(vp[key * vs.l + d]) : 0.f;
+    kb_s[j][d] = in ? kp[key * ks.l + d] : 0.f;
+    vb_s[j][d] = in ? vp[key * vs.l + d] : 0.f;
   }
   bool padded[kOwn];
 #pragma unroll
@@ -362,16 +1004,16 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, Strides qs,
     dv_acc[c][0] = dv_acc[c][1] = 0.f;
   }
 
-  for (int i0 = 0; i0 < lq; i0 += kTile) {
+  for (int i0 = 0; i0 < lq; i0 += kF32Tile) {
     __syncthreads();
-    for (int idx = tid; idx < kTile * dh; idx += kWarps * 32) {
+    for (int idx = tid; idx < kF32Tile * dh; idx += kWarps * 32) {
       const int i = idx / dh, d = idx % dh;
       const int row = i0 + i;
       const bool in = row < lq;
-      q_s[i][d] = in ? operand<PRECISE>(qp[row * qs.l + d] * scale) : 0.f;
-      do_s[i][d] = in ? operand<PRECISE>(dop[row * dos.l + d]) : 0.f;
+      q_s[i][d] = in ? qp[row * qs.l + d] * scale : 0.f;
+      do_s[i][d] = in ? dop[row * dos.l + d] : 0.f;
     }
-    if (tid < kTile) {
+    if (tid < kF32Tile) {
       const int row = i0 + tid;
       const bool in = row < lq;
       st_s[tid][0] = in ? stp[row * 3 + 0] : 0.f;
@@ -397,11 +1039,11 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, Strides qs,
       const float dpt = DROPOUT ? dsc[c] * dov : dov;
       const float dpe = DROPOUT ? dsc[c] * p : p;
       const bool in = row_in && key0 + c < lk;
-      ds_s[warp][c][lane] = in ? operand<PRECISE>(p * (dpt - delta)) : 0.f;
-      dp_s[warp][c][lane] = in ? operand<PRECISE>(dpe) : 0.f;
+      ds_s[warp][c][lane] = in ? p * (dpt - delta) : 0.f;
+      dp_s[warp][c][lane] = in ? dpe : 0.f;
     }
     __syncwarp();
-    const int ni = min(kTile, lq - i0);
+    const int ni = min(kF32Tile, lq - i0);
     for (int i = 0; i < ni; ++i) {
       const float qa = q_s[i][lane], qb = q_s[i][lane + 32];
       const float oa = do_s[i][lane], ob = do_s[i][lane + 32];
@@ -435,13 +1077,81 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, Strides qs,
   }
 }
 
+// The default mode's two kernels for one padded head dimension.
+template <int DP, bool DROPOUT>
+cudaError_t launch_mma(int device, dim3 grid_q, dim3 grid_k, cudaStream_t st,
+                       const float* q, Strides qs, const float* k, Strides ks,
+                       const float* v, Strides vs, const unsigned char* pad,
+                       const float* dout, Strides dos, float* dq, Strides dqs,
+                       float* dk, Strides dks, float* dv, Strides dvs,
+                       float* stats, unsigned int* keep_bits, int heads,
+                       int lq, int lk, int dh, float scale, Dropout dr,
+                       bool vec) {
+  constexpr size_t smem = MmaSmem<DP>::kBytes;  // over the 48 KB default
+  auto dq_kernel = attention_bwd_dq_mma_kernel<DP, DROPOUT>;
+  auto dkv_kernel = attention_bwd_dkv_mma_kernel<DP, DROPOUT>;
+  cudaError_t err;
+  // The limit is a property of a kernel on a device: set it once for this
+  // instantiation's two kernels on each device (a driver call on every
+  // launch would cost more than a small launch itself).
+  constexpr int kDevices = 64;
+  static bool smem_set[kDevices] = {};
+  const bool known = device >= 0 && device < kDevices;
+  if (!known || !smem_set[device]) {
+    err = cudaFuncSetAttribute(
+        dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(
+          dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    }
+    if (err != cudaSuccess) return err;
+    if (known) smem_set[device] = true;
+  }
+  dq_kernel<<<grid_q, kMmaThreads, smem, st>>>(
+      q, qs, k, ks, v, vs, pad, dout, dos, dq, dqs, stats, keep_bits, heads,
+      lq, lk, dh, scale, dr, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_kernel<<<grid_k, kMmaThreads, smem, st>>>(
+      q, qs, k, ks, v, vs, pad, dout, dos, stats, keep_bits, dk, dks, dv, dvs,
+      heads, lq, lk, dh, scale, dr, vec);
+  return cudaGetLastError();
+}
+
+template <bool DROPOUT>
+cudaError_t launch_f32(dim3 grid_q, dim3 grid_k, cudaStream_t st,
+                       const float* q, Strides qs, const float* k, Strides ks,
+                       const float* v, Strides vs, const unsigned char* pad,
+                       const float* dout, Strides dos, float* dq, Strides dqs,
+                       float* dk, Strides dks, float* dv, Strides dvs,
+                       float* stats, int heads, int lq, int lk, int dh,
+                       float scale, Dropout dr) {
+  attention_bwd_dq_f32_kernel<DROPOUT><<<grid_q, kWarps * 32, 0, st>>>(
+      q, qs, k, ks, v, vs, pad, dout, dos, dq, dqs, stats, heads, lq, lk, dh,
+      scale, dr);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkv_f32_kernel<DROPOUT><<<grid_k, kWarps * 32, 0, st>>>(
+      q, qs, k, ks, v, vs, pad, dout, dos, stats, dk, dks, dv, dvs, heads, lq,
+      lk, dh, scale, dr);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p, long long sb, long long sh, long long sl) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 &&
+         sh % 4 == 0 && sl % 4 == 0;
+}
+
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv: f32 (B, H, L, Dh) views with the given
 // (batch, head, row) strides and a unit-stride head dimension; pad: (B, Lk)
-// bytes or null; stats: (B * H, Lq, 3) f32 scratch. drop_thresh == 0 runs
-// without dropout.
+// bytes or null; stats: (B * H, Lq, 3) f32 scratch; keep_bits: with dropout
+// in the default mode, (B * H, Lq, ceil(Lk / 32)) 32-bit scratch for the
+// mask, else null. drop_thresh == 0 runs without dropout. `precise` picks
+// the f32 mode, else the bf16-operand mode.
 extern "C" int attention_bwd_launch(
+    int device,
     const float* q, long long qsb, long long qsh, long long qsl,
     const float* k, long long ksb, long long ksh, long long ksl,
     const float* v, long long vsb, long long vsh, long long vsl,
@@ -450,38 +1160,65 @@ extern "C" int attention_bwd_launch(
     float* dq, long long dqsb, long long dqsh, long long dqsl,
     float* dk, long long dksb, long long dksh, long long dksl,
     float* dv, long long dvsb, long long dvsh, long long dvsl,
-    float* stats, int batch, int heads, int lq, int lk, int dh, float scale,
-    int precise, unsigned int drop_thresh, float inv_keep,
-    unsigned long long seed, void* stream) {
+    float* stats, unsigned int* keep_bits, int batch, int heads, int lq,
+    int lk, int dh, float scale, int precise, unsigned int drop_thresh,
+    float inv_keep, unsigned long long seed, void* stream) {
   if (dh > kMaxD || dh < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid_q((lq + kBlock - 1) / kBlock, batch * heads);
-  const dim3 grid_k((lk + kBlock - 1) / kBlock, batch * heads);
-  const dim3 block(kWarps * 32);
+  if (drop_thresh && !precise && keep_bits == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DeviceScope on(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl},
       dos{dosb, dosh, dosl}, dqs{dqsb, dqsh, dqsl}, dks{dksb, dksh, dksl},
       dvs{dvsb, dvsh, dvsl};
   const Dropout dr{drop_thresh, inv_keep, seed};
-#define BUTD_ATTENTION_BWD(PRECISE, DROPOUT)                                 \
-  do {                                                                       \
-    attention_bwd_dq_kernel<PRECISE, DROPOUT><<<grid_q, block, 0, st>>>(     \
-        q, qs, k, ks, v, vs, pad, dout, dos, dq, dqs, stats, heads, lq, lk,  \
-        dh, scale, dr);                                                      \
-    const cudaError_t err = cudaGetLastError();                              \
-    if (err != cudaSuccess) return static_cast<int>(err);                    \
-    attention_bwd_dkv_kernel<PRECISE, DROPOUT><<<grid_k, block, 0, st>>>(    \
-        q, qs, k, ks, v, vs, pad, dout, dos, stats, dk, dks, dv, dvs, heads, \
-        lq, lk, dh, scale, dr);                                              \
-  } while (0)
+  cudaError_t err;
   if (precise) {
-    if (drop_thresh) BUTD_ATTENTION_BWD(true, true);
-    else BUTD_ATTENTION_BWD(true, false);
-  } else {
-    if (drop_thresh) BUTD_ATTENTION_BWD(false, true);
-    else BUTD_ATTENTION_BWD(false, false);
+    const dim3 grid_q((lq + kBlock - 1) / kBlock, batch * heads);
+    const dim3 grid_k((lk + kBlock - 1) / kBlock, batch * heads);
+#define BUTD_F32(DROPOUT)                                                    \
+  launch_f32<DROPOUT>(grid_q, grid_k, st, q, qs, k, ks, v, vs, pad, dout,    \
+                      dos, dq, dqs, dk, dks, dv, dvs, stats, heads, lq, lk,  \
+                      dh, scale, dr)
+    err = drop_thresh ? BUTD_F32(true) : BUTD_F32(false);
+#undef BUTD_F32
+    return static_cast<int>(err);
   }
-#undef BUTD_ATTENTION_BWD
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid_q((lq + kBlockRows - 1) / kBlockRows, batch * heads);
+  const dim3 grid_k((lk + kBlockRows - 1) / kBlockRows, batch * heads);
+  const bool vec = dh % 4 == 0 && aligned16(q, qsb, qsh, qsl) &&
+                   aligned16(k, ksb, ksh, ksl) &&
+                   aligned16(v, vsb, vsh, vsl) &&
+                   aligned16(dout, dosb, dosh, dosl);
+  const int dp = (dh + 15) / 16 * 16;
+#define BUTD_MMA(DP, DROPOUT)                                                \
+  launch_mma<DP, DROPOUT>(device, grid_q, grid_k, st, q, qs, k, ks, v, vs,  \
+                          pad, dout, dos, dq, dqs, dk, dks, dv, dvs, stats,  \
+                          keep_bits, heads, lq, lk, dh, scale, dr, vec)
+#define BUTD_MMA_DP(DP) \
+  (drop_thresh ? BUTD_MMA(DP, true) : BUTD_MMA(DP, false))
+  switch (dp) {
+    case 16: err = BUTD_MMA_DP(16); break;
+    case 32: err = BUTD_MMA_DP(32); break;
+    case 48: err = BUTD_MMA_DP(48); break;
+    default: err = BUTD_MMA_DP(64); break;
+  }
+#undef BUTD_MMA_DP
+#undef BUTD_MMA
+  return static_cast<int>(err);
 }
 
+// Dynamic shared memory a block of the default mode's kernels takes at
+// head dimension `dh` (ptxas reports only static shared memory).
+extern "C" int attention_bwd_smem_bytes(int dh) {
+  switch ((dh + 15) / 16 * 16) {
+    case 16: return static_cast<int>(MmaSmem<16>::kBytes);
+    case 32: return static_cast<int>(MmaSmem<32>::kBytes);
+    case 48: return static_cast<int>(MmaSmem<48>::kBytes);
+    default: return static_cast<int>(MmaSmem<64>::kBytes);
+  }
+}
+
+BUTD_PACKED(attention_bwd_launch)
 BUTD_ERROR_STRING(attention_bwd)

@@ -67,9 +67,10 @@ ball_query_kernel(const float* __restrict__ xyz,
 
 }  // namespace
 
-extern "C" int ball_query_launch(const float* xyz, const float* centers,
-                                 int batch, int n, int m, int nsample,
+extern "C" int ball_query_launch(int device, const float* xyz,
+                                 const float* centers, int batch, int n, int m, int nsample,
                                  float r2, int* out, void* stream) {
+  const DeviceScope on(device);
   const int rows = batch * m;
   const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 0) {
@@ -80,4 +81,5 @@ extern "C" int ball_query_launch(const float* xyz, const float* centers,
   return static_cast<int>(cudaGetLastError());
 }
 
+BUTD_PACKED(ball_query_launch)
 BUTD_ERROR_STRING(ball_query)

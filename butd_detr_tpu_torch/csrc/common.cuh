@@ -3,6 +3,10 @@
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <cstring>
+#include <utility>
+
 // Squared distance accumulated as (dx^2 + dy^2) + dz^2 with every product
 // and sum rounded on its own (no fused multiply-add). This is the order of
 // the JAX reference (ops/pointcloud.py and the Pallas kernels); nvcc would
@@ -72,6 +76,83 @@ __device__ __forceinline__ void copy_row_unit(void* dst_row,
     static_cast<unsigned short*>(dst_row)[k] = v;
   }
 }
+
+// Makes `device` the calling thread's current device for one launch and
+// restores the caller's on return. Every C entry takes the device ordinal
+// of its tensors and opens one of these, so a wrapper needs no device
+// context of its own: when the device is already current, as it is in the
+// common case, the cost is one cudaGetDevice.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) {
+    int current = device;
+    cudaGetDevice(&current);
+    if (current != device && cudaSetDevice(device) == cudaSuccess) {
+      previous_ = current;
+    }
+  }
+  ~DeviceScope() {
+    if (previous_ >= 0) cudaSetDevice(previous_);
+  }
+  DeviceScope(const DeviceScope&) = delete;
+  DeviceScope& operator=(const DeviceScope&) = delete;
+
+ private:
+  int previous_ = -1;
+};
+
+// One 8-byte slot of a packed argument block, converting to the type of
+// the parameter it is handed to. ops/_cuda.py packs a launch's arguments
+// with one struct.pack_into: integers and pointers as 8-byte integers, a
+// float in the low 4 bytes of its slot. One pointer then crosses ctypes
+// instead of a dozen converted arguments.
+struct PackedSlot {
+  const unsigned char* at;
+  template <typename T>
+  operator T*() const {
+    unsigned long long v;
+    memcpy(&v, at, 8);
+    return reinterpret_cast<T*>(v);
+  }
+  operator int() const { return static_cast<int>(integer()); }
+  operator unsigned int() const {
+    return static_cast<unsigned int>(integer());
+  }
+  operator long long() const { return integer(); }
+  operator unsigned long long() const {
+    return static_cast<unsigned long long>(integer());
+  }
+  operator float() const {
+    float v;
+    memcpy(&v, at, 4);
+    return v;
+  }
+
+ private:
+  long long integer() const {
+    long long v;
+    memcpy(&v, at, 8);
+    return v;
+  }
+};
+
+template <typename... Args, std::size_t... I>
+int call_packed(int (*entry)(Args...), const unsigned char* args,
+                std::index_sequence<I...>) {
+  return entry(PackedSlot{args + 8 * I}...);
+}
+
+template <typename... Args>
+int call_packed(int (*entry)(Args...), const unsigned char* args) {
+  return call_packed(entry, args, std::index_sequence_for<Args...>{});
+}
+
+// `entry`_packed(args): `entry` called with its arguments unpacked from
+// consecutive 8-byte slots.
+#define BUTD_PACKED(entry)                                     \
+  extern "C" int entry##_packed(const unsigned char* args) {   \
+    return call_packed(entry, args);                           \
+  }
 
 #define BUTD_ERROR_STRING(prefix)                                 \
   extern "C" const char* prefix##_error_string(int code) {         \

@@ -120,8 +120,10 @@ fps_kernel(const float* __restrict__ xyz, int n, int npoint,
 
 }  // namespace
 
-extern "C" int fps_launch(const float* xyz, int batch, int n, int npoint,
-                          int* out, float* scratch, void* stream) {
+extern "C" int fps_launch(int device, const float* xyz, int batch, int n,
+                          int npoint, int* out, float* scratch,
+                          void* stream) {
+  const DeviceScope on(device);
   const int use_smem = n <= kMaxSmemPoints;
   const size_t smem = use_smem ? static_cast<size_t>(n) * sizeof(float) : 0;
   if (use_smem) {
@@ -137,4 +139,5 @@ extern "C" int fps_launch(const float* xyz, int batch, int n, int npoint,
 
 extern "C" int fps_max_smem_points() { return kMaxSmemPoints; }
 
+BUTD_PACKED(fps_launch)
 BUTD_ERROR_STRING(fps)

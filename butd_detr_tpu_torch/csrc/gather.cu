@@ -21,7 +21,10 @@
 // The threads of one row read the same index (one transaction) and
 // consecutive units of the source row. blockIdx.y is the batch element, so
 // the per-element unit count stays in 32 bits and the row is one 32-bit
-// division.
+// division. The index is read in the caller's type, int32 or int64 (the
+// kernel is instantiated for both), so no cast kernel runs before it.
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -29,8 +32,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <typename Index>
 __global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const char* __restrict__ src, const int* __restrict__ idx,
+gather_rows_kernel(const char* __restrict__ src,
+                   const Index* __restrict__ idx,
                    char* __restrict__ out, int n, unsigned int m,
                    unsigned int units, int unit) {
   const unsigned int t = blockIdx.x * kThreads + threadIdx.x;
@@ -39,7 +44,7 @@ gather_rows_kernel(const char* __restrict__ src, const int* __restrict__ idx,
   const unsigned int k = t - row * units;
   const long long b = blockIdx.y;
   const long long row_bytes = static_cast<long long>(units) * unit;
-  const int j = idx[b * m + row];
+  const long long j = idx[b * m + row];
   const char* src_row =
       (j >= 0 && j < n) ? src + (b * n + j) * row_bytes : nullptr;
   copy_row_unit(out + (b * m + row) * row_bytes, src_row, unit, k);
@@ -47,22 +52,34 @@ gather_rows_kernel(const char* __restrict__ src, const int* __restrict__ idx,
 
 }  // namespace
 
-// src: (batch, n, row) contiguous, idx: (batch, m) int32, out: (batch, m,
-// row); a row is `units` units of `unit` bytes (16, 4 or 2), and all three
-// base pointers are multiples of `unit`. m * units < 2^31, batch <= 65535.
-extern "C" int gather_launch(const void* src, const int* idx, void* out,
-                             int batch, int n, int m, int units, int unit,
-                             void* stream) {
+// src: (batch, n, row) contiguous, idx: (batch, m) int32 or, with idx64,
+// int64, out: (batch, m, row); a row is `units` units of `unit` bytes (16, 4
+// or 2), and all three base pointers are multiples of `unit`.
+// m * units < 2^31, batch <= 65535.
+extern "C" int gather_launch(int device, const void* src, const void* idx,
+                             int idx64, void* out, int batch, int n, int m,
+                             int units, int unit, void* stream) {
   if (batch == 0 || m == 0 || units == 0) {
     return static_cast<int>(cudaSuccess);
   }
+  const DeviceScope on(device);
   const unsigned int total =
       static_cast<unsigned int>(m) * static_cast<unsigned int>(units);
   const dim3 grid((total + kThreads - 1) / kThreads, batch);
-  gather_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(src), idx, static_cast<char*>(out), n,
-      static_cast<unsigned int>(m), static_cast<unsigned int>(units), unit);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const char* s = static_cast<const char*>(src);
+  char* o = static_cast<char*>(out);
+  const unsigned int um = static_cast<unsigned int>(m);
+  const unsigned int uu = static_cast<unsigned int>(units);
+  if (idx64) {
+    gather_rows_kernel<<<grid, kThreads, 0, st>>>(
+        s, static_cast<const int64_t*>(idx), o, n, um, uu, unit);
+  } else {
+    gather_rows_kernel<<<grid, kThreads, 0, st>>>(
+        s, static_cast<const int32_t*>(idx), o, n, um, uu, unit);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+BUTD_PACKED(gather_launch)
 BUTD_ERROR_STRING(gather)

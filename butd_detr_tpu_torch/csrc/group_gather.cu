@@ -33,7 +33,10 @@
 // contiguous. Tiers 2-4: 256 or 512 bytes of bf16 features are 16 or 32
 // threads of 16 bytes beside 3 of xyz, close to a warp per row.
 // blockIdx.y is the batch element, so the per-element thread count stays in
-// 32 bits and the row is one 32-bit division.
+// 32 bits and the row is one 32-bit division. The index is read in the
+// caller's type, int32 or int64, so no cast kernel runs before it.
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -41,9 +44,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <typename Index>
 __global__ void __launch_bounds__(kThreads)
 group_gather_kernel(const char* __restrict__ a, const char* __restrict__ p,
-                    const int* __restrict__ idx, char* __restrict__ out_a,
+                    const Index* __restrict__ idx, char* __restrict__ out_a,
                     char* __restrict__ out_b, int n, unsigned int rows,
                     unsigned int units_a, int unit_a, unsigned int units_b,
                     int unit_b) {
@@ -53,7 +57,7 @@ group_gather_kernel(const char* __restrict__ a, const char* __restrict__ p,
   const unsigned int row = t / per_row;
   const unsigned int k = t - row * per_row;
   const long long b = blockIdx.y;
-  const int j = idx[b * rows + row];
+  const long long j = idx[b * rows + row];
   const bool inside = j >= 0 && j < n;
   if (k < units_a) {
     const long long row_bytes = static_cast<long long>(units_a) * unit_a;
@@ -70,29 +74,42 @@ group_gather_kernel(const char* __restrict__ a, const char* __restrict__ p,
 }  // namespace
 
 // a: (batch, n, row_a) and p: (batch, n, row_b) contiguous (p and out_b may
-// be null with units_b == 0), idx: (batch, rows) int32 with rows = m * ns,
-// out_a: (batch, rows, row_a), out_b: (batch, rows, row_b). A row of a
-// payload is `units_x` units of `unit_x` bytes (16, 4 or 2) and its base
-// pointers are multiples of `unit_x`. rows * (units_a + units_b) < 2^31,
-// batch <= 65535.
-extern "C" int group_gather_launch(const void* a, const void* p,
-                                   const int* idx, void* out_a, void* out_b,
-                                   int batch, int n, int rows, int units_a,
-                                   int unit_a, int units_b, int unit_b,
-                                   void* stream) {
+// be null with units_b == 0), idx: (batch, rows) int32 or, with idx64,
+// int64, with rows = m * ns, out_a: (batch, rows, row_a), out_b: (batch,
+// rows, row_b). A row of a payload is `units_x` units of `unit_x` bytes (16,
+// 4 or 2) and its base pointers are multiples of `unit_x`.
+// rows * (units_a + units_b) < 2^31, batch <= 65535.
+extern "C" int group_gather_launch(int device, const void* a, const void* p,
+                                   const void* idx, int idx64, void* out_a,
+                                   void* out_b, int batch, int n, int rows,
+                                   int units_a, int unit_a, int units_b,
+                                   int unit_b, void* stream) {
   if (batch == 0 || rows == 0 || units_a + units_b == 0) {
     return static_cast<int>(cudaSuccess);
   }
+  const DeviceScope on(device);
   const unsigned int total = static_cast<unsigned int>(rows) *
                              static_cast<unsigned int>(units_a + units_b);
   const dim3 grid((total + kThreads - 1) / kThreads, batch);
-  group_gather_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(a), static_cast<const char*>(p), idx,
-      static_cast<char*>(out_a), static_cast<char*>(out_b), n,
-      static_cast<unsigned int>(rows), static_cast<unsigned int>(units_a),
-      unit_a, static_cast<unsigned int>(units_b), unit_b);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const char* ca = static_cast<const char*>(a);
+  const char* cp = static_cast<const char*>(p);
+  char* oa = static_cast<char*>(out_a);
+  char* ob = static_cast<char*>(out_b);
+  const unsigned int ur = static_cast<unsigned int>(rows);
+  const unsigned int ua = static_cast<unsigned int>(units_a);
+  const unsigned int ub = static_cast<unsigned int>(units_b);
+  if (idx64) {
+    group_gather_kernel<<<grid, kThreads, 0, st>>>(
+        ca, cp, static_cast<const int64_t*>(idx), oa, ob, n, ur, ua, unit_a,
+        ub, unit_b);
+  } else {
+    group_gather_kernel<<<grid, kThreads, 0, st>>>(
+        ca, cp, static_cast<const int32_t*>(idx), oa, ob, n, ur, ua, unit_a,
+        ub, unit_b);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+BUTD_PACKED(group_gather_launch)
 BUTD_ERROR_STRING(group_gather)

@@ -110,9 +110,10 @@ int launch(const T* g, const int* idx, float* out, int batch, int m, int c,
 
 // g: (batch, m, c) contiguous, f32 (is_bf16 == 0) or bf16; idx: (batch, m)
 // int32; out: (batch, n, c) f32, zeroed by the caller.
-extern "C" int scatter_launch(const void* g, const int* idx, float* out,
-                              int batch, int m, int c, int n, int is_bf16,
+extern "C" int scatter_launch(int device, const void* g, const int* idx,
+                              float* out, int batch, int m, int c, int n, int is_bf16,
                               void* stream) {
+  const DeviceScope on(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return launch(static_cast<const __nv_bfloat16*>(g), idx, out, batch, m, c,
@@ -121,4 +122,5 @@ extern "C" int scatter_launch(const void* g, const int* idx, float* out,
   return launch(static_cast<const float*>(g), idx, out, batch, m, c, n, st);
 }
 
+BUTD_PACKED(scatter_launch)
 BUTD_ERROR_STRING(scatter)

@@ -1,4 +1,4 @@
-"""Build, load and count the port's CUDA kernels.
+"""Build, load, launch and count the port's CUDA kernels.
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface, loaded with `ctypes`. The build
@@ -7,15 +7,36 @@ at once in parallel, into `butd_detr_tpu_torch/_build/` (git-ignored). A
 library's file name carries a hash of its source, headers and flags, so an
 edited source is rebuilt and an unchanged one is reused.
 
-Every C entry returns `cudaGetLastError()` after its launch; `check()`
-raises if it is not 0. `LAUNCHES` counts kernel launches per kernel; a
-wrapper adds one right after it launches its kernel, and nowhere else.
+Every wrapper launches through `launch()`, which keeps a small kernel's
+host cost near that of a PyTorch operator:
+  * the arguments cross ctypes as one pointer: `launch()` packs them with
+    one `struct.pack_into` into 8-byte slots of a buffer kept per entry,
+    and calls the entry's `<entry>_packed` twin (`BUTD_PACKED` in
+    csrc/common.cuh), which unpacks them into the typed C entry; the
+    libraries are loaded as `ctypes.PyDLL`, so the GIL is held through the
+    call and no other thread can refill the buffer meanwhile;
+  * the stream is PyTorch's current stream of the tensors' device, read as
+    a raw handle (`torch._C._cuda_getCurrentRawStream`, what Triton's
+    launcher reads), so a launch inside `with torch.cuda.stream(s)` runs
+    on `s`;
+  * the device is an ordinal passed to the C entry, which makes it current
+    only when it is not (`DeviceScope` in csrc/common.cuh): no
+    `torch.cuda.device` context per call;
+  * pointers are plain ints (`Tensor.data_ptr()`, 0 for none), never a
+    ctypes object a call.
+`_SIGNATURES` lists each typed entry's parameters (tests/test_torch_launch
+holds them against the C sources); the packed layout follows from them.
+Every C entry returns `cudaGetLastError()` after its launch; `launch()`
+raises if it is not 0. `LAUNCHES` counts kernel launches per kernel;
+`launch()` adds one right after the entry launched its kernel, and nothing
+else does.
 """
 
 import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from pathlib import Path
@@ -52,34 +73,42 @@ _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 _U, _ULL = ctypes.c_uint, ctypes.c_ulonglong
 _STRIDED = [_VP, _LL, _LL, _LL]  # a (B, H, L, Dh) view: pointer + 3 strides
 _DROPOUT = [_U, _F, _ULL]  # threshold, 1 / (1 - p), seed
+# Every launch entry takes the device ordinal first and the stream last.
 _SIGNATURES = {
     "fps": {
-        "fps_launch": [_VP, _I, _I, _I, _VP, _VP, _VP],
+        "fps_launch": [_I, _VP, _I, _I, _I, _VP, _VP, _VP],
         "fps_max_smem_points": [],
     },
     "ball_query": {
-        "ball_query_launch": [_VP, _VP, _I, _I, _I, _I, _F, _VP, _VP],
+        "ball_query_launch": [_I, _VP, _VP, _I, _I, _I, _I, _F, _VP, _VP],
     },
     "attention": {
-        "attention_fwd_launch": [*_STRIDED * 3, _VP, *_STRIDED,
+        "attention_fwd_launch": [_I, *_STRIDED * 3, _VP, *_STRIDED,
                                  _I, _I, _I, _I, _I, _F, _I, *_DROPOUT, _VP],
-        "attention_dropout_mask_launch": [_VP, _I, _I, _I, _U, _ULL, _VP],
+        "attention_dropout_mask_launch": [_I, _VP, _I, _I, _I, _U, _ULL,
+                                          _VP],
     },
     "attention_bwd": {
-        "attention_bwd_launch": [*_STRIDED * 3, _VP, *_STRIDED * 4, _VP,
-                                 _I, _I, _I, _I, _I, _F, _I, *_DROPOUT, _VP],
+        "attention_bwd_launch": [_I, *_STRIDED * 3, _VP, *_STRIDED * 4, _VP,
+                                 _VP, _I, _I, _I, _I, _I, _F, _I, *_DROPOUT,
+                                 _VP],
+        "attention_bwd_smem_bytes": [_I],
     },
     "scatter": {
-        "scatter_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+        "scatter_launch": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     },
     "gather": {
-        "gather_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+        "gather_launch": [_I, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP],
     },
     "group_gather": {
-        "group_gather_launch": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                                _I, _I, _VP],
+        "group_gather_launch": [_I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I,
+                                _I, _I, _I, _I, _VP],
     },
 }
+# The struct format of one 8-byte slot of each parameter type.
+_SLOT = {_VP: "Q", _I: "q", _U: "Q", _LL: "q", _ULL: "Q", _F: "f4x"}
+# launch entry -> (kernel, packed C function, struct, buffer, its address)
+_PACKED: Dict[str, tuple] = {}
 
 
 def reset_launches() -> None:
@@ -155,8 +184,8 @@ def build_log(name: str) -> str:
     return p.read_text() if p.exists() else ""
 
 
-def _load(name: str, path: Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
+def _load(name: str, path: Path) -> ctypes.PyDLL:
+    lib = ctypes.PyDLL(str(path))
     for fn, argtypes in _SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
@@ -167,12 +196,53 @@ def _load(name: str, path: Path) -> ctypes.CDLL:
     return lib
 
 
-def lib(name: str) -> ctypes.CDLL:
+def lib(name: str) -> ctypes.PyDLL:
     """The loaded library of kernel `name`, building all kernels first if
     this process has not loaded them yet."""
     if name not in _LIBS:
         build_all()
     return _LIBS[name]
+
+
+def packer(entry: str) -> struct.Struct:
+    """The packed layout of launch entry `entry`: one 8-byte slot a
+    parameter, in `_SIGNATURES`' order."""
+    kernel = _KERNEL_OF[entry]
+    return struct.Struct(
+        "<" + "".join(_SLOT[t] for t in _SIGNATURES[kernel][entry]))
+
+
+def _packed(entry: str) -> tuple:
+    kernel = _KERNEL_OF[entry]
+    fn = getattr(lib(kernel), f"{entry}_packed")
+    fn.argtypes = [_VP]
+    fn.restype = ctypes.c_int
+    layout = packer(entry)
+    buf = ctypes.create_string_buffer(layout.size)
+    _PACKED[entry] = (kernel, fn, layout, buf, ctypes.addressof(buf))
+    return _PACKED[entry]
+
+
+def launch(entry: str, device: int, *args, count: bool = True) -> None:
+    """Call C entry `entry` with the device ordinal, `args` (ints, floats;
+    pointers as ints, 0 for none) and the current stream of that device;
+    count the launch of its kernel (unless `count` is False: the dropout
+    mask writer) and raise on a CUDA error."""
+    packed = _PACKED.get(entry)
+    if packed is None:
+        packed = _packed(entry)
+    kernel, fn, layout, buf, address = packed
+    layout.pack_into(buf, 0, device, *args,
+                     torch._C._cuda_getCurrentRawStream(device))
+    code = fn(address)
+    if count:
+        LAUNCHES[kernel] += 1
+    if code:
+        check(kernel, code)
+
+
+_KERNEL_OF = {entry: kernel for kernel, entries in _SIGNATURES.items()
+              for entry in entries}
 
 
 def check(name: str, code: int) -> None:
@@ -183,14 +253,6 @@ def check(name: str, code: int) -> None:
             f"CUDA kernel '{name}' failed to launch: error {code} "
             f"({msg.decode() if msg else 'unknown'})"
         )
-
-
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def require_cuda(t: torch.Tensor, what: str) -> None:

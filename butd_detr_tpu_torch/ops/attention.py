@@ -11,6 +11,9 @@ on the normalized probabilities. Two modes, as there:
     rounded to bf16 before P V, which accumulates in f32; the backward
     rounds dO, dS and D o P to bf16 before their products;
   * precise: f32 throughout.
+The backward kernels differ by mode: the default mode's five products run
+on the tensor cores (bf16 x bf16 -> f32 mma), the precise mode's on CUDA
+cores in f32 (csrc/attention_bwd.cu). The mode is the caller's `precise`.
 
 Dropout keeps an entry iff its random uint32 >= min(int(p * 2^32),
 2^32 - 1) and scales the kept entries by 1 / (1 - p). The bits are
@@ -101,13 +104,10 @@ def dropout_keep_mask(seed: int, B: int, H: int, Lq: int, Lk: int, p: float,
     device = torch.device(device)
     if device.type == "cpu":
         return dropout_keep_mask_plain(seed, B, H, Lq, Lk, p)
-    lib = _cuda.lib("attention")
     keep = torch.empty(B, H, Lq, Lk, dtype=torch.uint8, device=device)
-    with torch.cuda.device(device):
-        code = lib.attention_dropout_mask_launch(
-            _cuda.ptr(keep), B * H, Lq, Lk, dropout_threshold(p),
-            int(seed) & (2 ** 64 - 1), _cuda.stream_of(keep))
-    _cuda.check("attention", code)
+    _cuda.launch("attention_dropout_mask_launch", keep.get_device(),
+                 keep.data_ptr(), B * H, Lq, Lk, dropout_threshold(p),
+                 int(seed) & (2 ** 64 - 1), count=False)
     return keep.bool()
 
 
@@ -171,9 +171,14 @@ def _unit_stride(t: torch.Tensor) -> torch.Tensor:
 
 
 def _pad_bytes(key_padding_mask, device):
+    """The padding mask as one byte a key, nonzero == padded: a contiguous
+    bool mask on the device is that already (no cast kernel)."""
     if key_padding_mask is None:
         return None
-    return key_padding_mask.to(device=device, dtype=torch.uint8).contiguous()
+    m = key_padding_mask
+    if m.dtype is not torch.bool and m.dtype is not torch.uint8:
+        m = m.to(torch.uint8)
+    return m.to(device).contiguous()
 
 
 def _heads_buffer(B, H, L, Dh, device):
@@ -195,20 +200,17 @@ def _forward_cuda(q, k, v, key_padding_mask, sm_scale, dropout_p, seed,
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
     q, k, v = _unit_stride(q), _unit_stride(k), _unit_stride(v)
-    lib = _cuda.lib("attention")
     out = _heads_buffer(B, H, Lq, Dh, q.device)
     pad = _pad_bytes(key_padding_mask, q.device)
-    with torch.cuda.device(q.device):
-        code = lib.attention_fwd_launch(
-            _cuda.ptr(q), *q.stride()[:3],
-            _cuda.ptr(k), *k.stride()[:3],
-            _cuda.ptr(v), *v.stride()[:3],
-            None if pad is None else _cuda.ptr(pad),
-            _cuda.ptr(out), *out.stride()[:3],
-            B, H, Lq, Lk, Dh, float(sm_scale), int(bool(precise)),
-            *_dropout_args(dropout_p, seed), _cuda.stream_of(q))
-        _cuda.LAUNCHES["attention"] += 1
-    _cuda.check("attention", code)
+    _cuda.launch(
+        "attention_fwd_launch", q.get_device(),
+        q.data_ptr(), *q.stride()[:3],
+        k.data_ptr(), *k.stride()[:3],
+        v.data_ptr(), *v.stride()[:3],
+        0 if pad is None else pad.data_ptr(),
+        out.data_ptr(), *out.stride()[:3],
+        B, H, Lq, Lk, Dh, float(sm_scale), int(bool(precise)),
+        *_dropout_args(dropout_p, seed))
     return out
 
 
@@ -217,29 +219,32 @@ def _backward_cuda(q, k, v, dout, key_padding_mask, sm_scale, dropout_p,
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
     q, k, v, dout = (_unit_stride(t) for t in (q, k, v, dout))
-    lib = _cuda.lib("attention_bwd")
     dq = _heads_buffer(B, H, Lq, Dh, q.device)
     dk = _heads_buffer(B, H, Lk, Dh, q.device)
     dv = _heads_buffer(B, H, Lk, Dh, q.device)
     # per query row: max, sum and rowsum(dPt o P), from the dQ kernel to
     # the dK/dV kernel
     stats = torch.empty(B * H, Lq, 3, dtype=torch.float32, device=q.device)
+    # the dropout mask, 1 bit a (row, key), drawn once by the dQ kernel of
+    # the default mode and read back by its second walk and the dK/dV kernel
+    keep_bits = None
+    if dropout_p > 0.0 and not precise:
+        keep_bits = torch.empty(B * H, Lq, (Lk + 31) // 32,
+                                dtype=torch.int32, device=q.device)
     pad = _pad_bytes(key_padding_mask, q.device)
-    with torch.cuda.device(q.device):
-        code = lib.attention_bwd_launch(
-            _cuda.ptr(q), *q.stride()[:3],
-            _cuda.ptr(k), *k.stride()[:3],
-            _cuda.ptr(v), *v.stride()[:3],
-            None if pad is None else _cuda.ptr(pad),
-            _cuda.ptr(dout), *dout.stride()[:3],
-            _cuda.ptr(dq), *dq.stride()[:3],
-            _cuda.ptr(dk), *dk.stride()[:3],
-            _cuda.ptr(dv), *dv.stride()[:3],
-            _cuda.ptr(stats), B, H, Lq, Lk, Dh, float(sm_scale),
-            int(bool(precise)), *_dropout_args(dropout_p, seed),
-            _cuda.stream_of(q))
-        _cuda.LAUNCHES["attention_bwd"] += 1
-    _cuda.check("attention_bwd", code)
+    _cuda.launch(
+        "attention_bwd_launch", q.get_device(),
+        q.data_ptr(), *q.stride()[:3],
+        k.data_ptr(), *k.stride()[:3],
+        v.data_ptr(), *v.stride()[:3],
+        0 if pad is None else pad.data_ptr(),
+        dout.data_ptr(), *dout.stride()[:3],
+        dq.data_ptr(), *dq.stride()[:3],
+        dk.data_ptr(), *dk.stride()[:3],
+        dv.data_ptr(), *dv.stride()[:3],
+        stats.data_ptr(), 0 if keep_bits is None else keep_bits.data_ptr(),
+        B, H, Lq, Lk, Dh, float(sm_scale),
+        int(bool(precise)), *_dropout_args(dropout_p, seed))
     return dq, dk, dv
 
 

@@ -72,16 +72,12 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
         raise ValueError(
             f"expected (B, N, 3) and (B, m, 3), got {tuple(xyz.shape)} and "
             f"{tuple(new_xyz.shape)}")
-    lib = _cuda.lib("ball_query")
     xyz = xyz.float().contiguous()
     new_xyz = new_xyz.float().contiguous()
     B, N, _ = xyz.shape
     m = new_xyz.shape[1]
     out = torch.empty(B, m, nsample, dtype=torch.int32, device=xyz.device)
-    with torch.cuda.device(xyz.device):
-        code = lib.ball_query_launch(
-            _cuda.ptr(xyz), _cuda.ptr(new_xyz), B, N, m, nsample,
-            _r2(radius), _cuda.ptr(out), _cuda.stream_of(xyz))
-        _cuda.LAUNCHES["ball_query"] += 1
-    _cuda.check("ball_query", code)
+    _cuda.launch("ball_query_launch", xyz.get_device(), xyz.data_ptr(),
+                 new_xyz.data_ptr(), B, N, m, nsample, _r2(radius),
+                 out.data_ptr())
     return out

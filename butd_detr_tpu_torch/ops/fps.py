@@ -53,20 +53,15 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         raise ValueError(f"xyz must be (B, N, 3), got {tuple(xyz.shape)}")
     if npoint < 1:
         raise ValueError(f"npoint must be >= 1, got {npoint}")
-    lib = _cuda.lib("fps")
     xyz = xyz.float().contiguous()
     B, N, _ = xyz.shape
     out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
     # running distances live in shared memory up to fps_max_smem_points,
     # in this scratch row beyond
     scratch = None
-    if N > lib.fps_max_smem_points():
+    if N > _cuda.lib("fps").fps_max_smem_points():
         scratch = torch.empty(B, N, dtype=torch.float32, device=xyz.device)
-    with torch.cuda.device(xyz.device):
-        code = lib.fps_launch(
-            _cuda.ptr(xyz), B, N, npoint, _cuda.ptr(out),
-            None if scratch is None else _cuda.ptr(scratch),
-            _cuda.stream_of(xyz))
-        _cuda.LAUNCHES["fps"] += 1
-    _cuda.check("fps", code)
+    _cuda.launch("fps_launch", xyz.get_device(), xyz.data_ptr(), B, N,
+                 npoint, out.data_ptr(),
+                 0 if scratch is None else scratch.data_ptr())
     return out

@@ -93,10 +93,10 @@ def copy_unit(row_bytes: int, *addresses: int) -> int:
     """The widest unit (16, 4 or 2 bytes) in which a kernel may copy rows
     of `row_bytes` bytes between buffers at `addresses`: it must divide the
     row and every address."""
-    for unit in (16, 4):
-        if row_bytes % unit == 0 and all(a % unit == 0 for a in addresses):
-            return unit
-    return 2
+    bits = row_bytes
+    for a in addresses:
+        bits |= a
+    return 16 if bits % 16 == 0 else 4 if bits % 4 == 0 else 2
 
 
 def _units(src: torch.Tensor, out: torch.Tensor) -> Tuple[int, int]:
@@ -106,11 +106,24 @@ def _units(src: torch.Tensor, out: torch.Tensor) -> Tuple[int, int]:
     return row_bytes // unit, unit
 
 
-def _index(idx: torch.Tensor, device) -> torch.Tensor:
-    """The index as contiguous int32 on `device` (a device-side cast: an
-    int64 index from `three_nn`'s callers or the matcher never visits the
-    host)."""
-    return idx.to(device=device, dtype=torch.int32).contiguous()
+def index_operand(idx: torch.Tensor, device: int
+                  ) -> Tuple[torch.Tensor, bool]:
+    """(index, is int64) as the kernels read it: int32 and int64 pass in
+    their own type (the kernels are instantiated for both, so no cast
+    kernel runs), any other integer type is cast to int32; the result is
+    contiguous and on CUDA device `device` (an index on the host is copied
+    there: `three_nn`'s callers or the matcher may hand one over)."""
+    dtype = idx.dtype
+    if dtype is not torch.int64 and dtype is not torch.int32:
+        if dtype.is_floating_point or dtype is torch.bool:
+            raise ValueError(f"the index must be an integer tensor, got "
+                             f"{dtype}")
+        idx = idx.to(torch.int32)
+    if idx.get_device() != device:
+        idx = idx.to(torch.device("cuda", device))
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
+    return idx, dtype is torch.int64
 
 
 def _check_sizes(what: str, batch: int, n: int, threads: int) -> None:
@@ -124,26 +137,40 @@ def _check_sizes(what: str, batch: int, n: int, threads: int) -> None:
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[b, m] = src[b, idx[b, m]]: (B, N, C) f32 or bf16 (other dtypes
     widened to f32), (B, M) integer -> (B, M, C) in the source's dtype."""
-    _check(src, idx, 2, "gather_rows")
-    if src.device.type == "cpu":
-        return gather_rows_plain(src, idx)
-    _cuda.require_cuda(src, "gather_rows")
-    src = _payload(src).contiguous()
-    B, N, C = src.shape
-    M = idx.shape[1]
-    idx = _index(idx, src.device)
-    lib = _cuda.lib("gather")
-    out = torch.empty(B, M, C, dtype=src.dtype, device=src.device)
-    if out.numel() == 0:
+    if not src.is_cuda:
+        _check(src, idx, 2, "gather_rows")
+        if src.device.type == "cpu":
+            return gather_rows_plain(src, idx)
+        _cuda.require_cuda(src, "gather_rows")
+    # the common case costs a few attribute reads; _check words the error
+    shape, ishape = src.shape, idx.shape
+    if len(shape) != 3 or len(ishape) != 2 or ishape[0] != shape[0]:
+        _check(src, idx, 2, "gather_rows")
+    dtype = src.dtype
+    if dtype is not torch.float32 and dtype is not torch.bfloat16:
+        src, dtype = src.float(), torch.float32
+    if not src.is_contiguous():
+        src = src.contiguous()
+    dev = src.get_device()
+    idx_dtype = idx.dtype
+    if ((idx_dtype is torch.int64 or idx_dtype is torch.int32)
+            and idx.get_device() == dev and idx.is_contiguous()):
+        idx64 = idx_dtype is torch.int64  # as it is: the common case
+    else:
+        idx, idx64 = index_operand(idx, dev)
+    B, N, C = shape
+    M = ishape[1]
+    out = torch.empty(B, M, C, dtype=dtype, device=src.device)
+    if not (B and M and C):
         return out
-    units, unit = _units(src, out)
-    _check_sizes("gather_rows", B, N, M * units)
-    with torch.cuda.device(src.device):
-        code = lib.gather_launch(_cuda.ptr(src), _cuda.ptr(idx),
-                                 _cuda.ptr(out), B, N, M, units, unit,
-                                 _cuda.stream_of(src))
-        _cuda.LAUNCHES["gather"] += 1
-    _cuda.check("gather", code)
+    src_ptr, out_ptr = src.data_ptr(), out.data_ptr()
+    row_bytes = C * src.element_size()
+    unit = copy_unit(row_bytes, src_ptr, out_ptr)
+    units = row_bytes // unit
+    if B > _MAX_GRID_Y or N >= 2 ** 31 or M * units >= 2 ** 31:
+        _check_sizes("gather_rows", B, N, M * units)
+    _cuda.launch("gather_launch", dev, src_ptr, idx.data_ptr(), idx64,
+                 out_ptr, B, N, M, units, unit)
     return out
 
 
@@ -152,8 +179,8 @@ def _group_launch(what, a, p, idx):
     not None, payload `p` under the same (B, m, ns) index."""
     B, N = a.shape[:2]
     _, m, ns = idx.shape
-    idx = _index(idx, a.device)
-    lib = _cuda.lib("group_gather")
+    dev = a.get_device()
+    idx, idx64 = index_operand(idx, dev)
     out_a = torch.empty(B, m, ns, a.shape[-1], dtype=a.dtype, device=a.device)
     out_p = None if p is None else torch.empty(
         B, m, ns, p.shape[-1], dtype=p.dtype, device=a.device)
@@ -163,14 +190,10 @@ def _group_launch(what, a, p, idx):
     if B * m * ns * (units_a + units_p) == 0:
         return out_a, out_p
     _check_sizes(what, B, N, m * ns * (units_a + units_p))
-    with torch.cuda.device(a.device):
-        code = lib.group_gather_launch(
-            _cuda.ptr(a), _cuda.ptr(p) if units_p else None, _cuda.ptr(idx),
-            _cuda.ptr(out_a), _cuda.ptr(out_p) if units_p else None,
-            B, N, m * ns, units_a, unit_a, units_p, unit_p,
-            _cuda.stream_of(a))
-        _cuda.LAUNCHES["group_gather"] += 1
-    _cuda.check("group_gather", code)
+    _cuda.launch("group_gather_launch", dev, a.data_ptr(),
+                 p.data_ptr() if units_p else 0, idx.data_ptr(), idx64,
+                 out_a.data_ptr(), out_p.data_ptr() if units_p else 0,
+                 B, N, m * ns, units_a, unit_a, units_p, unit_p)
     return out_a, out_p
 
 

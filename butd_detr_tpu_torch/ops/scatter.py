@@ -48,14 +48,10 @@ def scatter_rows_add(g: torch.Tensor, idx: torch.Tensor,
         g = g.float()
     g = g.contiguous()
     idx = idx.to(device=g.device, dtype=torch.int32).contiguous()
-    lib = _cuda.lib("scatter")
     out = torch.zeros(B, n, C, dtype=torch.float32, device=g.device)
     if g.numel() == 0:
         return out
-    with torch.cuda.device(g.device):
-        code = lib.scatter_launch(
-            _cuda.ptr(g), _cuda.ptr(idx), _cuda.ptr(out), B, M, C, n,
-            int(g.dtype == torch.bfloat16), _cuda.stream_of(g))
-        _cuda.LAUNCHES["scatter"] += 1
-    _cuda.check("scatter", code)
+    _cuda.launch("scatter_launch", g.get_device(), g.data_ptr(),
+                 idx.data_ptr(), out.data_ptr(), B, M, C, n,
+                 int(g.dtype == torch.bfloat16))
     return out

@@ -11,7 +11,10 @@ and the CUDA toolkit. Phases, in order; any failure exits non-zero before
 the last line is printed:
 
 1. build: compile butd_detr_tpu_torch/csrc/*.cu with nvcc (in parallel)
-   and print the seconds and ptxas's register/shared-memory report;
+   and print the seconds and ptxas's register/shared-memory report; for
+   each attention-backward kernel also its spills and the HMMA (tensor-
+   core) instructions in its SASS (cuobjdump -sass), which every kernel of
+   the default (bf16-operand) mode must have;
 2. kernels vs plain versions on the card, at the paths' shapes:
    FPS and ball query bit-equal at the 4 SA tiers (one scene, and again
    on the training batch's clouds; plus an all-zero cloud and centers
@@ -21,14 +24,19 @@ the last line is printed:
    kernel's own mask (which must equal the plain Philox generator's and
    keep 90 % within 4 sigma); the attention backward against its plain
    version at every shape the training forward differentiates, both
-   modes, p in {0, 0.1}, bit-equal between two runs; the row scatter-add
+   modes, p in {0, 0.1}, a fully masked row, bit-equal between two runs,
+   timed at p = 0.1 and p = 0 beside autograd through SDPA at the same
+   two p; the row scatter-add
    against its plain version at every gather of a training step (real
    ball-query and 3-NN indices at the training batch), f32 and bf16, with
    dropped entries and with all rows on one index; the row gather and the
    grouped gather bit-equal (as integer views) to their plain versions at
    every shape the three paths launch them, f32 and bf16 rows, one scene
    and the batch, strided sources, int64 indices and an index out of
-   range. Each is timed against its plain version and a library yardstick
+   range, the row gather also timed with int32 and with int64 indices
+   (each read as it is; the row gather and torch.gather as the median of
+   three runs, since a call is bound by the host). Each is timed against
+   its plain version and a library yardstick
    the port never calls (scaled_dot_product_attention and autograd through
    it, index_add_, torch.gather and the concatenate-gather-cast);
 3. serving: GroundingPredictor at the full width of the SR3D butd_cls
@@ -153,6 +161,12 @@ def time_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def median_ms(fn, reps, rounds=3):
+    """The median of `rounds` runs of time_ms: a call bound by the host
+    meets the host's hiccups, which one run alone would keep."""
+    return sorted(time_ms(fn, reps) for _ in range(rounds))[rounds // 2]
+
+
 def bound_ms(nbytes, ops_by_rate):
     """Least time: the larger of bytes over HBM rate and the operations
     over their type's peak rate."""
@@ -160,6 +174,88 @@ def bound_ms(nbytes, ops_by_rate):
     t_ops = sum(n / rate for n, rate in ops_by_rate)
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops) * 1e3, by
+
+
+# ------------------------------------------------------------- phase 1
+
+def _cuobjdump():
+    """The toolkit's cuobjdump, or None."""
+    import shutil
+
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    return cand if os.path.exists(cand) else shutil.which("cuobjdump")
+
+
+def _short_name(mangled):
+    """attention_bwd_dq_mma_kernel<48, 1> from its mangled name."""
+    import re
+
+    m = re.search(r"\d+(attention_bwd_\w+?_kernel)I(\w*?)EEv", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def attention_bwd_resources():
+    """Per kernel function of csrc/attention_bwd.cu: ptxas's registers,
+    shared memory and spills (from the build log) and the HMMA (tensor-core
+    mma) instructions in its SASS (cuobjdump -sass, where the toolkit has
+    it). Fails if a default-mode (mma) kernel has no HMMA."""
+    import re
+
+    from butd_detr_tpu_torch.ops import _cuda
+
+    funcs, cur = {}, None
+    for line in _cuda.build_log("attention_bwd").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem_bytes"] = int(m.group(1))
+    check(len(funcs) > 0, "attention_bwd: no ptxas report in the build log")
+    tool = _cuobjdump()
+    if tool:
+        sass = subprocess.run([tool, "-sass",
+                               str(_cuda._lib_path("attention_bwd"))],
+                              capture_output=True, text=True, timeout=300)
+        check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
+        cur = None
+        for line in sass.stdout.splitlines():
+            m = re.search(r"Function : (\w+)", line)
+            if m:
+                cur = funcs.setdefault(m.group(1), {})
+                cur["hmma"] = 0
+            elif cur is not None and "HMMA" in line:
+                cur["hmma"] += 1
+    lib = _cuda.lib("attention_bwd")
+    out = {}
+    for mangled, res in funcs.items():
+        name = _short_name(mangled)
+        out[name] = res
+        if "_mma_kernel<" in name:  # dynamic shared memory, by head dim
+            res["smem_bytes"] = lib.attention_bwd_smem_bytes(
+                int(name.split("<")[1].split(",")[0]))
+        if tool and "_mma_kernel" in name:
+            check(res.get("hmma", 0) > 0,
+                  f"{name}: no HMMA instruction in its SASS")
+        log(f"  [attention_bwd] {name}: {res.get('registers')} registers, "
+            f"{res.get('smem_bytes')} B smem, spills "
+            f"{res.get('spill_stores')}/{res.get('spill_loads')} B, HMMA "
+            f"{res.get('hmma', 'not read (no cuobjdump)')}")
+    return dict(cuobjdump=tool, kernels=out)
 
 
 # ------------------------------------------------------------- phase 2
@@ -485,8 +581,9 @@ def check_attention_backward(shapes, gen, seed, batch):
     # f32 mode: reassociation only. bf16 mode: dS and D o P are rounded to
     # bf16 after f32 sums whose order differs, so entries may land one bf16
     # step (2^-8 relative) away: bounded by 4e-3 of the largest gradient.
-    row = dict(name="attention_bwd", ms=0.0, plain_ms=0.0, bound_ms=0.0,
-               library_ms=0.0, forward_ms=0.0, max_abs_err=0.0, shapes=[])
+    row = dict(name="attention_bwd", ms=0.0, ms_p0=0.0, plain_ms=0.0,
+               bound_ms=0.0, library_ms=0.0, library_ms_p0=0.0,
+               forward_ms=0.0, max_abs_err=0.0, shapes=[])
     worst = {True: 0.0, False: 0.0}
 
     def inputs(B, H, Lq, Lk, Dh, pad_kind, fully_masked):
@@ -543,29 +640,38 @@ def check_attention_backward(shapes, gen, seed, batch):
         pms = time_ms(lambda: attention_backward_plain(
             q, k, v, do, pad, keep_mask=keep, **kw), 5)
         del keep
+        ms0 = time_ms(lambda: attention_backward(
+            q, k, v, do, pad, sm_scale=scale, precise=False), 10)
+        # autograd through SDPA at p = 0.1 (like for like with K4's timed
+        # mode) and at p = 0; SDPA is a yardstick the port never calls
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(
-            *leaves, attn_mask=~pad[:, None, None, :], scale=scale)
-        lms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                  retain_graph=True), 10)
-        del out, leaves
+        lms = {}
+        for p in (0.1, 0.0):
+            out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=~pad[:, None, None, :], scale=scale,
+                dropout_p=p)
+            lms[p] = time_ms(lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), 10)
+            del out
+        del leaves
         pairs = batch * H * Lq * Lk
         nbytes = 4 * batch * H * Dh * (3 * Lq + 4 * Lk) + batch * Lk
         b_ms, by = bound_ms(nbytes, [(10 * pairs * Dh, BF16_OPS_PER_S),
                                      (12 * pairs, F32_OPS_PER_S)])
         row["shapes"].append(dict(name=name, B=batch, H=H, Lq=Lq, Lk=Lk,
                                   Dh=Dh, per_step=per_step, ms=ms,
-                                  forward_ms=fms, plain_ms=pms,
-                                  library_ms=lms,
+                                  ms_p0=ms0, forward_ms=fms, plain_ms=pms,
+                                  library_ms=lms[0.1], library_ms_p0=lms[0.0],
                                   bound_ms=b_ms, bound_by=by))
-        row["ms"] += per_step * ms
-        row["plain_ms"] += per_step * pms
-        row["library_ms"] += per_step * lms
-        row["forward_ms"] += per_step * fms
-        row["bound_ms"] += per_step * b_ms
+        for key, val in (("ms", ms), ("ms_p0", ms0), ("plain_ms", pms),
+                         ("library_ms", lms[0.1]),
+                         ("library_ms_p0", lms[0.0]), ("forward_ms", fms),
+                         ("bound_ms", b_ms)):
+            row[key] += per_step * val
         log(f"  bwd {name:20s} B={batch} Lq={Lq:4d} Lk={Lk:4d}: {ms:.3f} ms "
-            f"(plain {pms:.3f}, sdpa autograd {lms:.3f}, bound {b_ms:.4f} "
-            f"by {by}; forward with dropout {fms:.3f}) x{per_step}")
+            f"(p = 0: {ms0:.3f}; plain {pms:.3f}, sdpa autograd p = 0.1 "
+            f"{lms[0.1]:.3f}, p = 0 {lms[0.0]:.3f}, bound {b_ms:.4f} by "
+            f"{by}; forward with dropout {fms:.3f}) x{per_step}")
     row["max_abs_err"] = worst[False]
     row["max_abs_err_precise"] = worst[True]
     row["bound_by"] = "operations" if all(
@@ -776,8 +882,9 @@ def check_gathers(rows, groups, gen, batched):
         group_rows_split_plain,
     )
 
-    g_row = dict(name="gather", ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                 library_ms=0.0, step_ms=0.0, max_abs_err=0, shapes=[])
+    g_row = dict(name="gather", ms=0.0, ms_int32=0.0, ms_int64=0.0,
+                 plain_ms=0.0, bound_ms=0.0, library_ms=0.0, step_ms=0.0,
+                 max_abs_err=0, shapes=[])
     gg_row = dict(name="group_gather", ms=0.0, plain_ms=0.0, bound_ms=0.0,
                   library_ms=0.0, step_ms=0.0, max_abs_err=0, shapes=[])
 
@@ -812,25 +919,32 @@ def check_gathers(rows, groups, gen, batched):
               f"gather {name}: an index out of range gave no zero row")
         del wide
         src = torch.randn(B, n, C, device="cuda", generator=gen).to(dtype)
-        ms = time_ms(lambda: gather_rows(src, idx), 20)
+        ms = median_ms(lambda: gather_rows(src, idx), 20)
+        # each index type read as it is (no cast kernel before the gather)
+        idx32, idx64 = idx.int(), idx.long()
+        ms32 = median_ms(lambda: gather_rows(src, idx32), 20)
+        ms64 = median_ms(lambda: gather_rows(src, idx64), 20)
         pms = time_ms(lambda: gather_rows_plain(src, idx), 20)
         wide_idx = idx.long()[..., None].expand(-1, -1, C)
-        lms = time_ms(lambda: torch.gather(src, 1, wide_idx), 20)
+        lms = median_ms(lambda: torch.gather(src, 1, wide_idx), 20)
         row_bytes = C * src.element_size()
         nbytes = B * M * 4 + (_distinct_rows(idx, n) + B * M) * row_bytes
         b_ms, by = bound_ms(nbytes, [])
         g_row["shapes"].append(dict(
             name=name, B=B, n=n, M=M, C=C, dtype=str(dtype),
-            per_batch=per_batch, per_step=per_step, ms=ms, plain_ms=pms,
-            library_ms=lms, bound_ms=b_ms, bound_by=by))
-        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+            index_dtype=str(idx.dtype), per_batch=per_batch,
+            per_step=per_step, ms=ms, ms_int32=ms32, ms_int64=ms64,
+            plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=by))
+        for key, val in (("ms", ms), ("ms_int32", ms32), ("ms_int64", ms64),
+                         ("plain_ms", pms), ("library_ms", lms),
                          ("bound_ms", b_ms)):
             g_row[key] += per_batch * val
         g_row["step_ms"] += per_step * ms
         log(f"  gather {name:18s} B={B} n={n:5d} M={M:6d} C={C:3d} "
-            f"{str(dtype)[6:]}: {ms:.4f} ms (plain {pms:.4f}, torch.gather "
-            f"{lms:.4f}, bound {b_ms:.5f}) x{per_batch} a batch, "
-            f"x{per_step} a step: bit-equal")
+            f"{str(dtype)[6:]}: {ms:.4f} ms (int32 {ms32:.4f}, int64 "
+            f"{ms64:.4f}; plain {pms:.4f}, torch.gather {lms:.4f}, bound "
+            f"{b_ms:.5f}) x{per_batch} a batch, x{per_step} a step: "
+            f"bit-equal")
 
     for name, n, cf, idx in groups:
         B, m, ns = idx.shape
@@ -1303,9 +1417,12 @@ def run(args):
     report["build_seconds"] = secs
     log(f"  built {sorted(_cuda.KERNELS)} in {secs:.1f} s")
     for name in _cuda.KERNELS:
+        if name == "attention_bwd":
+            continue
         for line in _cuda.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  [{name}] {line.strip()}")
+    report["attention_bwd_resources"] = attention_bwd_resources()
 
     # 2. kernels vs plain versions at the path's shapes
     log("== phase 2: kernels vs plain versions on the card")
@@ -1464,6 +1581,9 @@ def run(args):
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"),
         })
+        for extra in ("ms_p0", "library_ms_p0", "ms_int32", "ms_int64"):
+            if extra in row:  # K4 at p = 0, K6 with each index type
+                kernels[-1][extra] = row[extra]
     report["kernels"] = kernels
     report["detail"] = {"fps": fps_row, "ball_query": bq_row,
                         "attention": att_row, "attention_bwd": bwd_row,

@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
 """What one call of a kernel wrapper costs on the host, for the port.
 
-    python3 scripts/profile_torch_launch_overhead.py [--calls 3000]
-        [--report PATH]
+    python3 scripts/profile_torch_launch_overhead.py [--calls 2000]
+        [--rounds 7] [--report PATH]
 
 The port's kernels are bound with ctypes, and a wrapper does its checks,
 its allocation and its launch in Python. For a small gather (256 rows of 3
 floats from each of 8 scenes, the kps gather of a batch) the kernel runs
 for microseconds, so back-to-back calls are bound by the host. This script
 times, over `--calls` calls each ending without a synchronisation, the
-whole `gather_rows` call beside `torch.gather` on the same rows, and the
-wrapper's parts on their own: the device context, the stream lookup, the
-output allocation, the index and layout checks, the unit choice, and the
-ctypes call that launches the kernel. Prints one JSON object (also written
-to `--report PATH` when given) with the card's name and power limit, times
-in microseconds a call. Needs one NVIDIA GPU.
+whole `gather_rows` call with an int32 and with an int64 index beside
+`torch.gather` on the same rows, and the wrapper's parts on their own:
+the checks, the index operand, the output allocation, the unit choice, the
+stream lookup, the packing of the arguments into one buffer and the ctypes
+call of the packed entry that launches the kernel (the device is made
+current inside the C entry, only when it is not), and `launch()` whole;
+the typed entry called with its dozen arguments through ctypes is timed
+beside it. The previous launch path's parts (a `torch.cuda.device`
+context, `torch.cuda.current_stream`, a `ctypes.c_void_p` object a
+pointer) are timed as `old_*`. Every part runs in rounds of `--calls`
+calls, the parts taking turns, and the median round is reported. Prints one JSON object (also written to `--report PATH` when
+given) with the card's name and power limit, times in microseconds a
+call. Needs one NVIDIA GPU.
 """
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -30,7 +38,8 @@ sys.path.insert(0, ROOT)
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--calls", type=int, default=3000)
+    ap.add_argument("--calls", type=int, default=2000)
+    ap.add_argument("--rounds", type=int, default=7)
     ap.add_argument("--report", default=None,
                     help="also write the JSON result to this path")
     args = ap.parse_args(argv)
@@ -49,46 +58,84 @@ def main(argv=None):
     B, N, M, C = 8, 1024, 256, 3
     src = torch.randn(B, N, C, device="cuda")
     idx = torch.randint(0, N, (B, M), device="cuda", dtype=torch.int32)
-    wide = idx.long()[..., None].expand(-1, -1, C)
+    idx64 = idx.long()
+    wide = idx64[..., None].expand(-1, -1, C)
     out = torch.empty(B, M, C, device="cuda")
-    lib = _cuda.lib("gather")
-    stream = _cuda.stream_of(src)
+    dev = src.get_device()
+    launch_fn = _cuda.lib("gather").gather_launch
+    _, packed_fn, layout, buf, address = _cuda._packed("gather_launch")
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    stream = raw_stream(dev)
+    vp = ctypes.c_void_p
 
-    def device_context():
+    def old_device_context():
         with torch.cuda.device(src.device):
             pass
 
     parts = {
-        "gather_rows": lambda: gather_rows(src, idx),
+        "gather_rows_int32": lambda: gather_rows(src, idx),
+        "gather_rows_int64": lambda: gather_rows(src, idx64),
         "torch.gather": lambda: torch.gather(src, 1, wide),
-        "device_context": device_context,
-        "stream_lookup": lambda: _cuda.stream_of(src),
-        "output_allocation": lambda: torch.empty(B, M, C, device=src.device),
-        "index_cast_check": lambda: G._index(idx, src.device),
-        "shape_and_layout_checks": lambda: (
-            G._check(src, idx, 2, "gather_rows"),
-            G._payload(src).contiguous()),
-        "unit_choice": lambda: G._units(src, out),
-        "ctypes_launch": lambda: lib.gather_launch(
-            _cuda.ptr(src), _cuda.ptr(idx), _cuda.ptr(out), B, N, M, C, 4,
-            stream),
+        "checks": lambda: (src.is_cuda, src.shape, idx.shape, src.dtype,
+                           src.is_contiguous(), src.get_device(), idx.dtype,
+                           idx.get_device(), idx.is_contiguous()),
+        "index_operand": lambda: G.index_operand(idx64, dev),
+        "output_allocation": lambda: torch.empty(B, M, C, dtype=src.dtype,
+                                                 device=src.device),
+        "allocation_from_tuple": lambda: torch.empty((B, M, C),
+                                                     dtype=src.dtype,
+                                                     device=src.device),
+        "allocation_by_ordinal": lambda: torch.empty((B, M, C),
+                                                     dtype=src.dtype,
+                                                     device=dev),
+        "allocation_new_empty": lambda: src.new_empty((B, M, C)),
+        "unit_choice": lambda: G.copy_unit(C * src.element_size(),
+                                           src.data_ptr(), out.data_ptr()),
+        "size_checks": lambda: G._check_sizes("gather_rows", B, N, M * C),
+        "stream_lookup": lambda: raw_stream(dev),
+        "pack_arguments": lambda: layout.pack_into(
+            buf, 0, dev, src.data_ptr(), idx.data_ptr(), 0, out.data_ptr(),
+            B, N, M, C, 4, stream),
+        "packed_ctypes_call": lambda: packed_fn(address),
+        "typed_ctypes_call": lambda: launch_fn(
+            dev, src.data_ptr(), idx.data_ptr(), 0, out.data_ptr(), B, N, M,
+            C, 4, stream),
+        "launch_helper": lambda: _cuda.launch(
+            "gather_launch", dev, src.data_ptr(), idx.data_ptr(), 0,
+            out.data_ptr(), B, N, M, C, 4),
+        "old_device_context": old_device_context,
+        "old_stream_lookup": lambda: vp(
+            torch.cuda.current_stream(src.device).cuda_stream),
+        "old_output_allocation": lambda: torch.empty(B, M, C,
+                                                     device=src.device),
+        "old_typed_ctypes_call": lambda: launch_fn(
+            dev, vp(src.data_ptr()), vp(idx.data_ptr()), 0,
+            vp(out.data_ptr()), B, N, M, C, 4, vp(stream)),
     }
-    result = {"calls": args.calls, "shape": dict(B=B, N=N, M=M, C=C),
-              "host_us_per_call": {}}
-    for name, fn in parts.items():
+    result = {"calls": args.calls, "rounds": args.rounds,
+              "shape": dict(B=B, N=N, M=M, C=C), "host_us_per_call": {}}
+    rounds = {name: [] for name in parts}
+    for fn in parts.values():
         for _ in range(50):
             fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(args.calls):
-            fn()
-        result["host_us_per_call"][name] = (
-            (time.perf_counter() - t) / args.calls * 1e6)
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    for _ in range(args.rounds):
+        for name, fn in parts.items():
+            t = time.perf_counter()
+            for _ in range(args.calls):
+                fn()
+            rounds[name].append((time.perf_counter() - t) / args.calls * 1e6)
+            torch.cuda.synchronize()
+    for name, us in rounds.items():
+        result["host_us_per_call"][name] = sorted(us)[len(us) // 2]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     result["card"] = smi.stdout.strip().splitlines()[0]
+    us = result["host_us_per_call"]
+    result["ratio_to_torch_gather"] = {
+        k: us[k] / us["torch.gather"] for k in ("gather_rows_int32",
+                                                "gather_rows_int64")}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

@@ -5,8 +5,11 @@ it skips. On the card, with no JAX installed:
     python -m pytest -m cuda --noconftest -p no:cacheprovider \
         tests/test_torch_cuda.py
 
-Integers and the row gathers bit-equal; attention, its backward and the
-scatter-add within the bounds of chip_smoke.py.
+Integers and the row gathers bit-equal; attention, its backward (both
+modes: tensor cores for bf16 operands, CUDA cores for precise) and the
+scatter-add within the bounds of chip_smoke.py; the launch path's rules
+(the index in its own type, no cast kernel, the caller's current stream)
+through torch.profiler.
 """
 
 import numpy as np
@@ -164,6 +167,111 @@ def test_attention_backward_kernel_matches_plain(gpu, p, precise, lq, lk,
         else:
             assert float((g - w).abs().max()) <= 4e-3 + 4e-3 * float(
                 w.abs().max())
+
+
+def _check_backward(gpu, B, H, lq, lk, dh, p, precise, seed):
+    """K4 at one shape against its plain version, with one fully masked
+    batch row; two runs bit-equal. Bounds as in
+    test_attention_backward_kernel_matches_plain."""
+    q, k, v, do, pad = _qkv(gpu, seed, B, H, lq, lk, dh)
+    keep = dropout_keep_mask(seed, B, H, lq, lk, p, device=gpu) if p else None
+    kw = dict(sm_scale=dh ** -0.5, dropout_p=p, precise=precise)
+    got = attention_backward(q, k, v, do, pad, seed=seed, **kw)
+    again = attention_backward(q, k, v, do, pad, seed=seed, **kw)
+    want = attention_backward_plain(q, k, v, do, pad, keep_mask=keep, **kw)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert bool(torch.isfinite(g).all())
+        if precise:
+            torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-4)
+        else:
+            assert float((g - w).abs().max()) <= 4e-3 + 4e-3 * float(
+                w.abs().max())
+    return got
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("lq,lk", [(1024, 1024), (256, 1024)])
+def test_attention_backward_kernel_at_training_lengths(gpu, p, precise, lq,
+                                                       lk):
+    """The largest training shapes (visual self, decoder to visual) at
+    B = 2, H 8, Dh 36, with a fully masked batch row."""
+    _check_backward(gpu, 2, 8, lq, lk, 36, p, precise, lq + lk)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("lq,lk,dh", [(77, 45, 1), (65, 129, 17),
+                                      (17, 63, 17), (130, 100, 33)])
+def test_attention_backward_kernel_ragged_lengths_and_head_dims(
+        gpu, p, precise, lq, lk, dh):
+    """Lengths that are multiples of neither 16 nor 64 (the last query and
+    key tiles are masked) and head dims that are not multiples of 4 or 16
+    (4-byte loads, zero-padded to the mma depth)."""
+    _check_backward(gpu, 2, 3, lq, lk, dh, p, precise, lq * lk + dh)
+
+
+def _cuda_kernels(fn):
+    """(name, stream) of every CUDA kernel that `fn()` launches, by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.device_resource_id) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_gathers_launch_one_kernel_and_no_cast(gpu, idx_dtype):
+    """K6 and K7 read an int32 or int64 index as it is: one kernel a call,
+    no cast kernel before it, bit-equal to the plain version."""
+    src = _rows(5, 2, 700, 6, torch.float32).to(gpu)
+    idx = torch.randint(0, 700, (2, 40, 8), device=gpu).to(idx_dtype)
+    idx[0, 0, 0] = 0
+    flat = idx.reshape(2, 320)
+    got = {}
+    kernels = _cuda_kernels(lambda: got.update(g=gather_rows(src, flat)))
+    assert len(kernels) == 1 and "gather_rows_kernel" in kernels[0][0], \
+        kernels
+    assert torch.equal(_bits(got["g"]), _bits(gather_rows_plain(src, flat)))
+    xyz = src[..., :3].contiguous()
+    feats = src[..., 3:].to(torch.bfloat16)
+    kernels = _cuda_kernels(lambda: got.update(
+        s=group_rows_split(xyz, feats, idx)))
+    assert len(kernels) == 1 and "group_gather_kernel" in kernels[0][0], \
+        kernels
+    wx, wf = group_rows_split_plain(src[..., :3], feats, idx)
+    assert torch.equal(_bits(got["s"][0]), _bits(wx))
+    assert torch.equal(_bits(got["s"][1]), _bits(wf))
+
+
+def test_kernels_launch_on_the_current_stream(gpu):
+    """A launch inside `torch.cuda.stream(s)` runs on `s`: K4 and K6 land
+    on the stream of a PyTorch operator issued beside them, not on the
+    default stream's."""
+    q, k, v, do, pad = _qkv(gpu, 3, 2, 2, 40, 70, 36)
+    src = torch.randn(2, 300, 8, device=gpu)
+    idx = torch.randint(0, 300, (2, 50), device=gpu)
+    x = torch.randn(1000, device=gpu)
+    s = torch.cuda.Stream()
+
+    def on_side_stream():
+        with torch.cuda.stream(s):
+            torch.neg(x)
+            gather_rows(src, idx)
+            attention_backward(q, k, v, do, pad, sm_scale=1 / 6)
+    kernels = _cuda_kernels(on_side_stream)
+    side = {st for name, st in kernels if "neg" in name.lower()}
+    ours = {st for name, st in kernels if "gather_rows" in name
+            or "attention_bwd" in name}
+    assert len(side) == 1 and ours == side, kernels
+    default = {st for name, st in _cuda_kernels(lambda: torch.neg(x))}
+    assert default and not default & side
 
 
 def test_attention_autograd_runs_both_kernels(gpu):
