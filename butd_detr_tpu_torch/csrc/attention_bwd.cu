@@ -24,7 +24,8 @@
 //
 // Default mode (bf16 operands): the five products are exactly bf16 x bf16
 // products with f32 accumulation, and run on the tensor cores
-// (mma.sync.m16n8k16, operands from shared memory by ldmatrix). What is
+// (mma.sync.m16n8k16, operands from shared memory by ldmatrix; the helpers
+// and the tile staging are mma.cuh's, shared with the forward). What is
 // left is the exp of every (row, key) pair, the Philox draws of the dropout
 // mask and the traffic of the tiles.
 //   1. attention_bwd_dq_mma_kernel, grid (Lq / 64, B * H), 4 warps x 16
@@ -67,202 +68,14 @@
 // In both modes the dQ kernel and the dK/dV kernel each own their outputs,
 // so there are no atomics and two runs are bit-equal.
 
-#include <cuda_bf16.h>
 #include <math_constants.h>
 
-#include <cfloat>
-#include <cstdint>
-
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kMaxD = 64;
-constexpr float kMaskValue = -FLT_MAX;  // torch.finfo(float32).min
-
-struct Strides {
-  long long b, h, l;
-};
-
-struct Dropout {
-  unsigned int thresh;
-  float inv_keep;
-  unsigned long long seed;
-};
-
-// The keep bits of one group of 4 keys, key 4 g + i at bit i.
-__device__ __forceinline__ unsigned int keep4(const Dropout& dr, int bh,
-                                              int row, int group) {
-  const uint4 bits = dropout_bits(dr.seed, bh, row, group);
-  return static_cast<unsigned int>(bits.x >= dr.thresh) |
-         (static_cast<unsigned int>(bits.y >= dr.thresh) << 1) |
-         (static_cast<unsigned int>(bits.z >= dr.thresh) << 2) |
-         (static_cast<unsigned int>(bits.w >= dr.thresh) << 3);
-}
-
 // ============================================ default mode: tensor cores
-
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kBlockRows = 16 * kMmaWarps;  // rows (dQ) or keys (dK/dV)
-constexpr int kTile = 64;                   // keys (dQ) or rows (dK/dV)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices; lanes 8i .. 8i + 7 give the row addresses of
-// matrix i, and register i of a lane holds its row lane / 4, columns
-// 2 (lane % 4) and 2 (lane % 4) + 1 (.trans: that column pair's rows).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a b for a 16x16 bf16 A (row-major fragment), a 16x8 bf16 B (column
-// fragment) and a 16x8 f32 accumulator. With g = lane / 4, t = lane % 4:
-// a[0] = A[g][2t..], a[1] = A[g+8][2t..], a[2] = A[g][2t+8..],
-// a[3] = A[g+8][2t+8..]; b0 = B[2t..][g], b1 = B[2t+8..][g];
-// d[0..1] = D[g][2t, 2t+1], d[2..3] = D[g+8][2t, 2t+1].
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 rounded to bf16, `lo` in the low half: the pair (2t, 2t + 1).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The A fragment of a 16x16 tile whose two 16x8 halves are accumulators:
-// the accumulator layout of columns (2t, 2t + 1) is the A layout.
-__device__ __forceinline__ void accum_to_a(uint32_t (&a)[4],
-                                           const float (&x)[2][4]) {
-  a[0] = pack_bf16(x[0][0], x[0][1]);
-  a[1] = pack_bf16(x[0][2], x[0][3]);
-  a[2] = pack_bf16(x[1][0], x[1][1]);
-  a[3] = pack_bf16(x[1][2], x[1][3]);
-}
-
-// The next tile's loads are issued as cp.async copies of the f32 rows into
-// a staging area of shared memory, so that they fly while this tile's
-// products run without holding registers; after the products each thread
-// waits for its own copies and rounds exactly the slots it copied to bf16
-// (after scaling) into the other tile buffer, whose rows have a stride of
-// DP + 8 (16-byte aligned rows whose ldmatrix phases hit distinct banks).
-// A thread never reads another's staged slots, so the pipeline needs one
-// barrier a tile. Rows >= len and columns >= dh arrive as zeros (cp.async
-// zero-fills what its source size leaves out).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
-               ::: "memory");
-}
-
-template <int DP>
-struct TileCopy {
-  static constexpr int kSlots = kTile * DP / 4 / kMmaThreads;  // DP / 8
-
-  // a thread's slot i: 4 consecutive columns of one row
-  static __device__ __forceinline__ int row(int i) {
-    return (threadIdx.x + i * kMmaThreads) / (DP / 4);
-  }
-  static __device__ __forceinline__ int col(int i) {
-    return (threadIdx.x + i * kMmaThreads) % (DP / 4) * 4;
-  }
-
-  static __device__ __forceinline__ void issue(float* stage,
-                                               const float* base,
-                                               long long ld, int r0, int len,
-                                               int dh, bool vec) {
-#pragma unroll
-    for (int i = 0; i < kSlots; ++i) {
-      const int r = row(i), c = col(i);
-      float* dst = stage + r * DP + c;
-      const float* src = base + (r0 + r) * ld + c;
-      const bool in = r0 + r < len;
-      if (vec) {
-        const bool ok = in && c < dh;
-        cp_async16(dst, ok ? src : base, ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool ok = in && c + e < dh;
-          cp_async4(dst + e, ok ? src + e : base, ok ? 4 : 0);
-        }
-      }
-    }
-  }
-
-  static __device__ __forceinline__ void convert(const float* stage,
-                                                 __nv_bfloat16* s,
-                                                 float mul) {
-#pragma unroll
-    for (int i = 0; i < kSlots; ++i) {
-      const int r = row(i), c = col(i);
-      const float4 x = *reinterpret_cast<const float4*>(stage + r * DP + c);
-      uint2 w;
-      w.x = pack_bf16(x.x * mul, x.y * mul);
-      w.y = pack_bf16(x.z * mul, x.w * mul);
-      *reinterpret_cast<uint2*>(s + r * (DP + 8) + c) = w;
-    }
-  }
-};
-
-// Shared memory of either kernel: a staging area for two f32 tiles, two
-// buffers of two bf16 tiles, then the kernel's small arrays.
-template <int DP>
-struct MmaSmem {
-  static constexpr int kStage = 2 * kTile * DP;       // floats
-  static constexpr int kBf16 = 2 * 2 * kTile * (DP + 8);  // bf16 values
-  static constexpr size_t kBytes =
-      kStage * sizeof(float) + kBf16 * sizeof(__nv_bfloat16) + 2048;
-};
-
-// ldmatrix addresses of a lane, for a tile stored [row][col] at stride S:
-// the A fragment of rows r0.., columns c0..c0+15;
-__device__ __forceinline__ int a_offset(int lane, int r0, int c0, int S) {
-  return (r0 + (lane & 15)) * S + c0 + (lane >> 4) * 8;
-}
-// the B fragments of two 8-wide n tiles n0, n0 + 8 over k = c0..c0+15
-// when the tile is stored [n][k] (non-transposed load);
-__device__ __forceinline__ int b_offset(int lane, int n0, int c0, int S) {
-  return (n0 + (lane & 7) + ((lane >> 4) << 3)) * S + c0 +
-         ((lane >> 3) & 1) * 8;
-}
-// the B fragments of n tiles c0, c0 + 8 over k = k0..k0+15 when the tile is
-// stored [k][n] (transposed load).
-__device__ __forceinline__ int bt_offset(int lane, int k0, int c0, int S) {
-  return (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + c0 +
-         (lane >> 4) * 8;
-}
 
 // ------------------------------------------------------------------ dQ
 
@@ -1137,11 +950,6 @@ cudaError_t launch_f32(dim3 grid_q, dim3 grid_k, cudaStream_t st,
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p, long long sb, long long sh, long long sl) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 &&
-         sh % 4 == 0 && sl % 4 == 0;
-}
-
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv: f32 (B, H, L, Dh) views with the given
@@ -1191,14 +999,13 @@ extern "C" int attention_bwd_launch(
                    aligned16(k, ksb, ksh, ksl) &&
                    aligned16(v, vsb, vsh, vsl) &&
                    aligned16(dout, dosb, dosh, dosl);
-  const int dp = (dh + 15) / 16 * 16;
 #define BUTD_MMA(DP, DROPOUT)                                                \
   launch_mma<DP, DROPOUT>(device, grid_q, grid_k, st, q, qs, k, ks, v, vs,  \
                           pad, dout, dos, dq, dqs, dk, dks, dv, dvs, stats,  \
                           keep_bits, heads, lq, lk, dh, scale, dr, vec)
 #define BUTD_MMA_DP(DP) \
   (drop_thresh ? BUTD_MMA(DP, true) : BUTD_MMA(DP, false))
-  switch (dp) {
+  switch (mma_depth(dh)) {
     case 16: err = BUTD_MMA_DP(16); break;
     case 32: err = BUTD_MMA_DP(32); break;
     case 48: err = BUTD_MMA_DP(48); break;
@@ -1212,7 +1019,7 @@ extern "C" int attention_bwd_launch(
 // Dynamic shared memory a block of the default mode's kernels takes at
 // head dimension `dh` (ptxas reports only static shared memory).
 extern "C" int attention_bwd_smem_bytes(int dh) {
-  switch ((dh + 15) / 16 * 16) {
+  switch (mma_depth(dh)) {
     case 16: return static_cast<int>(MmaSmem<16>::kBytes);
     case 32: return static_cast<int>(MmaSmem<32>::kBytes);
     case 48: return static_cast<int>(MmaSmem<48>::kBytes);

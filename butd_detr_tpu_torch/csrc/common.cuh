@@ -53,6 +53,23 @@ __device__ __forceinline__ uint4 dropout_bits(unsigned long long seed, int bh,
                  static_cast<unsigned int>(seed >> 32)));
 }
 
+// A call's dropout: threshold (0: none), 1 / (1 - p) and seed.
+struct Dropout {
+  unsigned int thresh;
+  float inv_keep;
+  unsigned long long seed;
+};
+
+// The keep bits of one group of 4 keys, key 4 g + i at bit i.
+__device__ __forceinline__ unsigned int keep4(const Dropout& dr, int bh,
+                                              int row, int group) {
+  const uint4 bits = dropout_bits(dr.seed, bh, row, group);
+  return static_cast<unsigned int>(bits.x >= dr.thresh) |
+         (static_cast<unsigned int>(bits.y >= dr.thresh) << 1) |
+         (static_cast<unsigned int>(bits.z >= dr.thresh) << 2) |
+         (static_cast<unsigned int>(bits.w >= dr.thresh) << 3);
+}
+
 // Copy unit `k` of a row, or write zeros when the row has no source
 // (`src_row == nullptr`). A unit is 16, 4 or 2 bytes; the wrapper picks the
 // largest that divides the row's bytes and the three base pointers, so every

@@ -77,7 +77,9 @@ _DROPOUT = [_U, _F, _ULL]  # threshold, 1 / (1 - p), seed
 _SIGNATURES = {
     "fps": {
         "fps_launch": [_I, _VP, _I, _I, _I, _VP, _VP, _VP],
-        "fps_max_smem_points": [],
+        "fps_max_resident_points": [],
+        "fps_cluster_size": [_I],
+        "fps_max_active_clusters": [_I, _I],
     },
     "ball_query": {
         "ball_query_launch": [_I, _VP, _VP, _I, _I, _I, _I, _F, _VP, _VP],
@@ -87,6 +89,7 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _I, _F, _I, *_DROPOUT, _VP],
         "attention_dropout_mask_launch": [_I, _VP, _I, _I, _I, _U, _ULL,
                                           _VP],
+        "attention_fwd_smem_bytes": [_I],
     },
     "attention_bwd": {
         "attention_bwd_launch": [_I, *_STRIDED * 3, _VP, *_STRIDED * 4, _VP,

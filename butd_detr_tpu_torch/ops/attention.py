@@ -11,9 +11,10 @@ on the normalized probabilities. Two modes, as there:
     rounded to bf16 before P V, which accumulates in f32; the backward
     rounds dO, dS and D o P to bf16 before their products;
   * precise: f32 throughout.
-The backward kernels differ by mode: the default mode's five products run
-on the tensor cores (bf16 x bf16 -> f32 mma), the precise mode's on CUDA
-cores in f32 (csrc/attention_bwd.cu). The mode is the caller's `precise`.
+The kernels differ by mode: the default mode's products (two in the
+forward, five in the backward) run on the tensor cores (bf16 x bf16 -> f32
+mma, csrc/mma.cuh), the precise mode's on CUDA cores in f32. The mode is
+the caller's `precise`.
 
 Dropout keeps an entry iff its random uint32 >= min(int(p * 2^32),
 2^32 - 1) and scales the kept entries by 1 / (1 - p). The bits are
@@ -25,7 +26,8 @@ from it, bit for bit the mask of the kernels. The TPU's random bits are other
 bits; the two packages are compared at p = 0 or through an explicit mask.
 
 `attention` is one `torch.autograd.Function` over both kernels; it saves
-q, k, v, the padding mask and the seed, nothing else.
+q, k, v, the padding mask and the seed, nothing else. A call with nothing
+to differentiate launches the forward without it.
 """
 
 from typing import Optional
@@ -166,7 +168,8 @@ def attention_backward_plain(q, k, v, dout, key_padding_mask=None, *,
 # --------------------------------------------------------- kernel wrappers
 
 def _unit_stride(t: torch.Tensor) -> torch.Tensor:
-    t = t.float()
+    if t.dtype is not torch.float32:
+        t = t.float()
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
@@ -184,8 +187,8 @@ def _pad_bytes(key_padding_mask, device):
 def _heads_buffer(B, H, L, Dh, device):
     """A (B, H, L, Dh) view of a new (B, L, H, Dh) buffer: what the
     multi-head wrapper reshapes to (B, L, H * Dh) without a copy."""
-    return torch.empty(B, L, H, Dh, dtype=torch.float32,
-                       device=device).transpose(1, 2)
+    return torch.empty_strided((B, H, L, Dh), (L * H * Dh, Dh, H * Dh, 1),
+                               dtype=torch.float32, device=device)
 
 
 def _dropout_args(dropout_p, seed):
@@ -342,5 +345,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"dropout_p must lie in [0, 1), got {dropout_p}")
     if dropout_p > 0.0 and seed is None:
         raise ValueError("dropout_p > 0 needs a seed")
-    return _Attention.apply(q, k, v, key_padding_mask, float(sm_scale),
-                            float(dropout_p), seed, bool(precise))
+    args = (float(sm_scale), float(dropout_p), seed, bool(precise))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, key_padding_mask, *args)
+    # nothing to differentiate (serving, evaluation, the frozen text
+    # tower): no autograd node, whose bookkeeping costs a small call more
+    # host time than its kernel takes
+    return _attention_forward(q, k, v, key_padding_mask, *args)

@@ -56,10 +56,11 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     xyz = xyz.float().contiguous()
     B, N, _ = xyz.shape
     out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
-    # running distances live in shared memory up to fps_max_smem_points,
-    # in this scratch row beyond
+    # coordinates and running distances stay on chip (one block, or a
+    # cluster of blocks) up to fps_max_resident_points; beyond, the
+    # distances live in this scratch row
     scratch = None
-    if N > _cuda.lib("fps").fps_max_smem_points():
+    if N > _cuda.lib("fps").fps_max_resident_points():
         scratch = torch.empty(B, N, dtype=torch.float32, device=xyz.device)
     _cuda.launch("fps_launch", xyz.get_device(), xyz.data_ptr(), B, N,
                  npoint, out.data_ptr(),

@@ -12,15 +12,19 @@ the last line is printed:
 
 1. build: compile butd_detr_tpu_torch/csrc/*.cu with nvcc (in parallel)
    and print the seconds and ptxas's register/shared-memory report; for
-   each attention-backward kernel also its spills and the HMMA (tensor-
-   core) instructions in its SASS (cuobjdump -sass), which every kernel of
-   the default (bf16-operand) mode must have;
+   each attention kernel, forward and backward, also its spills and the
+   HMMA (tensor-core) instructions in its SASS (cuobjdump -sass), which
+   every kernel of the default (bf16-operand) mode must have (and the
+   forward's no spill); FPS's layout per tier size: the blocks of a
+   cloud's cluster and cudaOccupancyMaxActiveClusters;
 2. kernels vs plain versions on the card, at the paths' shapes:
    FPS and ball query bit-equal at the 4 SA tiers (one scene, and again
    on the training batch's clouds; plus an all-zero cloud and centers
-   with no neighbour), attention within its stated bound in
-   both modes at every (Lq, Lk, Dh) the forward uses, with key padding and
-   a fully masked row; with dropout 0.1 against the plain version fed the
+   with no neighbour), FPS timed with its us a step; attention within its
+   stated bound in both modes at every (Lq, Lk, Dh) the forward uses, with
+   key padding and a fully masked row, timed at B = 1 and at the training
+   batch with p = 0 (evaluation) and 0.1 (training), beside SDPA at the
+   same B and p; with dropout 0.1 against the plain version fed the
    kernel's own mask (which must equal the plain Philox generator's and
    keep 90 % within 4 sigma); the attention backward against its plain
    version at every shape the training forward differentiates, both
@@ -191,24 +195,25 @@ def _short_name(mangled):
     """attention_bwd_dq_mma_kernel<48, 1> from its mangled name."""
     import re
 
-    m = re.search(r"\d+(attention_bwd_\w+?_kernel)I(\w*?)EEv", mangled)
+    m = re.search(r"\d+(attention_\w+?_kernel)I(\w*?)EEv", mangled)
     if not m:
         return mangled
     args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def attention_bwd_resources():
-    """Per kernel function of csrc/attention_bwd.cu: ptxas's registers,
-    shared memory and spills (from the build log) and the HMMA (tensor-core
-    mma) instructions in its SASS (cuobjdump -sass, where the toolkit has
-    it). Fails if a default-mode (mma) kernel has no HMMA."""
+def attention_resources(lib_name):
+    """Per kernel function of csrc/<lib_name>.cu (the attention forward or
+    backward): ptxas's registers, shared memory and spills (from the build
+    log) and the HMMA (tensor-core mma) instructions in its SASS (cuobjdump
+    -sass, where the toolkit has it). Fails if a default-mode (mma) kernel
+    has no HMMA, or if one of the forward's spills."""
     import re
 
     from butd_detr_tpu_torch.ops import _cuda
 
     funcs, cur = {}, None
-    for line in _cuda.build_log("attention_bwd").splitlines():
+    for line in _cuda.build_log(lib_name).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             cur = funcs.setdefault(m.group(1), {})
@@ -225,11 +230,11 @@ def attention_bwd_resources():
         m = re.search(r"(\d+) bytes smem", line)
         if m:
             cur["smem_bytes"] = int(m.group(1))
-    check(len(funcs) > 0, "attention_bwd: no ptxas report in the build log")
+    check(len(funcs) > 0, f"{lib_name}: no ptxas report in the build log")
     tool = _cuobjdump()
     if tool:
         sass = subprocess.run([tool, "-sass",
-                               str(_cuda._lib_path("attention_bwd"))],
+                               str(_cuda._lib_path(lib_name))],
                               capture_output=True, text=True, timeout=300)
         check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
         cur = None
@@ -240,22 +245,49 @@ def attention_bwd_resources():
                 cur["hmma"] = 0
             elif cur is not None and "HMMA" in line:
                 cur["hmma"] += 1
-    lib = _cuda.lib("attention_bwd")
+    lib = _cuda.lib(lib_name)
+    smem_bytes = lib.attention_bwd_smem_bytes if lib_name == "attention_bwd" \
+        else lib.attention_fwd_smem_bytes
     out = {}
     for mangled, res in funcs.items():
         name = _short_name(mangled)
         out[name] = res
         if "_mma_kernel<" in name:  # dynamic shared memory, by head dim
-            res["smem_bytes"] = lib.attention_bwd_smem_bytes(
+            res["smem_bytes"] = smem_bytes(
                 int(name.split("<")[1].split(",")[0]))
+        if lib_name == "attention" and "_mma_kernel" in name:
+            check(res.get("spill_stores", 0) == 0
+                  and res.get("spill_loads", 0) == 0,
+                  f"{name}: spills registers")
         if tool and "_mma_kernel" in name:
             check(res.get("hmma", 0) > 0,
                   f"{name}: no HMMA instruction in its SASS")
-        log(f"  [attention_bwd] {name}: {res.get('registers')} registers, "
+        log(f"  [{lib_name}] {name}: {res.get('registers')} registers, "
             f"{res.get('smem_bytes')} B smem, spills "
             f"{res.get('spill_stores')}/{res.get('spill_loads')} B, HMMA "
             f"{res.get('hmma', 'not read (no cuobjdump)')}")
     return dict(cuobjdump=tool, kernels=out)
+
+
+def fps_plan(sizes):
+    """K1's layout for each cloud size: the blocks a cloud takes (a
+    cluster, or 1) and how many such clusters can be resident at once
+    (cudaOccupancyMaxActiveClusters): a batch of more clouds than that
+    runs in waves."""
+    from butd_detr_tpu_torch.ops import _cuda
+
+    lib = _cuda.lib("fps")
+    out = []
+    for n in sizes:
+        plan = dict(n=n, cluster=lib.fps_cluster_size(n),
+                    max_active=lib.fps_max_active_clusters(0, n))
+        check(plan["max_active"] > 0,
+              f"fps at N={n}: no cluster can be resident "
+              f"({plan['max_active']})")
+        out.append(plan)
+        log(f"  [fps] N={n}: {plan['cluster']} block(s) a cloud, at most "
+            f"{plan['max_active']} such resident at once")
+    return out
 
 
 # ------------------------------------------------------------- phase 2
@@ -320,8 +352,11 @@ def check_point_kernels(tiers):
         # per step: 3 sub, 3 mul, 2 add, 1 min, 1 compare per point
         b_ms, by = bound_ms(N * 12 + npoint * 4,
                             [(10 * N * (npoint - 1), F32_OPS_PER_S)])
+        steps = max(npoint - 1, 1)
         fps_row["tiers"].append(dict(n=N, npoint=npoint, ms=ms, plain_ms=pms,
-                                     bound_ms=b_ms, bound_by=by))
+                                     bound_ms=b_ms, bound_by=by,
+                                     us_per_step=ms * 1e3 / steps,
+                                     bound_us_per_step=b_ms * 1e3 / steps))
         fps_row["ms"] += ms
         fps_row["plain_ms"] += pms
         fps_row["bound_ms"] += b_ms
@@ -343,8 +378,9 @@ def check_point_kernels(tiers):
         bq_row["plain_ms"] += pms
         bq_row["bound_ms"] += b_ms
         f, q = fps_row["tiers"][-1], bq_row["tiers"][-1]
-        log(f"  N={N:6d} -> {npoint:5d}: fps {f['ms']:.3f} ms (plain "
-            f"{f['plain_ms']:.1f}, bound {f['bound_ms']:.4f}), ball query "
+        log(f"  N={N:6d} -> {npoint:5d}: fps {f['ms']:.3f} ms = "
+            f"{f['us_per_step']:.3f} us a step (plain {f['plain_ms']:.1f}, "
+            f"bound {f['bound_ms']:.4f}), ball query "
             f"r={r} ns={ns} {q['ms']:.3f} ms (plain {q['plain_ms']:.2f}, "
             f"bound {q['bound_ms']:.4f}, {q['scanned']} candidates): equal")
 
@@ -382,7 +418,7 @@ def check_point_kernels_batched(tiers, fps_row, bq_row):
     )
 
     fps_row["training_ms"] = bq_row["training_ms"] = 0.0
-    for xyz, new_xyz, npoint, r, ns in tiers:
+    for i, (xyz, new_xyz, npoint, r, ns) in enumerate(tiers):
         B, N = xyz.shape[:2]
         check(torch.equal(furthest_point_sample(xyz, npoint),
                           furthest_point_sample_plain(xyz, npoint)),
@@ -390,12 +426,17 @@ def check_point_kernels_batched(tiers, fps_row, bq_row):
         check(torch.equal(ball_query(r, ns, xyz, new_xyz),
                           ball_query_plain(r, ns, xyz, new_xyz)),
               f"ball query kernel != plain at B={B}, N={N}")
-        fps_row["training_ms"] += time_ms(
-            lambda: furthest_point_sample(xyz, npoint), 3)
+        ms = time_ms(lambda: furthest_point_sample(xyz, npoint), 3)
+        tier = fps_row["tiers"][i]
+        tier["training_ms"] = ms
+        tier["training_us_per_step"] = ms * 1e3 / max(npoint - 1, 1)
+        fps_row["training_ms"] += ms
         bq_row["training_ms"] += time_ms(
             lambda: ball_query(r, ns, xyz, new_xyz), 5)
+    per_step = ", ".join(f"{t['training_us_per_step']:.3f}"
+                         for t in fps_row["tiers"])
     log(f"  B={tiers[0][0].shape[0]} (training batch), 4 tiers: fps "
-        f"{fps_row['training_ms']:.3f} ms, ball query "
+        f"{fps_row['training_ms']:.3f} ms ({per_step} us a step), ball query "
         f"{bq_row['training_ms']:.3f} ms: equal")
 
 
@@ -423,7 +464,11 @@ def attention_shapes(cfg, roberta, npoints):
     ]
 
 
-def check_attention(shapes, gen):
+def check_attention(shapes, gen, batch, seed):
+    """K3 against attention_plain at every shape of the forward (both
+    modes), timed at B = 1 in the serving mode, and at the batch of
+    training and evaluation at p = 0 and p = 0.1, each beside SDPA at the
+    same B and p."""
     import torch
     import torch.nn.functional as F
 
@@ -434,7 +479,9 @@ def check_attention(shapes, gen):
     # (2^-8 relative): bounded by 4e-3 at |V| ~ 1.
     tol = {True: (2e-5, 1e-4), False: (4e-3, 4e-3)}
     row = dict(name="attention", ms=0.0, plain_ms=0.0, bound_ms=0.0,
-               library_ms=0.0, max_abs_err=0.0, shapes=[])
+               library_ms=0.0, training_ms=0.0, library_training_ms=0.0,
+               evaluation_ms=0.0, library_evaluation_ms=0.0,
+               max_abs_err=0.0, shapes=[])
     worst = {True: 0.0, False: 0.0}
 
     def inputs(B, H, Lq, Lk, Dh, pad_kind, fully_masked):
@@ -494,21 +541,43 @@ def check_attention(shapes, gen):
         nbytes = 4 * H * Dh * (2 * Lq + 2 * Lk) + Lk
         b_ms, by = bound_ms(nbytes, [(4 * pairs * Dh, BF16_OPS_PER_S),
                                      (5 * pairs, F32_OPS_PER_S)])
-        row["shapes"].append(dict(name=name, H=H, Lq=Lq, Lk=Lk, Dh=Dh,
-                                  per_request=per_req, ms=ms, plain_ms=pms,
-                                  library_ms=lms, bound_ms=b_ms,
-                                  bound_by=by))
-        row["ms"] += per_req * ms
-        row["plain_ms"] += per_req * pms
-        row["library_ms"] += per_req * lms
-        row["bound_ms"] += per_req * b_ms
+        # at the batch of training and evaluation: p = 0 (evaluation, and
+        # the frozen text tower in training) and p = 0.1 (training)
+        qb, kb, vb, padb = inputs(batch, H, Lq, Lk, Dh, pad_kind, False)
+        amask = ~padb[:, None, None, :]
+        at_b, sdpa_b = {}, {}
+        for p in (0.0, 0.1):
+            at_b[p] = time_ms(lambda: attention(
+                qb, kb, vb, padb, sm_scale=scale, dropout_p=p, seed=seed), 10)
+            sdpa_b[p] = time_ms(lambda: F.scaled_dot_product_attention(
+                qb, kb, vb, attn_mask=amask, scale=scale, dropout_p=p), 10)
+        del qb, kb, vb, padb, amask
+        p_train = 0.0 if name == "roberta_self" else 0.1
+        row["shapes"].append(dict(
+            name=name, H=H, Lq=Lq, Lk=Lk, Dh=Dh, per_request=per_req, ms=ms,
+            plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=by,
+            batch=batch, batch_ms_p0=at_b[0.0], batch_ms_p01=at_b[0.1],
+            library_batch_ms_p0=sdpa_b[0.0],
+            library_batch_ms_p01=sdpa_b[0.1]))
+        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                         ("bound_ms", b_ms), ("evaluation_ms", at_b[0.0]),
+                         ("library_evaluation_ms", sdpa_b[0.0]),
+                         ("training_ms", at_b[p_train]),
+                         ("library_training_ms", sdpa_b[p_train])):
+            row[key] += per_req * val
         log(f"  {name:20s} H={H:2d} Lq={Lq:4d} Lk={Lk:4d} Dh={Dh}: "
             f"{ms:.3f} ms (plain {pms:.3f}, sdpa {lms:.3f}, bound "
-            f"{b_ms:.4f} by {by}) x{per_req}")
+            f"{b_ms:.4f} by {by}); B={batch} p = 0 {at_b[0.0]:.3f} (sdpa "
+            f"{sdpa_b[0.0]:.3f}), p = 0.1 {at_b[0.1]:.3f} (sdpa "
+            f"{sdpa_b[0.1]:.3f}) x{per_req}")
     row["max_abs_err"] = worst[False]
     row["max_abs_err_precise"] = worst[True]
     row["bound_by"] = "operations" if all(
         s["bound_by"] == "operations" for s in row["shapes"]) else "bytes"
+    log(f"  attention at B={batch}: training {row['training_ms']:.3f} ms "
+        f"(sdpa {row['library_training_ms']:.3f}), evaluation "
+        f"{row['evaluation_ms']:.3f} ms (sdpa "
+        f"{row['library_evaluation_ms']:.3f}) for 51 calls")
     return row
 
 
@@ -572,7 +641,6 @@ def check_attention_backward(shapes, gen, seed, batch):
     import torch.nn.functional as F
 
     from butd_detr_tpu_torch.ops import (
-        attention,
         attention_backward,
         attention_backward_plain,
         dropout_keep_mask,
@@ -583,7 +651,7 @@ def check_attention_backward(shapes, gen, seed, batch):
     # step (2^-8 relative) away: bounded by 4e-3 of the largest gradient.
     row = dict(name="attention_bwd", ms=0.0, ms_p0=0.0, plain_ms=0.0,
                bound_ms=0.0, library_ms=0.0, library_ms_p0=0.0,
-               forward_ms=0.0, max_abs_err=0.0, shapes=[])
+               max_abs_err=0.0, shapes=[])
     worst = {True: 0.0, False: 0.0}
 
     def inputs(B, H, Lq, Lk, Dh, pad_kind, fully_masked):
@@ -634,8 +702,6 @@ def check_attention_backward(shapes, gen, seed, batch):
         kw = dict(sm_scale=scale, dropout_p=0.1, precise=False)
         ms = time_ms(lambda: attention_backward(q, k, v, do, pad, seed=seed,
                                                 **kw), 10)
-        # the forward of the same call (K3 with dropout at this batch)
-        fms = time_ms(lambda: attention(q, k, v, pad, seed=seed, **kw), 10)
         keep = dropout_keep_mask(seed, batch, H, Lq, Lk, 0.1, device="cuda")
         pms = time_ms(lambda: attention_backward_plain(
             q, k, v, do, pad, keep_mask=keep, **kw), 5)
@@ -660,18 +726,17 @@ def check_attention_backward(shapes, gen, seed, batch):
                                      (12 * pairs, F32_OPS_PER_S)])
         row["shapes"].append(dict(name=name, B=batch, H=H, Lq=Lq, Lk=Lk,
                                   Dh=Dh, per_step=per_step, ms=ms,
-                                  ms_p0=ms0, forward_ms=fms, plain_ms=pms,
+                                  ms_p0=ms0, plain_ms=pms,
                                   library_ms=lms[0.1], library_ms_p0=lms[0.0],
                                   bound_ms=b_ms, bound_by=by))
         for key, val in (("ms", ms), ("ms_p0", ms0), ("plain_ms", pms),
                          ("library_ms", lms[0.1]),
-                         ("library_ms_p0", lms[0.0]), ("forward_ms", fms),
-                         ("bound_ms", b_ms)):
+                         ("library_ms_p0", lms[0.0]), ("bound_ms", b_ms)):
             row[key] += per_step * val
         log(f"  bwd {name:20s} B={batch} Lq={Lq:4d} Lk={Lk:4d}: {ms:.3f} ms "
             f"(p = 0: {ms0:.3f}; plain {pms:.3f}, sdpa autograd p = 0.1 "
             f"{lms[0.1]:.3f}, p = 0 {lms[0.0]:.3f}, bound {b_ms:.4f} by "
-            f"{by}; forward with dropout {fms:.3f}) x{per_step}")
+            f"{by}) x{per_step}")
     row["max_abs_err"] = worst[False]
     row["max_abs_err_precise"] = worst[True]
     row["bound_by"] = "operations" if all(
@@ -1417,12 +1482,14 @@ def run(args):
     report["build_seconds"] = secs
     log(f"  built {sorted(_cuda.KERNELS)} in {secs:.1f} s")
     for name in _cuda.KERNELS:
-        if name == "attention_bwd":
+        if name.startswith("attention"):
             continue
         for line in _cuda.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  [{name}] {line.strip()}")
-    report["attention_bwd_resources"] = attention_bwd_resources()
+    report["attention_resources"] = attention_resources("attention")
+    report["attention_bwd_resources"] = attention_resources("attention_bwd")
+    report["fps_plan"] = fps_plan((50_000, 2048, 1024, 512))
 
     # 2. kernels vs plain versions at the path's shapes
     log("== phase 2: kernels vs plain versions on the card")
@@ -1442,7 +1509,8 @@ def run(args):
     g1_row, gg1_row = check_gathers(
         *forward_gathers(tiers, npoints, cfg, gen), gen, batched=False)
     shapes = attention_shapes(cfg, roberta, npoints)
-    att_row = check_attention(shapes, gen)
+    att_row = check_attention(shapes, gen, args.train_batch,
+                              0x5EED0000 + args.seed)
     report["dropout"] = check_dropout(gen, 0x5EED0000 + args.seed)
     bwd_row = check_attention_backward(shapes, gen, 0x5EED0000 + args.seed,
                                        args.train_batch)
@@ -1581,8 +1649,13 @@ def run(args):
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"),
         })
-        for extra in ("ms_p0", "library_ms_p0", "ms_int32", "ms_int64"):
-            if extra in row:  # K4 at p = 0, K6 with each index type
+        # K4 at p = 0; K6 with each index type; the batch of a training
+        # step (K1, K2, K3) and of an evaluation batch (K3), with SDPA's
+        # time beside K3's
+        for extra in ("ms_p0", "library_ms_p0", "ms_int32", "ms_int64",
+                      "training_ms", "library_training_ms", "evaluation_ms",
+                      "library_evaluation_ms"):
+            if extra in row:
                 kernels[-1][extra] = row[extra]
     report["kernels"] = kernels
     report["detail"] = {"fps": fps_row, "ball_query": bq_row,

@@ -29,9 +29,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 GROUPS = (
-    ("fps", "fps_kernel"),
+    ("fps", "fps_"),  # fps_resident_kernel, fps_scratch_kernel
     ("ball_query", "ball_query_kernel"),
-    ("attention", "attention_fwd_kernel"),
+    ("attention", "attention_fwd_"),  # the _mma_ and _f32_ kernels
     ("group_gather", "group_gather_kernel"),
     ("gather", "gather_rows_kernel"),
     ("matmul", ("gemm", "sgemm", "cutlass", "gemv", "xmma", "nvjet")),

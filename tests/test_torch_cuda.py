@@ -5,8 +5,9 @@ it skips. On the card, with no JAX installed:
     python -m pytest -m cuda --noconftest -p no:cacheprovider \
         tests/test_torch_cuda.py
 
-Integers and the row gathers bit-equal; attention, its backward (both
-modes: tensor cores for bf16 operands, CUDA cores for precise) and the
+Integers and the row gathers bit-equal (FPS also with argmax ties across
+the blocks of its cluster); attention and its backward (both modes:
+tensor cores for bf16 operands, CUDA cores for precise) and the
 scatter-add within the bounds of chip_smoke.py; the launch path's rules
 (the index in its own type, no cast kernel, the caller's current stream)
 through torch.profiler.
@@ -70,6 +71,63 @@ def test_fps_kernel_bit_equal(gpu, n, npoint):
     assert torch.equal(got.cpu(), want)
     zeros = torch.zeros(1, n, 3, device=gpu)
     assert int(furthest_point_sample(zeros, npoint).abs().max()) == 0
+
+
+def _fps_cloud(n, kind, b=2):
+    """b clouds of n points, as tests/test_torch_ops.py:_fps_cloud builds
+    them. "ties": duplicate far points on both sides of every boundary of
+    the cluster's slices (8 blocks of ceil(n / 8) points), picked in the
+    first steps, so argmax ties fall between two blocks; "invalid": no
+    valid point in the first cloud, one in the second."""
+    rng = np.random.RandomState(n)
+    xyz = (rng.rand(b, n, 3) * 4).astype(np.float32)
+    s = -(-n // 8)
+    if kind == "ties":
+        for blk in range(1, 8):
+            corner = [9.0 if blk >> i & 1 else -5.0 for i in range(3)]
+            xyz[:, [blk * s - 1, blk * s]] = corner
+        xyz[1, [2 * s + 5, 5 * s + 7]] = -5.0  # blocks 2 and 5
+    else:
+        xyz[:] = 0.0
+        xyz[1, 4 * s, 2] = 1.0
+    return torch.from_numpy(xyz)
+
+
+@pytest.mark.parametrize("n", [8191, 8192, 8193, 15999, 16001, 49999,
+                               50001, 65535, 65536, 65537])
+def test_fps_kernel_ties_across_blocks_bit_equal(gpu, n):
+    """Around the switch from one block to a cluster (8192), around the
+    cluster's slices (8 k - 1, 8 k + 1) and around the switch to the
+    scratch-row kernel (65536): ties between two blocks resolve to the
+    lower index, as torch.argmax does in the plain version."""
+    xyz = _fps_cloud(n, "ties").to(gpu)
+    want = furthest_point_sample_plain(xyz, 256)
+    before = _cuda.LAUNCHES["fps"]
+    got = furthest_point_sample(xyz, 256)
+    assert _cuda.LAUNCHES["fps"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [2000, 50000])
+def test_fps_kernel_invalid_clouds(gpu, n):
+    """No valid point: every score ties at -1 and index 0 is returned; one
+    valid point: it, and then itself again."""
+    xyz = _fps_cloud(n, "invalid").to(gpu)
+    got = furthest_point_sample(xyz, 64)
+    assert torch.equal(got, furthest_point_sample_plain(xyz, 64))
+    assert int(got[0].abs().max()) == 0
+    assert int(got[1, 1]) == 4 * (-(-n // 8))
+
+
+def test_fps_kernel_batch_of_full_clouds(gpu):
+    """Eight clouds of 50000 points, 2048 samples each (sa1 of a training
+    step): one cluster a cloud, all resident at once, bit-equal."""
+    xyz = _cloud(8, 8, 50000).to(gpu)
+    lib = _cuda.lib("fps")
+    assert lib.fps_cluster_size(50000) == 8
+    assert lib.fps_max_active_clusters(gpu.index or 0, 50000) >= 8
+    got = furthest_point_sample(xyz, 2048)
+    assert torch.equal(got, furthest_point_sample_plain(xyz, 2048))
 
 
 @pytest.mark.parametrize("radius,nsample", [(0.2, 64), (0.8, 16),
@@ -210,6 +268,45 @@ def test_attention_backward_kernel_ragged_lengths_and_head_dims(
     key tiles are masked) and head dims that are not multiples of 4 or 16
     (4-byte loads, zero-padded to the mma depth)."""
     _check_backward(gpu, 2, 3, lq, lk, dh, p, precise, lq * lk + dh)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("lq,lk", [(65, 127), (127, 132), (132, 65)])
+@pytest.mark.parametrize("dh", [1, 16, 36, 48, 64])
+def test_attention_mma_kernel_ragged_shapes(gpu, dh, lq, lk, p):
+    """K3's default mode (tensor cores): lengths that are not multiples of
+    64 (the last query and key tiles are masked), head dims padded to
+    16/32/48/64, a fully masked batch row; at p = 0.1 against the plain
+    version fed the kernel's own mask. Within 4e-3 (one bf16 step of P);
+    two runs bit-equal."""
+    B, H, seed = 2, 3, 11 + lq + dh
+    q, k, v, _, pad = _qkv(gpu, lq * lk + dh, B, H, lq, lk, dh)
+    keep = dropout_keep_mask(seed, B, H, lq, lk, p, device=gpu) if p else None
+    before = _cuda.LAUNCHES["attention"]
+    got = attention(q, k, v, pad, sm_scale=dh ** -0.5, dropout_p=p,
+                    seed=seed)
+    assert _cuda.LAUNCHES["attention"] == before + 1
+    again = attention(q, k, v, pad, sm_scale=dh ** -0.5, dropout_p=p,
+                      seed=seed)
+    assert torch.equal(got, again)
+    want = attention_plain(q, k, v, pad, sm_scale=dh ** -0.5,
+                           keep_mask=keep, dropout_p=p)
+    torch.testing.assert_close(got, want, atol=4e-3, rtol=4e-3)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_attention_mma_kernel_unaligned_rows(gpu, p):
+    """Rows that do not start on a 16-byte boundary take the 4-byte copies
+    of the staging; the result is the aligned input's."""
+    B, H, lq, lk, dh, seed = 2, 3, 70, 90, 36, 3
+    q, k, v, _, pad = _qkv(gpu, 21, B, H, lq, lk, dh)
+    flat = torch.empty(B * lq * H * dh + 1, device=gpu)
+    shifted = flat[1:].view(B, lq, H, dh).transpose(1, 2)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16 == 4
+    kw = dict(sm_scale=dh ** -0.5, dropout_p=p, seed=seed)
+    assert torch.equal(attention(shifted, k, v, pad, **kw),
+                       attention(q, k, v, pad, **kw))
 
 
 def _cuda_kernels(fn):

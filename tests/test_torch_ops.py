@@ -43,12 +43,38 @@ def _cloud(rng, b, n):
     return (rng.rand(b, n, 3) * 4).astype(np.float32)
 
 
-@pytest.mark.parametrize("n,npoint", [(257, 48), (1500, 200)])
-def test_fps_bit_equal_to_xla_and_pallas(n, npoint):
+def _fps_cloud(n, kind):
+    """Two clouds of n points. "mixed": invalid points and a duplicate;
+    "ties": duplicates on both sides of the slice boundaries of the CUDA
+    kernel's cluster (8 blocks of ceil(n / 8) points), so that argmax ties
+    fall between two blocks; "invalid": no valid point in the first cloud,
+    one (at a slice boundary) in the second."""
     rng = np.random.RandomState(n)
     xyz = _cloud(rng, 2, n)
-    xyz[0, 5:40] = 0.0  # |p|^2 <= 1e-3: never chosen
-    xyz[1, 7] = xyz[1, 3]  # duplicate point: distance ties
+    s = -(-n // 8)
+    if kind == "mixed":
+        xyz[0, 5:40] = 0.0  # |p|^2 <= 1e-3: never chosen
+        xyz[1, 7] = xyz[1, 3]  # duplicate point: distance ties
+    elif kind == "ties":
+        xyz[0, [s - 1, s]] = 9.0  # the farthest pair, blocks 0 and 1
+        xyz[1, [3 * s, 6 * s - 1]] = [-5.0, 9.0, 2.0]  # blocks 3 and 5
+        for b in range(1, 8):  # a random point on each boundary
+            xyz[:, b * s] = xyz[:, b * s - 1]
+    else:
+        xyz[:] = 0.0
+        xyz[1, 4 * s, 2] = 1.0
+    return xyz
+
+
+@pytest.mark.parametrize("n,npoint,kind", [
+    pytest.param(257, 48, "mixed", id="257-48"),
+    pytest.param(1500, 200, "mixed", id="1500-200"),
+    pytest.param(8 * 128 - 1, 150, "ties", id="1023-150-ties"),
+    pytest.param(8 * 128 + 1, 150, "ties", id="1025-150-ties"),
+    pytest.param(777, 40, "invalid", id="777-40-invalid"),
+])
+def test_fps_bit_equal_to_xla_and_pallas(n, npoint, kind):
+    xyz = _fps_cloud(n, kind)
     got = furthest_point_sample(_t(xyz), npoint).numpy()
     want = np.asarray(furthest_point_sample_xla(jnp.asarray(xyz), npoint))
     np.testing.assert_array_equal(got, want)
@@ -152,7 +178,9 @@ def test_gathers_are_exact():
 # bf16 step (2^-8 relative) away — bounded below by 4e-3 of |V|'s max
 @pytest.mark.parametrize("precise,atol,rtol", [(True, 1e-5, 1e-4),
                                                (False, 4e-3, 4e-3)])
-@pytest.mark.parametrize("lq,lk,dh", [(40, 70, 36), (24, 128, 64)])
+@pytest.mark.parametrize("lq,lk,dh", [(40, 70, 36), (24, 128, 64),
+                                      (65, 127, 16), (127, 132, 48),
+                                      (65, 65, 1)])
 def test_attention_matches_pallas_interpret(precise, atol, rtol, lq, lk,
                                             dh):
     rng = np.random.RandomState(lq + lk + dh)
