@@ -11,7 +11,11 @@ from butd_detr_tpu_torch.ops.attention import (
     dropout_keep_mask,
     dropout_keep_mask_plain,
 )
-from butd_detr_tpu_torch.ops.ball_query import ball_query, ball_query_plain
+from butd_detr_tpu_torch.ops.ball_query import (
+    ball_query,
+    ball_query_plain,
+    ball_query_stats,
+)
 from butd_detr_tpu_torch.ops.fps import (
     furthest_point_sample,
     furthest_point_sample_plain,
@@ -43,6 +47,7 @@ __all__ = [
     "attention_plain",
     "ball_query",
     "ball_query_plain",
+    "ball_query_stats",
     "dropout_keep_mask",
     "dropout_keep_mask_plain",
     "furthest_point_sample",

@@ -82,7 +82,8 @@ _SIGNATURES = {
         "fps_max_active_clusters": [_I, _I],
     },
     "ball_query": {
-        "ball_query_launch": [_I, _VP, _VP, _I, _I, _I, _I, _F, _VP, _VP],
+        "ball_query_launch": [_I, _VP, _VP, _I, _I, _I, _I, _F, _F, _I,
+                              _VP, _VP, _VP, _VP],
     },
     "attention": {
         "attention_fwd_launch": [_I, *_STRIDED * 3, _VP, *_STRIDED,
@@ -98,7 +99,8 @@ _SIGNATURES = {
         "attention_bwd_smem_bytes": [_I],
     },
     "scatter": {
-        "scatter_launch": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+        "scatter_launch": [_I, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I,
+                           _VP],
     },
     "gather": {
         "gather_launch": [_I, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP],

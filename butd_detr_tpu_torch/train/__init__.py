@@ -1,5 +1,5 @@
 """Training of the port: optimizer, schedules, the train/eval steps,
-checkpoints and the epoch harness."""
+checkpoints, pretrained initialisation and the epoch harness."""
 
 from butd_detr_tpu_torch.train.checkpoint import (
     latest_checkpoint,
@@ -12,6 +12,7 @@ from butd_detr_tpu_torch.train.optimizer import (
     make_optimizer,
     make_schedule,
 )
+from butd_detr_tpu_torch.train.pretrained import apply_pretrained_init
 from butd_detr_tpu_torch.train.step import (
     INPUT_KEYS,
     METRIC_KEYS,
@@ -28,6 +29,7 @@ __all__ = [
     "TARGET_KEYS",
     "TrainTester",
     "Trainer",
+    "apply_pretrained_init",
     "build_model",
     "clip_by_global_norm_",
     "criterion_config",

@@ -11,7 +11,7 @@ What waits for its slice raises `NotImplementedError` naming the ROADMAP
 queue: `get_datasets` (the ScanNet/ReferIt3D datasets, "Data": callers
 subclass it, as the studies do), the detection evaluation for
 `test_dataset == "scannet"` ("Evaluation: detection"), `--mp` and `--dp`
-above 1 ("Distribution"), pretrained initialisation and the profiler
+above 1 ("Distribution"), `--use_bf16` ("Precision") and the profiler
 window ("The rest of the surface").
 """
 
@@ -33,6 +33,7 @@ from butd_detr_tpu_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from butd_detr_tpu_torch.train.pretrained import apply_pretrained_init
 from butd_detr_tpu_torch.train.step import (
     INPUT_KEYS,
     METRIC_KEYS,
@@ -60,10 +61,8 @@ def _refuse_unported(cfg: Config) -> None:
     waits = {
         "--mp > 1 (tensor parallelism)": (cfg.mp > 1, "Distribution"),
         "--dp > 1 (data parallelism)": ((cfg.dp or 1) > 1, "Distribution"),
-        "--pp_checkpoint / --roberta_checkpoint / --class_embeddings_path "
-        "(pretrained initialisation)": (
-            bool(cfg.pp_checkpoint or cfg.roberta_checkpoint
-                 or cfg.class_embeddings_path), "The rest of the surface"),
+        "--use_bf16 (the bf16 transformer stack)": (cfg.use_bf16,
+                                                    "Precision"),
         "--profile_dir (the profiler window)": (
             bool(cfg.profile_dir), "The rest of the surface"),
     }
@@ -125,6 +124,17 @@ class TrainTester:
                        model=self.get_model(), device=self.device,
                        seed=self.cfg.rng_seed)
 
+    def init_pretrained(self, trainer: Trainer) -> Dict[str, str]:
+        """From-scratch initialization from pretrained sources, matching
+        the reference (bdetr.py:60-94): frozen roberta-base trunk,
+        GroupFree PointNet++ via --pp_checkpoint, class_embeddings3d.npy
+        table (by default under --data_root). A later checkpoint restore
+        overwrites all of this (the reference's load order,
+        main_utils.py:286-330). Returns the report."""
+        return apply_pretrained_init(trainer.model, self.cfg,
+                                     logger=self.logger,
+                                     roberta_config=self._roberta_config())
+
     def prefixes(self) -> List[str]:
         cfg = self.cfg
         if cfg.num_decoder_layers > 0:
@@ -142,6 +152,7 @@ class TrainTester:
         t0 = time.time()
         trainer = self.get_trainer(len(train_loader))
         self.logger.info(f"trainer built: {time.time() - t0:.1f}s")
+        self.init_pretrained(trainer)
 
         start_epoch = cfg.start_epoch
         ckpt = cfg.checkpoint_path or (

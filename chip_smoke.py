@@ -20,10 +20,17 @@ the last line is printed:
 2. kernels vs plain versions on the card, at the paths' shapes:
    FPS and ball query bit-equal at the 4 SA tiers (one scene, and again
    on the training batch's clouds; plus an all-zero cloud and centers
-   with no neighbour), FPS timed with its us a step; attention within its
-   stated bound in both modes at every (Lq, Lk, Dh) the forward uses, with
-   key padding and a fully masked row, timed at B = 1 and at the training
-   batch with p = 0 (evaluation) and 0.1 (training), beside SDPA at the
+   with no neighbour), FPS timed with its us a step, the ball query with
+   the kernel each tier took (the hashed grid at sa1, the index-order scan
+   below) and the candidates its centers tested beside the index-order
+   scan's; the grid kernel also bit-equal on clouds made to break a grid
+   (points at r and r (1 +- 2^-23) across cell borders, a dense cluster
+   whose centers must take the per-center guard, far outliers, NaN and
+   inf, identical points, two clouds of very different extents);
+   attention within its stated bound in both modes at every (Lq, Lk, Dh)
+   the forward uses, with key padding and a fully masked row, timed at
+   B = 1 and at the training batch with p = 0 (evaluation) and 0.1
+   (training), beside SDPA at the
    same B and p; with dropout 0.1 against the plain version fed the
    kernel's own mask (which must equal the plain Philox generator's and
    keep 90 % within 4 sigma); the attention backward against its plain
@@ -33,7 +40,9 @@ the last line is printed:
    two p; the row scatter-add
    against its plain version at every gather of a training step (real
    ball-query and 3-NN indices at the training batch), f32 and bf16, with
-   dropped entries and with all rows on one index; the row gather and the
+   dropped entries and with all rows on one index, the same bits in 5 runs
+   of each, and its bits against the plain version run on the CPU
+   reported shape by shape; the row gather and the
    grouped gather bit-equal (as integer views) to their plain versions at
    every shape the three paths launch them, f32 and bf16 rows, one scene
    and the batch, strided sources, int64 indices and an index out of
@@ -63,7 +72,9 @@ the last line is printed:
    steps on synthetic batches of `--train-batch` scenes: finite losses and
    gradient norm, the text tower unchanged, and per step 4 FPS, 4 ball
    query, 51 attention, 39 attention-backward, 13 scatter-add, 15 row
-   gather and 4 grouped gather launches;
+   gather and 4 grouped gather launches; then one step taken twice from
+   the same state and generator, and the largest parameter difference
+   printed (a number: library kernels may still add with atomics);
 7. evaluation: the weights of phase 6 are saved with `save_checkpoint`,
    a fresh `TrainTester` restores them (`--eval`, `--checkpoint_path`) and
    runs `evaluate_one_epoch` over `--eval-scenes` synthetic scenes in
@@ -328,6 +339,104 @@ def scanned_candidates(xyz, centers, radius, nsample):
     return total
 
 
+def ball_query_tier(r, ns, xyz, new_xyz, want):
+    """K2 once through `ball_query_stats`, held bit-equal to `want` (the
+    plain version): the kernel it took ("grid" or "scan"), the candidates
+    its centers tested, how many took the grid's guard, and the candidates
+    the index-order scan would test on this data (information only)."""
+    import torch
+
+    from butd_detr_tpu_torch.ops import ball_query_stats
+
+    got, stats, path = ball_query_stats(r, ns, xyz, new_xyz)
+    B, N = xyz.shape[:2]
+    check(torch.equal(got, want),
+          f"ball query kernel ({path}) != plain at B={B}, N={N}")
+    return dict(path=path, tested=int(stats[..., 0].sum()),
+                guards=int(stats[..., 1].sum()),
+                scanned=scanned_candidates(xyz, new_xyz, r, ns))
+
+
+def grid_breaking_cloud(kind, r=0.2, n=50_000):
+    """(xyz (2, n, 3), centers (2, m, 3)) CPU tensors made to break a hashed
+    grid of cells a little larger than r (csrc/ball_query.cu):
+      uniform:   points in a 4 m cube;
+      at_radius: centers on cell borders, points at r, r (1 +- 2^-23) and
+                 r (1 +- 2^-22) from them along each axis, both signs;
+      dense:     4000 points in a 5 cm cube, its points as centers: more
+                 hits than a warp holds, so the per-center guard;
+      outliers:  |x| ~ 1e7, NaN and +-inf coordinates, as points and
+                 centers;
+      identical: every point the same;
+      extents:   one cloud of 0.5 m, one of 100 m."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(len(kind))
+    xyz = (rng.rand(2, n, 3) * 4).astype(np.float32)
+    cen = xyz[:, ::400].copy()
+    if kind == "at_radius":
+        edge = r * (1 + 2 ** -10)
+        cen = np.zeros((2, 128, 3), np.float32)
+        cen[:, :, 0] = np.arange(128) * edge
+        cen[1, :, 1] = 1.0 + np.arange(128) * edge * 0.5
+        k = 0
+        for j in range(128):
+            for f in (1.0, 1 - 2 ** -23, 1 + 2 ** -23, 1 - 2 ** -22,
+                      1 + 2 ** -22):
+                for ax in range(3):
+                    for sgn in (1.0, -1.0):
+                        q = cen[:, j].astype(np.float64)
+                        q[:, ax] += sgn * r * f
+                        xyz[:, k] = q.astype(np.float32)
+                        k += 1
+    elif kind == "dense":
+        xyz[:, :4000] = rng.rand(2, 4000, 3) * 0.05 + 1.0
+        cen = np.concatenate([xyz[:, :64], cen], 1)
+    elif kind == "outliers":
+        xyz[:, :64] *= 1e7
+        xyz[:, 64:80] = np.nan
+        xyz[:, 80:90, 1] = np.inf
+        xyz[:, 90:100, 2] = -np.inf
+        xyz[:, 100, 0] = np.nan
+        cen = np.concatenate([xyz[:, :128], cen], 1)
+    elif kind == "identical":
+        xyz[:] = 1.5
+        cen = xyz[:, :64].copy()
+    elif kind == "extents":
+        xyz[0] *= 0.125
+        xyz[1] *= 25.0
+        cen = xyz[:, ::400].copy()
+    return torch.from_numpy(xyz), torch.from_numpy(np.ascontiguousarray(cen))
+
+
+GRID_CLOUDS = ("uniform", "at_radius", "dense", "outliers", "identical",
+               "extents")
+
+
+def check_ball_query_grid():
+    """K2's grid kernel at sa1's shape (50000 points, r = 0.2, 64 samples)
+    on every cloud of `grid_breaking_cloud`: bit-equal to the plain
+    version, and the dense clouds send at least one center through the
+    per-center guard."""
+    from butd_detr_tpu_torch.ops import ball_query_plain
+
+    out = {}
+    for kind in GRID_CLOUDS:
+        xyz, cen = grid_breaking_cloud(kind)
+        want = ball_query_plain(0.2, 64, xyz, cen).cuda()
+        res = ball_query_tier(0.2, 64, xyz.cuda(), cen.cuda(), want)
+        check(res["path"] == "grid", f"{kind}: took the {res['path']} path")
+        if kind in ("dense", "identical"):
+            check(res["guards"] > 0, f"{kind}: no center took the guard")
+        out[kind] = res
+        log(f"  ball query grid, {kind} clouds: equal; {res['tested']} "
+            f"candidates tested (index-order scan {res['scanned']}), "
+            f"{res['guards']} of {cen.shape[0] * cen.shape[1]} centers "
+            f"guarded")
+    return out
+
+
 def check_point_kernels(tiers):
     import torch
 
@@ -362,18 +471,16 @@ def check_point_kernels(tiers):
         fps_row["bound_ms"] += b_ms
 
         m = new_xyz.shape[1]
-        got = ball_query(r, ns, xyz, new_xyz)
         want = ball_query_plain(r, ns, xyz, new_xyz)
-        check(torch.equal(got, want), f"ball query kernel != plain at N={N}")
+        tier = ball_query_tier(r, ns, xyz, new_xyz, want)
         ms = time_ms(lambda: ball_query(r, ns, xyz, new_xyz), 10)
         pms = time_ms(lambda: ball_query_plain(r, ns, xyz, new_xyz), 2)
-        scanned = scanned_candidates(xyz, new_xyz, r, ns)
-        # per candidate: 3 sub, 3 mul, 2 add, 1 compare
-        b_ms, by = bound_ms(N * 12 + m * 12 + m * ns * 4,
-                            [(9 * scanned, F32_OPS_PER_S)])
-        bq_row["tiers"].append(dict(n=N, m=m, radius=r, nsample=ns, ms=ms,
-                                    plain_ms=pms, bound_ms=b_ms, bound_by=by,
-                                    scanned=scanned))
+        # the function's bytes, whatever implements it: points and centres
+        # read once, the indices written once
+        b_ms, by = bound_ms(N * 12 + m * 12 + m * ns * 4, [])
+        tier.update(n=N, m=m, radius=r, nsample=ns, ms=ms, plain_ms=pms,
+                    bound_ms=b_ms, bound_by=by)
+        bq_row["tiers"].append(tier)
         bq_row["ms"] += ms
         bq_row["plain_ms"] += pms
         bq_row["bound_ms"] += b_ms
@@ -381,8 +488,10 @@ def check_point_kernels(tiers):
         log(f"  N={N:6d} -> {npoint:5d}: fps {f['ms']:.3f} ms = "
             f"{f['us_per_step']:.3f} us a step (plain {f['plain_ms']:.1f}, "
             f"bound {f['bound_ms']:.4f}), ball query "
-            f"r={r} ns={ns} {q['ms']:.3f} ms (plain {q['plain_ms']:.2f}, "
-            f"bound {q['bound_ms']:.4f}, {q['scanned']} candidates): equal")
+            f"r={r} ns={ns} {q['path']} {q['ms']:.3f} ms (plain "
+            f"{q['plain_ms']:.2f}, bound {q['bound_ms']:.4f}; "
+            f"{q['tested']} candidates tested, the index-order scan's "
+            f"{q['scanned']}; {q['guards']} guarded): equal")
 
     # degenerate inputs: an all-zero cloud, centers with no neighbour
     zeros = torch.zeros_like(tiers[0][0])
@@ -401,6 +510,10 @@ def check_point_kernels(tiers):
     for row in (fps_row, bq_row):
         row["bound_by"] = "operations" if all(
             t["bound_by"] == "operations" for t in row["tiers"]) else "bytes"
+    bq_row["paths"] = [t["path"] for t in bq_row["tiers"]]
+    bq_row["candidates_tested"] = sum(t["tested"] for t in bq_row["tiers"])
+    bq_row["candidates_index_order_scan"] = sum(t["scanned"]
+                                                for t in bq_row["tiers"])
     return fps_row, bq_row
 
 
@@ -423,21 +536,26 @@ def check_point_kernels_batched(tiers, fps_row, bq_row):
         check(torch.equal(furthest_point_sample(xyz, npoint),
                           furthest_point_sample_plain(xyz, npoint)),
               f"FPS kernel != plain at B={B}, N={N}")
-        check(torch.equal(ball_query(r, ns, xyz, new_xyz),
-                          ball_query_plain(r, ns, xyz, new_xyz)),
-              f"ball query kernel != plain at B={B}, N={N}")
+        tier = ball_query_tier(r, ns, xyz, new_xyz,
+                               ball_query_plain(r, ns, xyz, new_xyz))
+        ms = time_ms(lambda: ball_query(r, ns, xyz, new_xyz), 5)
+        tier["ms"] = ms
+        bq_row["tiers"][i]["training"] = tier
+        bq_row["training_ms"] += ms
         ms = time_ms(lambda: furthest_point_sample(xyz, npoint), 3)
         tier = fps_row["tiers"][i]
         tier["training_ms"] = ms
         tier["training_us_per_step"] = ms * 1e3 / max(npoint - 1, 1)
         fps_row["training_ms"] += ms
-        bq_row["training_ms"] += time_ms(
-            lambda: ball_query(r, ns, xyz, new_xyz), 5)
     per_step = ", ".join(f"{t['training_us_per_step']:.3f}"
                          for t in fps_row["tiers"])
+    paths = ", ".join(
+        f"{t['training']['path']} {t['training']['ms']:.3f} ms "
+        f"({t['training']['tested']} tested, scan {t['training']['scanned']}"
+        f", {t['training']['guards']} guarded)" for t in bq_row["tiers"])
     log(f"  B={tiers[0][0].shape[0]} (training batch), 4 tiers: fps "
         f"{fps_row['training_ms']:.3f} ms ({per_step} us a step), ball query "
-        f"{bq_row['training_ms']:.3f} ms: equal")
+        f"{bq_row['training_ms']:.3f} ms ({paths}): equal")
 
 
 def attention_shapes(cfg, roberta, npoints):
@@ -780,9 +898,13 @@ def training_gathers(tiers, npoints, cfg, gen):
     return out
 
 
-def check_scatter(gathers, gen):
-    """K5 against scatter_rows_add_plain: |err| <= 1e-5 * sum |g| per
-    output (the order of the atomic f32 additions is not fixed)."""
+def check_scatter(gathers, gen, repeats=5):
+    """K5 against scatter_rows_add_plain at every gather of a training
+    step, f32 and bf16 rows, and with dropped entries (idx = n and < 0) and
+    all rows on one index: |err| <= 1e-5 * sum |g| per output, and the
+    same bits in `repeats` runs (`run_to_run` must be 0). Reported, shape
+    by shape: whether the card's sums are the bits of the plain version run
+    on the CPU (both add in ascending m)."""
     import torch
 
     from butd_detr_tpu_torch.ops import (
@@ -802,20 +924,25 @@ def check_scatter(gathers, gen):
               f"scatter {what}: max err {err.max().item()} over its bound")
         check(got.dtype == torch.float32 and got.shape == want.shape,
               f"scatter {what}: {got.dtype} {tuple(got.shape)}")
-        return got, err.max().item()
+        again = max((scatter_rows_add(g, idx, n) - got).abs().max().item()
+                    for _ in range(repeats - 1))
+        check(again == 0.0, f"scatter {what}: two runs differ by {again}")
+        row["run_to_run"] = max(row["run_to_run"], again)
+        cpu = torch.equal(got.cpu(), scatter_rows_add_plain(
+            g.cpu(), idx.cpu(), n))
+        return err.max().item(), cpu
 
     for name, dtype, per_step, idx, n, C in gathers:
         B, M = idx.shape
+        equal_cpu = {}
         for dt in (torch.float32, torch.bfloat16):
             g = torch.randn(B, M, C, device="cuda", generator=gen).to(dt)
-            got, err = compare(g, idx, n, f"{name} {dt}")
+            err, equal_cpu[str(dt)[6:]] = compare(g, idx, n, f"{name} {dt}")
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            again = scatter_rows_add(g, idx, n)
-            row["run_to_run"] = max(row["run_to_run"],
-                                    (got - again).abs().max().item())
             dropped = idx.clone()
             dropped[:, ::5] = n  # entries >= n are ignored
-            compare(g, dropped, n, f"{name} {dt} with idx = n")
+            dropped[:, 1::7] = -1  # and entries < 0
+            compare(g, dropped, n, f"{name} {dt} with idx = n and -1")
             compare(g, torch.full_like(idx, n // 2), n,
                     f"{name} {dt} all rows on one index")
         g = torch.randn(B, M, C, device="cuda", generator=gen).to(dtype)
@@ -826,23 +953,31 @@ def check_scatter(gathers, gen):
         gf = g.reshape(B * M, C).float()
         lms = time_ms(lambda: torch.zeros(B * n, C, device="cuda")
                       .index_add_(0, flat, gf), 20)
-        nbytes = B * (M * C * g.element_size() + M * 4 + n * C * 4)
+        nbytes = B * (M * C * g.element_size() + M * idx.element_size()
+                      + n * C * 4)
         b_ms, by = bound_ms(nbytes, [(B * M * C, F32_OPS_PER_S)])
         row["shapes"].append(dict(name=name, B=B, M=M, C=C, n=n,
                                   dtype=str(dtype), per_step=per_step, ms=ms,
                                   plain_ms=pms, library_ms=lms, bound_ms=b_ms,
-                                  bound_by=by))
+                                  bound_by=by, bit_equal_cpu=equal_cpu))
         row["ms"] += per_step * ms
         row["plain_ms"] += per_step * pms
         row["library_ms"] += per_step * lms
         row["bound_ms"] += per_step * b_ms
+        same = ", ".join(f"{k} {'equal' if v else 'differs'}"
+                         for k, v in equal_cpu.items())
         log(f"  scatter {name:16s} B={B} M={M:6d} C={C:3d} n={n:5d} "
             f"{str(dtype)[6:]}: {ms:.4f} ms (plain {pms:.4f}, index_add_ "
-            f"{lms:.4f}, bound {b_ms:.5f} by {by}) x{per_step}")
+            f"{lms:.4f}, bound {b_ms:.5f} by {by}) x{per_step}; bits vs the "
+            f"plain version on the CPU: {same}")
     row["bound_by"] = "operations" if all(
         s["bound_by"] == "operations" for s in row["shapes"]) else "bytes"
+    row["bit_equal_cpu"] = all(all(s["bit_equal_cpu"].values())
+                               for s in row["shapes"])
     log(f"  scatter: largest |kernel - plain| {row['max_abs_err']:.3g}, "
-        f"largest run-to-run difference {row['run_to_run']:.3g}")
+        f"largest run-to-run difference over {repeats} runs "
+        f"{row['run_to_run']:.3g}; bit-equal to the CPU at every training "
+        f"shape: {row['bit_equal_cpu']}")
     return row
 
 
@@ -1215,6 +1350,7 @@ def train_steps(args, cfg, roberta, npoints, batches):
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     steps = len(step_ms)
+    repeat_diff = repeat_step_difference(trainer, batches[-1])
 
     att = (roberta.num_hidden_layers + 5 * cfg.num_encoder_layers
            + 4 * cfg.num_decoder_layers)
@@ -1245,10 +1381,42 @@ def train_steps(args, cfg, roberta, npoints, batches):
         f"{', '.join(f'{x:.1f}' for x in step_ms)} ms; loss {losses}; grad "
         f"norm {norms}; peak device memory {peak / 2 ** 30:.2f} GiB; "
         f"launches {launches}")
+    log(f"  one step taken twice from the same state and generator: "
+        f"largest parameter difference {repeat_diff['max_abs']:.3g} "
+        f"({repeat_diff['differing']} of {repeat_diff['tensors']} tensors "
+        f"differ; other library kernels may still add with atomics)")
     return dict(batch=args.train_batch, steps=steps, step_ms=step_ms,
                 metrics=metrics, launches=launches, per_step=expect,
-                peak_memory_bytes=peak,
+                peak_memory_bytes=peak, repeat_step=repeat_diff,
                 trainable_parameters=n_train), trainer
+
+
+def repeat_step_difference(trainer, batch):
+    """Take one training step, restore the model, optimizer, generator and
+    step counter, take it again: the largest difference between the two
+    resulting parameter and statistics sets (a number, not a check)."""
+    import copy
+
+    import torch
+
+    state = (copy.deepcopy(trainer.model.state_dict()),
+             copy.deepcopy(trainer.optimizer.state_dict()),
+             trainer.generator.get_state(), trainer.step)
+    trainer.train_step(batch)
+    first = {k: v.detach().clone()
+             for k, v in trainer.model.state_dict().items()}
+    trainer.model.load_state_dict(state[0])
+    trainer.optimizer.load_state_dict(state[1])
+    trainer.generator.set_state(state[2])
+    trainer.step = state[3]
+    trainer.train_step(batch)
+    worst, differing = 0.0, 0
+    for k, v in trainer.model.state_dict().items():
+        d = (v.double() - first[k].double()).abs().max().item() \
+            if v.numel() else 0.0
+        worst = max(worst, d)
+        differing += d > 0
+    return dict(max_abs=worst, differing=differing, tensors=len(first))
 
 
 # ------------------------------------------------------------- phase 7
@@ -1504,6 +1672,7 @@ def run(args):
     xyz = torch.from_numpy(pc[None, :, :3].copy()).cuda()
     tiers = sa_tiers(xyz, npoints, (0.2, 0.4, 0.8, 1.2), (64, 32, 16, 16))
     fps_row, bq_row = check_point_kernels(tiers)
+    report["ball_query_grid"] = check_ball_query_grid()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     log("  row gathers of one request (B = 1)")
     g1_row, gg1_row = check_gathers(
@@ -1651,10 +1820,13 @@ def run(args):
         })
         # K4 at p = 0; K6 with each index type; the batch of a training
         # step (K1, K2, K3) and of an evaluation batch (K3), with SDPA's
-        # time beside K3's
+        # time beside K3's; K2's kernel by tier and the candidates it
+        # tested; K5's run-to-run difference and its bits against the CPU
         for extra in ("ms_p0", "library_ms_p0", "ms_int32", "ms_int64",
                       "training_ms", "library_training_ms", "evaluation_ms",
-                      "library_evaluation_ms"):
+                      "library_evaluation_ms", "paths", "candidates_tested",
+                      "candidates_index_order_scan", "run_to_run",
+                      "bit_equal_cpu"):
             if extra in row:
                 kernels[-1][extra] = row[extra]
     report["kernels"] = kernels

@@ -33,7 +33,7 @@ sys.path.insert(0, ROOT)
 
 GROUPS = (
     ("fps", "fps_"),  # fps_resident_kernel, fps_scratch_kernel
-    ("ball_query", "ball_query_kernel"),
+    ("ball_query", "ball_query_"),  # the scan and grid kernels
     ("attention", "attention_fwd_"),  # the _mma_ and _f32_ kernels
     ("attention_bwd", "attention_bwd_"),
     ("scatter", "scatter_rows_add_"),

@@ -10,8 +10,13 @@ the blocks of its cluster); attention and its backward (both modes:
 tensor cores for bf16 operands, CUDA cores for precise) and the
 scatter-add within the bounds of chip_smoke.py; the launch path's rules
 (the index in its own type, no cast kernel, the caller's current stream)
-through torch.profiler.
+through torch.profiler. The ball query's hashed-grid kernel (sa1) on clouds
+made to break a grid; the scatter-add bit-equal to its plain version on
+the CPU and from run to run.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -25,6 +30,7 @@ from butd_detr_tpu_torch.ops import (
     attention_plain,
     ball_query,
     ball_query_plain,
+    ball_query_stats,
     dropout_keep_mask,
     dropout_keep_mask_plain,
     furthest_point_sample,
@@ -41,6 +47,10 @@ from butd_detr_tpu_torch.ops import (
     scatter_rows_add,
     scatter_rows_add_plain,
 )
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import GRID_CLOUDS, grid_breaking_cloud  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -140,6 +150,42 @@ def test_ball_query_kernel_bit_equal(gpu, radius, nsample):
     got = ball_query(radius, nsample, xyz.to(gpu), cen.to(gpu))
     assert torch.equal(got.cpu(), want)
     assert int(got[:, ::4].abs().max()) == 0
+
+
+@pytest.mark.parametrize("kind", GRID_CLOUDS)
+def test_ball_query_grid_kernel_bit_equal(gpu, kind):
+    """The hashed-grid kernel (sa1's shape: 50000 points, r = 0.2, 64
+    samples) on chip_smoke.py's clouds made to break a grid: bit-equal to
+    the plain version; the dense clouds send centers through the
+    per-center guard."""
+    xyz, cen = grid_breaking_cloud(kind)
+    want = ball_query_plain(0.2, 64, xyz, cen)
+    before = _cuda.LAUNCHES["ball_query"]
+    got, stats, path = ball_query_stats(0.2, 64, xyz.to(gpu), cen.to(gpu))
+    assert _cuda.LAUNCHES["ball_query"] == before + 1
+    assert path == "grid"
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(ball_query(0.2, 64, xyz.to(gpu), cen.to(gpu)), got)
+    guards = int(stats[..., 1].sum())
+    if kind in ("dense", "identical"):
+        assert guards > 0
+    if kind == "uniform":
+        assert guards == 0
+        # a center tests its 27 cells, not the cloud
+        assert int(stats[..., 0].max()) < xyz.shape[1] // 20
+
+
+@pytest.mark.parametrize("n,m,path", [(16383, 64, "scan"),
+                                      (16384, 63, "scan"),
+                                      (16384, 64, "grid")])
+def test_ball_query_paths_split_by_shape_and_agree(gpu, n, m, path):
+    """The JAX package's split (N >= 16384 and m >= 64 take the pruned
+    kernel): both kernels give the plain version's bits."""
+    xyz = _cloud(n, 1, n)
+    cen = xyz[:, :m].clone()
+    got, _, took = ball_query_stats(0.4, 32, xyz.to(gpu), cen.to(gpu))
+    assert took == path
+    assert torch.equal(got.cpu(), ball_query_plain(0.4, 32, xyz, cen))
 
 
 @pytest.mark.parametrize("precise,atol", [(True, 2e-5), (False, 4e-3)])
@@ -391,11 +437,13 @@ def test_attention_autograd_runs_both_kernels(gpu):
 @pytest.mark.parametrize("m,c,n", [(300, 9, 130), (1000, 128, 64),
                                    (17, 4, 5000), (64, 6, 1)])
 def test_scatter_kernel_matches_plain(gpu, dtype, m, c, n):
-    """|err| <= 1e-5 * sum |g| per output: the atomic additions' order is
-    not fixed. Entries with idx >= n are dropped."""
+    """|err| <= 1e-5 * sum |g| per output, and in fact bit-equal to the
+    plain version on the CPU: both add each output row's rows in ascending
+    m. Entries with idx >= n or < 0 are dropped; int32 and int64 indices
+    give the same bits."""
     g = torch.Generator(device=gpu).manual_seed(m + c)
     rows = torch.randn(3, m, c, device=gpu, generator=g).to(dtype)
-    idx = torch.randint(0, n + 1, (3, m), device=gpu, generator=g,
+    idx = torch.randint(-1, n + 1, (3, m), device=gpu, generator=g,
                         dtype=torch.int32)
     idx[0, : m // 2] = n - 1  # many rows on one index
     before = _cuda.LAUNCHES["scatter"]
@@ -406,6 +454,32 @@ def test_scatter_kernel_matches_plain(gpu, dtype, m, c, n):
     lim = 1e-5 * scatter_rows_add_plain(rows.cpu().abs(), idx.cpu(), n) \
         + 1e-30
     assert bool(((got.cpu() - want).abs() <= lim).all())
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(scatter_rows_add(rows, idx.long(), n), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c,n,one", [(32768, 128, 2048, False),
+                                       (4096, 256, 512, True),
+                                       (1536, 256, 256, False),
+                                       (256, 288, 1024, False)])
+def test_scatter_kernel_is_reproducible(gpu, dtype, m, c, n, one):
+    """Five runs give the same bits, also with all rows on one index (a
+    segment longer than the shared-memory sort: the index-order walk);
+    no torch.zeros or cast kernel runs around the call."""
+    g = torch.Generator(device=gpu).manual_seed(m + n)
+    rows = torch.randn(8, m, c, device=gpu, generator=g).to(dtype)
+    idx = torch.randint(0, n, (8, m), device=gpu, generator=g)
+    if one:
+        idx[:] = n // 2
+    first = scatter_rows_add(rows, idx, n)
+    for _ in range(4):
+        assert torch.equal(scatter_rows_add(rows, idx, n), first)
+    assert torch.equal(first.cpu(),
+                       scatter_rows_add_plain(rows.cpu(), idx.cpu(), n))
+    kernels = _cuda_kernels(lambda: scatter_rows_add(rows, idx, n))
+    assert len(kernels) == 2 and all(
+        "scatter_rows_add_" in name for name, _ in kernels), kernels
 
 
 def test_gather_gradients_run_the_scatter_kernel(gpu):

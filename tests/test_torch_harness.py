@@ -451,7 +451,7 @@ def test_what_waits_for_its_slice_says_so(tmp_path):
         TrainTester(cfg, device="cpu").get_datasets()
     for kw, queue in ((dict(mp=2), "Distribution"),
                       (dict(profile_dir="p"), "rest of the surface"),
-                      (dict(pp_checkpoint="x.pth"), "rest of the surface")):
+                      (dict(use_bf16=True), "Precision")):
         with pytest.raises(NotImplementedError, match=queue):
             TrainTester(dataclasses.replace(cfg, **kw), device="cpu")
     tester = _tester(tmp_path, test_dataset="scannet")

@@ -70,6 +70,37 @@ def test_scatter_rows_add_matches_xla_and_pallas_interpret():
     assert _cuda.LAUNCHES == before
 
 
+def test_scatter_rows_add_drops_negative_indices_as_the_tpu_kernel():
+    """An index < 0 matches no one-hot column of the TPU kernel (Pallas,
+    interpret mode), so its row is dropped, in every batch element."""
+    rng = np.random.RandomState(5)
+    B, M, C, n = 3, 200, 8, 40
+    g = rng.randn(B, M, C).astype(np.float32)
+    idx = rng.randint(-3, n + 3, (B, M)).astype(np.int32)
+    got = scatter_rows_add_plain(_t(g), _t(idx), n)
+    pallas = scatter_rows_add_pallas(jnp.asarray(g), jnp.asarray(idx), n,
+                                     True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_rows_add_plain_adds_in_ascending_m(dtype):
+    """The plain version on the CPU is a sequential sum of each output
+    row's rows in ascending m (numpy's unbuffered `add.at`, f32): the order
+    the CUDA kernel reproduces bit for bit (csrc/scatter.cu)."""
+    rng = np.random.RandomState(9)
+    B, M, C, n = 2, 4096, 12, 64
+    g = _t(rng.randn(B, M, C).astype(np.float32)).to(dtype)
+    idx = rng.randint(0, n + 2, (B, M))
+    idx[1, :1500] = 3  # a long segment
+    got = scatter_rows_add_plain(g, _t(idx), n).numpy()
+    gf = g.float().numpy()
+    for b in range(B):
+        want = np.zeros((n + 2, C), np.float32)
+        np.add.at(want, idx[b], gf[b])
+        np.testing.assert_array_equal(got[b], want[:n])
+
+
 def test_scatter_rows_add_bf16_rows_accumulate_in_f32():
     rng = np.random.RandomState(2)
     g = rng.randn(1, 64, 4).astype(np.float32)
