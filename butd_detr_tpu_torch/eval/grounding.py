@@ -30,6 +30,7 @@ from butd_detr_tpu_torch.losses.boxes import (
 )
 from butd_detr_tpu_torch.models.bdetr import top_k_stable
 from butd_detr_tpu_torch.utils.dist import allreduce_dict
+from butd_detr_tpu_torch.utils.numerics import reciprocal_f32
 
 BREAKDOWN_FIELDS = ("easy", "hard", "vd", "vid", "unique", "multi")
 
@@ -67,13 +68,24 @@ def span_scores(end_points, prefix: str, width: int) -> torch.Tensor:
     return _pad_scores(s, width)
 
 
-def contrast_scores(end_points, prefix: str, width: int,
+def contrast_logits(end_points, prefix: str,
                     temperature: float = 0.07) -> torch.Tensor:
-    """(B, Q, width) contrastive query-token scores (`bbf`)."""
+    """(B, Q, T) query-token similarities over the temperature. The JAX
+    evaluators run `contrast_scores` inside `jax.jit`, where XLA turns the
+    division by the constant into a multiply by its f32 reciprocal; so
+    does the port."""
     sim = torch.einsum("bqd,btd->bqt",
                        end_points[f"{prefix}proj_queries"].float(),
                        end_points["proj_tokens"].float())
-    return _pad_scores(torch.softmax(sim / temperature, -1), width)
+    return sim * reciprocal_f32(temperature)
+
+
+def contrast_scores(end_points, prefix: str, width: int,
+                    temperature: float = 0.07) -> torch.Tensor:
+    """(B, Q, width) contrastive query-token scores (`bbf`)."""
+    return _pad_scores(
+        torch.softmax(contrast_logits(end_points, prefix, temperature), -1),
+        width)
 
 
 def pred_boxes(end_points, prefix: str) -> torch.Tensor:

@@ -19,6 +19,7 @@ from butd_detr_tpu_torch.losses.boxes import (
 from butd_detr_tpu_torch.losses.matcher import hungarian_match
 from butd_detr_tpu_torch.models.bdetr import prediction_prefixes
 from butd_detr_tpu_torch.ops import gather_points
+from butd_detr_tpu_torch.utils.numerics import reciprocal_f32
 
 
 class CriterionConfig(NamedTuple):
@@ -87,6 +88,14 @@ def loss_boxes(pred_boxes, gt_boxes, assignment, box_label_mask, num_boxes):
             "loss_giou": ((1.0 - giou) * m).sum() / num_boxes}
 
 
+def contrastive_logits(proj_queries, proj_tokens, temperature=0.07):
+    """(B, Q, L) query-token similarities over the temperature, in f32.
+    The JAX package divides by the constant inside its jitted train step,
+    where XLA multiplies by the f32 reciprocal instead; so does the port."""
+    return (torch.einsum("bqd,bld->bql", proj_queries, proj_tokens)
+            * reciprocal_f32(temperature)).float()
+
+
 def loss_contrastive_align(proj_queries, proj_tokens, text_mask, positive_map,
                            assignment, box_label_mask, num_boxes,
                            eos_coef=0.1, temperature=0.07,
@@ -97,8 +106,7 @@ def loss_contrastive_align(proj_queries, proj_tokens, text_mask, positive_map,
     B, Q, _ = proj_queries.shape
     L = proj_tokens.shape[1]
     dev = proj_queries.device
-    logits = (torch.einsum("bqd,bld->bql", proj_queries, proj_tokens)
-              / temperature).float()
+    logits = contrastive_logits(proj_queries, proj_tokens, temperature)
     tok_real = (text_mask > 0) if mask_pad_tokens else torch.ones_like(
         text_mask, dtype=torch.bool)
     logits = logits.masked_fill(~tok_real[:, None, :], -1e9)
@@ -186,7 +194,7 @@ def compute_points_obj_cls_loss_hard_topk(end_points, topk: int):
 
     cls_weights = torch.full((B, K), 1.0 / max(K, 1), device=dev)
     loss = sigmoid_focal_loss(logits, objectness_label, cls_weights)
-    return loss.sum() / B
+    return loss.sum() * reciprocal_f32(B)  # jitted `/ B`
 
 
 def set_criterion_losses(outputs: Dict[str, torch.Tensor],

@@ -18,47 +18,64 @@ from butd_detr_tpu_torch.ops import (
     furthest_point_sample,
     gather_points,
     group_points,
+    group_points_mlp_input,
     group_points_split,
     three_interpolate,
     three_nn,
 )
+from butd_detr_tpu_torch.utils.numerics import reciprocal_f32
 
 
 class QueryAndGroup(nn.Module):
     """Ball-query grouping with center subtraction and optional radius
     normalization; returns ((B, npoint, nsample, 3 [+C]), grouped_xyz).
 
-    `dtype` is the consuming MLP's compute dtype: with bf16 the feature
-    leg is gathered in bf16 (the MLP casts to bf16 anyway, so the result is
-    the same) while xyz stays f32 for the center subtraction."""
+    Normalization multiplies by `inv_r`, the f32 reciprocal of the radius:
+    the JAX package divides by the radius under `jax.jit`, which XLA
+    compiles to this multiply.
+
+    `dtype` is the consuming MLP's compute dtype. With bf16 and `use_xyz`
+    one op (`group_points_mlp_input`, one kernel launch on the card)
+    gathers, centers, scales and casts the rows into the MLP's bf16 input
+    (B, npoint, nsample, 3 + C), and grouped_xyz is its xyz channels, in
+    bf16. Otherwise the result is f32, as the JAX module's concatenation
+    promotes it."""
 
     def __init__(self, radius: float, nsample: int, use_xyz: bool = True,
                  normalize_xyz: bool = False, dtype=torch.float32):
         super().__init__()
         self.radius = radius
+        self.inv_r = reciprocal_f32(radius)
         self.nsample = nsample
         self.use_xyz = use_xyz
         self.normalize_xyz = normalize_xyz
         self.dtype = dtype
+
+    def _center(self, gx, new_xyz):
+        grouped_xyz = gx - new_xyz[:, :, None, :]
+        if self.normalize_xyz:
+            grouped_xyz = grouped_xyz * self.inv_r
+        return grouped_xyz
 
     def forward(self, xyz, new_xyz, features=None):
         idx = ball_query(self.radius, self.nsample, xyz, new_xyz)
         if features is None:
             if not self.use_xyz:
                 raise ValueError("need features or use_xyz")
-            grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
-            if self.normalize_xyz:
-                grouped_xyz = grouped_xyz / self.radius
+            grouped_xyz = self._center(group_points(xyz, idx), new_xyz)
             return grouped_xyz, grouped_xyz
         if self.dtype == torch.bfloat16:
+            if self.use_xyz:
+                grouped = group_points_mlp_input(
+                    xyz, new_xyz, features, idx,
+                    self.inv_r if self.normalize_xyz else 1.0)
+                return grouped, grouped[..., :3]
             gx, grouped_features = group_points_split(
                 xyz, features.to(torch.bfloat16), idx)
         else:
             grouped = group_points(torch.cat([xyz, features], dim=-1), idx)
             gx, grouped_features = grouped[..., :3], grouped[..., 3:]
-        grouped_xyz = gx - new_xyz[:, :, None, :]
-        if self.normalize_xyz:
-            grouped_xyz = grouped_xyz / self.radius
+        grouped_xyz = self._center(gx, new_xyz)
         if self.use_xyz:
             # mixed dtypes promote to f32, as jnp.concatenate does
             return torch.cat([grouped_xyz, grouped_features], dim=-1), \

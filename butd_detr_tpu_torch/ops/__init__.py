@@ -1,7 +1,8 @@
 """Point-cloud and attention ops of the port: plain PyTorch, with CUDA
 kernels for FPS, ball query, attention (forward with dropout, backward),
-the row gathers (one payload, or xyz and features under one index) and the
-row scatter-add behind the gathers' gradients."""
+the row gathers (one payload, xyz and features under one index, or a
+set-abstraction tier's whole bf16 MLP input) and the row scatter-add behind
+the gathers' gradients."""
 
 from butd_detr_tpu_torch.ops.attention import (
     attention,
@@ -23,7 +24,10 @@ from butd_detr_tpu_torch.ops.fps import (
 from butd_detr_tpu_torch.ops.gather import (
     gather_rows,
     gather_rows_plain,
+    bf16_rn,
     group_rows,
+    group_rows_mlp_input,
+    group_rows_mlp_input_plain,
     group_rows_plain,
     group_rows_split,
     group_rows_split_plain,
@@ -31,6 +35,7 @@ from butd_detr_tpu_torch.ops.gather import (
 from butd_detr_tpu_torch.ops.pointcloud import (
     gather_points,
     group_points,
+    group_points_mlp_input,
     group_points_split,
     three_interpolate,
     three_nn,
@@ -48,6 +53,7 @@ __all__ = [
     "ball_query",
     "ball_query_plain",
     "ball_query_stats",
+    "bf16_rn",
     "dropout_keep_mask",
     "dropout_keep_mask_plain",
     "furthest_point_sample",
@@ -56,8 +62,11 @@ __all__ = [
     "gather_rows",
     "gather_rows_plain",
     "group_points",
+    "group_points_mlp_input",
     "group_points_split",
     "group_rows",
+    "group_rows_mlp_input",
+    "group_rows_mlp_input_plain",
     "group_rows_plain",
     "group_rows_split",
     "group_rows_split_plain",

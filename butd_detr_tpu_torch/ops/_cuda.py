@@ -52,7 +52,8 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v", ARCH]
 # The point-cloud kernels must not contract a*b + c into an FMA: their
-# indices are held bit-equal to the JAX reference (see csrc/common.cuh).
+# indices are held bit-equal to the JAX reference (see csrc/common.cuh), and
+# the grouped gather's MLP input bit-equal to its plain version.
 KERNELS: Dict[str, list] = {
     "fps": ["-fmad=false"],
     "ball_query": ["-fmad=false"],
@@ -60,7 +61,7 @@ KERNELS: Dict[str, list] = {
     "attention_bwd": [],
     "scatter": [],
     "gather": [],
-    "group_gather": [],
+    "group_gather": ["-fmad=false"],
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -108,6 +109,8 @@ _SIGNATURES = {
     "group_gather": {
         "group_gather_launch": [_I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I,
                                 _I, _I, _I, _I, _VP],
+        "group_mlp_input_launch": [_I, _VP, _LL, _LL, _VP, _VP, _VP, _I, _VP,
+                                   _I, _I, _I, _I, _I, _F, _VP],
     },
 }
 # The struct format of one 8-byte slot of each parameter type.

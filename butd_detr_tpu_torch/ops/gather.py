@@ -15,10 +15,18 @@ Counterparts of two TPU kernels:
       group_rows_split(xyz, feats, idx): the same for two payloads at once,
                                          each in its own dtype
 
-All are bit-exact copies of rows: f32 and bf16 sources keep their dtype,
-any other dtype is widened to f32 first (as the TPU wrapper does). An index
-outside [0, N) gives a zero row. A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises. Their gradient is the row
+  and, with the centre subtraction, radius scale, concatenation and cast
+  that XLA fuses beside that call on the TPU, the set-abstraction MLP's
+  bf16 input in one pass:
+
+      group_rows_mlp_input(xyz, new_xyz, feats, idx, inv_r):
+          out[b, j, k, :3] = bf16((xyz[b, i] - new_xyz[b, j]) * inv_r)
+          out[b, j, k, 3:] = feats[b, i]                  (i = idx[b, j, k])
+
+The copies are bit-exact: f32 and bf16 sources keep their dtype, any other
+dtype is widened to f32 first (as the TPU wrapper does). An index outside
+[0, N) gives a zero row. A CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises. Their gradient is the row
 scatter-add (ops/scatter.py), wired in ops/pointcloud.py.
 """
 
@@ -85,6 +93,31 @@ def group_rows_split_plain(xyz: torch.Tensor, feats: torch.Tensor,
     c = xyz.shape[-1]
     g = group_rows_plain(torch.cat([xyz, feats.to(xyz.dtype)], dim=-1), idx)
     return g[..., :c], g[..., c:].to(feats.dtype)
+
+
+_BF16_NAN = 0x7FC0  # c10's scalar rule (round_to_nearest_even) for a NaN
+
+
+def bf16_rn(y: torch.Tensor) -> torch.Tensor:
+    """f32 -> bf16 rounded to nearest even, every NaN to 0x7FC0 (c10's
+    scalar `round_to_nearest_even`), whatever the device. `.to(bfloat16)`
+    alone gives a NaN 0xFFFF in PyTorch's vectorized CPU cast and 0x7FFF
+    on the card, so the NaN is pinned here to one value."""
+    bits = y.to(torch.bfloat16).view(torch.int16)
+    return torch.where(y.isnan(), _BF16_NAN, bits).view(torch.bfloat16)
+
+
+def group_rows_mlp_input_plain(xyz: torch.Tensor, new_xyz: torch.Tensor,
+                               feats: torch.Tensor, idx: torch.Tensor,
+                               inv_r: float) -> torch.Tensor:
+    """The eager chain the kernel replaces: gather, subtract the centre and
+    multiply by `inv_r` in f32, round to bf16 (`bf16_rn`), and put the
+    gathered bf16 features beside it, their bits copied. (B, N, 3),
+    (B, m, 3), (B, N, C), (B, m, ns) -> (B, m, ns, 3 + C) bf16."""
+    gx = group_rows_plain(xyz.float(), idx)
+    gf = group_rows_plain(feats.to(torch.bfloat16), idx)
+    y = (gx - new_xyz.float()[:, :, None, :]) * inv_r
+    return torch.cat([bf16_rn(y), gf], dim=-1)
 
 
 # ------------------------------------------------------------------- kernels
@@ -227,3 +260,82 @@ def group_rows_split(xyz: torch.Tensor, feats: torch.Tensor,
                          f"on {feats.device}")
     return _group_launch("group_rows_split", _payload(xyz).contiguous(),
                          _payload(feats).contiguous(), idx)
+
+
+def _check_mlp_input(xyz, new_xyz, feats, idx) -> None:
+    _check(xyz, idx, 3, "group_rows_mlp_input")
+    B, m, _ = idx.shape
+    if (xyz.shape[-1] != 3 or tuple(new_xyz.shape) != (B, m, 3)
+            or feats.dim() != 3 or feats.shape[:2] != xyz.shape[:2]
+            or feats.shape[-1] < 1):
+        raise ValueError(
+            f"group_rows_mlp_input: xyz {tuple(xyz.shape)}, centres "
+            f"{tuple(new_xyz.shape)}, features {tuple(feats.shape)} and "
+            f"index {tuple(idx.shape)} do not form (B, N, 3), (B, m, 3), "
+            "(B, N, C >= 1), (B, m, ns)")
+    if new_xyz.device != xyz.device or feats.device != xyz.device:
+        raise ValueError(f"group_rows_mlp_input: xyz on {xyz.device}, "
+                         f"centres on {new_xyz.device}, features on "
+                         f"{feats.device}")
+
+
+def group_rows_mlp_input(xyz: torch.Tensor, new_xyz: torch.Tensor,
+                         feats: torch.Tensor, idx: torch.Tensor,
+                         inv_r: float) -> torch.Tensor:
+    """A set-abstraction tier's MLP input in one pass: (B, N, 3) xyz (f32,
+    any row stride), (B, m, 3) centres, (B, N, C) features (cast to bf16),
+    (B, m, ns) integer index -> (B, m, ns, 3 + C) bf16 with
+    out[..., :3] = bf16((xyz[b, i] - new_xyz[b, j]) * inv_r) and
+    out[..., 3:] = feats[b, i]; bit-equal to
+    `group_rows_mlp_input_plain`."""
+    if not xyz.is_cuda:
+        _check_mlp_input(xyz, new_xyz, feats, idx)
+        if xyz.device.type == "cpu":
+            return group_rows_mlp_input_plain(xyz, new_xyz, feats, idx,
+                                              inv_r)
+        _cuda.require_cuda(xyz, "group_rows_mlp_input")
+    # the common case costs a few attribute reads; _check_mlp_input words
+    # the error
+    shape, cshape, fshape, ishape = xyz.shape, new_xyz.shape, feats.shape, \
+        idx.shape
+    if (len(shape) != 3 or len(ishape) != 3 or len(fshape) != 3
+            or shape[2] != 3 or cshape != (ishape[0], ishape[1], 3)
+            or fshape[:2] != shape[:2] or ishape[0] != shape[0]
+            or fshape[2] < 1 or not new_xyz.is_cuda or not feats.is_cuda
+            or idx.dtype.is_floating_point):
+        _check_mlp_input(xyz, new_xyz, feats, idx)
+    if xyz.dtype is not torch.float32:
+        xyz = xyz.float()
+    if xyz.stride(2) != 1:
+        xyz = xyz.contiguous()
+    if new_xyz.dtype is not torch.float32:
+        new_xyz = new_xyz.float()
+    if not new_xyz.is_contiguous():
+        new_xyz = new_xyz.contiguous()
+    if feats.dtype is not torch.bfloat16:
+        feats = feats.to(torch.bfloat16)
+    if not feats.is_contiguous():
+        feats = feats.contiguous()
+    B, m, ns = ishape
+    N, C = fshape[1], fshape[2]
+    dev = xyz.get_device()
+    if feats.get_device() != dev or new_xyz.get_device() != dev:
+        _check_mlp_input(xyz, new_xyz, feats, idx)
+    idx_dtype = idx.dtype
+    if ((idx_dtype is torch.int64 or idx_dtype is torch.int32)
+            and idx.get_device() == dev and idx.is_contiguous()):
+        idx64 = idx_dtype is torch.int64  # as it is: the common case
+    else:
+        idx, idx64 = index_operand(idx, dev)
+    out = torch.empty(B, m, ns, 3 + C, dtype=torch.bfloat16,
+                      device=xyz.device)
+    if not (B and m and ns):
+        return out
+    if B * m * ns >= 2 ** 31 or N >= 2 ** 31:
+        raise ValueError(f"group_rows_mlp_input: {B * m * ns} rows or "
+                         f"{N} source rows exceed 2^31")
+    _cuda.launch("group_mlp_input_launch", dev, xyz.data_ptr(),
+                 xyz.stride(0), xyz.stride(1), new_xyz.data_ptr(),
+                 feats.data_ptr(), idx.data_ptr(), idx64, out.data_ptr(),
+                 B, N, m, ns, C, inv_r)
+    return out

@@ -5,8 +5,9 @@ quirks (pointnet2 `_ext_src`). For CUDA tensors every op that the JAX
 package gave a TPU kernel launches its CUDA kernel: FPS and ball query
 (ops/fps.py, ops/ball_query.py), the row gathers forward (ops/gather.py:
 `gather_points`, `group_points` and so `three_interpolate` through the row
-gather kernel, `group_points_split` and the large `group_points` through
-the grouped gather kernel) and the row scatter-add as their backward
+gather kernel, `group_points_split`, the large `group_points` and
+`group_points_mlp_input` through the grouped gather kernels) and the row
+scatter-add as their backward
 (ops/scatter.py), accumulated in f32 and cast back to the cotangent's
 dtype, as the JAX package's custom VJPs do (pointcloud.py:142-151, 837-848,
 885-897). CPU tensors take the plain versions. Indices get no gradient.
@@ -19,6 +20,7 @@ from butd_detr_tpu_torch.ops.fps import furthest_point_sample
 from butd_detr_tpu_torch.ops.gather import (
     gather_rows,
     group_rows,
+    group_rows_mlp_input,
     group_rows_split,
 )
 from butd_detr_tpu_torch.ops.scatter import scatter_rows_add
@@ -28,6 +30,7 @@ __all__ = [
     "furthest_point_sample",
     "gather_points",
     "group_points",
+    "group_points_mlp_input",
     "group_points_split",
     "three_interpolate",
     "three_nn",
@@ -93,6 +96,40 @@ class _GroupSplit(torch.autograd.Function):
         return grad_x, grad_f, None
 
 
+class _GroupMlpInput(torch.autograd.Function):
+    """The set-abstraction MLP's bf16 input, (B, m, ns, 3 + C), from one
+    launch. Saves the index and sizes only. The features' gradient is the
+    row scatter-add of the cotangent's channels 3: (bf16, summed in f32 in
+    ascending m, cast to the features' dtype): the bits autograd gives
+    through the eager chain gather -> subtract -> scale -> concatenate ->
+    cast. xyz and the centres get theirs from channels :3 by the same
+    rules, when they need one (not on the main path: the cloud needs no
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, xyz, new_xyz, feats, idx, inv_r):
+        ctx.save_for_backward(idx)
+        ctx.n = xyz.shape[1]
+        ctx.inv_r = inv_r
+        ctx.dtypes = (xyz.dtype, new_xyz.dtype, feats.dtype)
+        return group_rows_mlp_input(xyz, new_xyz, feats, idx, inv_r)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        need_x, need_c, need_f = ctx.needs_input_grad[:3]
+        grad_x = grad_c = grad_f = None
+        if need_f:
+            grad_f = _scatter_back(g[..., 3:], idx, ctx.n).to(ctx.dtypes[2])
+        if need_x or need_c:
+            g3 = g[..., :3].float() * ctx.inv_r
+            if need_x:
+                grad_x = _scatter_back(g3, idx, ctx.n).to(ctx.dtypes[0])
+            if need_c:
+                grad_c = (-g3).sum(dim=2).to(ctx.dtypes[1])
+        return grad_x, grad_c, grad_f, None, None
+
+
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[b, j] = points[b, idx[b, j]]: (B, N, C), (B, M) -> (B, M, C)."""
     return _GatherRows.apply(points, idx)
@@ -110,6 +147,15 @@ def group_points_split(xyz: torch.Tensor, feats: torch.Tensor,
     with one shared index, read once for both:
     (B, N, 3), (B, N, Cf), (B, m, ns) -> (B, m, ns, 3), (B, m, ns, Cf)."""
     return _GroupSplit.apply(xyz, feats, idx)
+
+
+def group_points_mlp_input(xyz: torch.Tensor, new_xyz: torch.Tensor,
+                           feats: torch.Tensor, idx: torch.Tensor,
+                           inv_r: float) -> torch.Tensor:
+    """The bf16 MLP input of a set-abstraction tier from one read of the
+    index: (B, N, 3), (B, m, 3), (B, N, C), (B, m, ns) ->
+    (B, m, ns, 3 + C) bf16, [(xyz - centre) * inv_r, features]."""
+    return _GroupMlpInput.apply(xyz, new_xyz, feats, idx, inv_r)
 
 
 def three_nn(unknown: torch.Tensor, known: torch.Tensor):

@@ -48,7 +48,15 @@ the last line is printed:
    and the batch, strided sources, int64 indices and an index out of
    range, the row gather also timed with int32 and with int64 indices
    (each read as it is; the row gather and torch.gather as the median of
-   three runs, since a call is bound by the host). Each is timed against
+   three runs, since a call is bound by the host); the grouped gather's
+   MLP-input kernel (each set-abstraction tier's bf16 MLP input in one
+   pass) bit-equal to its plain version with special values in the rows
+   and centres, int32 and int64 indices and an index out of range, timed
+   beside the chain it replaced (the copy kernel, subtract, scale,
+   concatenate, cast) and the same function from PyTorch operators
+   (concatenate, torch.gather, subtract, scale, concatenate, cast), its
+   bound counting the index, the centres and the distinct source rows
+   read once and the bf16 rows written once. Each is timed against
    its plain version and a library yardstick
    the port never calls (scaled_dot_product_attention and autograd through
    it, index_add_, torch.gather and the concatenate-gather-cast);
@@ -987,10 +995,12 @@ def forward_gathers(tiers, npoints, cfg, gen):
 
     Returns (row gathers, grouped gathers). A row gather is (name, dtype,
     n, C, idx (B, M), launches a request or evaluation batch, launches a
-    training step); a grouped gather (name, n, Cf, idx (B, m, ns)), the
-    four set-abstraction groupings of the bf16 backbone: xyz in f32 beside
-    bf16 features. Dtypes are the default (bf16 backbone) mode's; the f32
-    mode's groupings are listed last with no launch on these paths."""
+    training step); a grouped gather (name, n, Cf, idx (B, m, ns),
+    new_xyz (B, m, 3), inv_r), the four set-abstraction groupings of the
+    bf16 backbone: xyz in f32 beside bf16 features, centred and scaled into
+    the MLP's bf16 input. Dtypes are the default (bf16 backbone) mode's;
+    the f32 mode's groupings are listed last with no launch on these
+    paths."""
     import torch
 
     from butd_detr_tpu_torch.ops import (
@@ -998,6 +1008,7 @@ def forward_gathers(tiers, npoints, cfg, gen):
         furthest_point_sample,
         three_nn,
     )
+    from butd_detr_tpu_torch.utils import reciprocal_f32
 
     B = tiers[0][0].shape[0]
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1009,7 +1020,7 @@ def forward_gathers(tiers, npoints, cfg, gen):
         rows.append((f"sa{i + 1}_new_xyz", f32, xyz.shape[1], 3, inds, 1, 1))
         ball.append(ball_query(r, ns, xyz, new_xyz))
         groups.append((f"sa{i + 1}_group", xyz.shape[1], feat_c[i],
-                       ball[-1]))
+                       ball[-1], new_xyz, reciprocal_f32(r)))
     xyz2, xyz3, xyz4 = tiers[1][1], tiers[2][1], tiers[3][1]
     for name, unknown, known in (("fp1_interpolate", xyz3, xyz4),
                                  ("fp2_interpolate", xyz2, xyz3)):
@@ -1077,6 +1088,8 @@ def check_gathers(rows, groups, gen, batched):
         gather_rows,
         gather_rows_plain,
         group_rows,
+        group_rows_mlp_input,
+        group_rows_mlp_input_plain,
         group_rows_plain,
         group_rows_split,
         group_rows_split_plain,
@@ -1085,8 +1098,12 @@ def check_gathers(rows, groups, gen, batched):
     g_row = dict(name="gather", ms=0.0, ms_int32=0.0, ms_int64=0.0,
                  plain_ms=0.0, bound_ms=0.0, library_ms=0.0, step_ms=0.0,
                  max_abs_err=0, shapes=[])
+    # K7's main-path form is the MLP-input kernel (ms, plain, bound,
+    # library: the four tiers summed); the copy kernel's keep copy_*
     gg_row = dict(name="group_gather", ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                  library_ms=0.0, step_ms=0.0, max_abs_err=0, shapes=[])
+                  library_ms=0.0, chain_ms=0.0, step_ms=0.0, copy_ms=0.0,
+                  copy_plain_ms=0.0, copy_bound_ms=0.0, copy_library_ms=0.0,
+                  max_abs_err=0, shapes=[], mlp_input_shapes=[])
 
     def same(got, want, what):
         check(got.dtype == want.dtype and got.shape == want.shape,
@@ -1146,7 +1163,7 @@ def check_gathers(rows, groups, gen, batched):
             f"{b_ms:.5f}) x{per_batch} a batch, x{per_step} a step: "
             f"bit-equal")
 
-    for name, n, cf, idx in groups:
+    for name, n, cf, idx, new_xyz, inv_r in groups:
         B, m, ns = idx.shape
         cloud = _special_rows(torch.randn(B, n, 3 + cf, device="cuda",
                                           generator=gen))
@@ -1165,37 +1182,93 @@ def check_gathers(rows, groups, gen, batched):
         check(float(gx[:, -1, -1].abs().max()) == 0.0
               and float(gf[:, -1, -1].abs().max()) == 0.0,
               f"group_gather {name}: an index out of range gave no zero row")
+        # the MLP-input kernel: special rows (row 0 of every scene), a
+        # centre with the special values, int32 and int64, an index out of
+        # range; bit-equal to the plain version
         feats = cloud[..., 3:].to(torch.bfloat16)
-        xyz = xyz.contiguous()
-        del cloud
-        ms = time_ms(lambda: group_rows_split(xyz, feats, idx), 20)
-        pms = time_ms(lambda: group_rows_split_plain(xyz, feats, idx), 10)
+        centres = new_xyz.clone()
+        centres[:, :2] = cloud[:, :1, :3]  # inf - inf: a NaN, and -inf
+        for index in (probe, probe.long(), out):
+            same(group_rows_mlp_input(xyz, centres, feats, index, inv_r),
+                 group_rows_mlp_input_plain(xyz, centres, feats, index,
+                                            inv_r),
+                 f"group_gather {name} MLP input, {index.dtype} index")
+        got = group_rows_mlp_input(xyz, new_xyz, feats, out, inv_r)
+        check(float(got[:, -1, -1, 3:].float().abs().max()) == 0.0,
+              f"group_gather {name}: an index out of range gave features "
+              "in the MLP input")
+        xyz_c = xyz.contiguous()
+        del centres, got
+        ms = time_ms(lambda: group_rows_split(xyz_c, feats, idx), 20)
+        pms = time_ms(lambda: group_rows_split_plain(xyz_c, feats, idx), 10)
 
         def concat_gather_cast():
-            cat = torch.cat([xyz, feats.to(xyz.dtype)], dim=-1)
+            cat = torch.cat([xyz_c, feats.to(xyz_c.dtype)], dim=-1)
             g = torch.gather(cat, 1, idx.reshape(B, m * ns).long()[..., None]
                              .expand(-1, -1, 3 + cf)).reshape(B, m, ns, -1)
             return g[..., :3], g[..., 3:].to(feats.dtype)
 
         lms = time_ms(concat_gather_cast, 10)
         row_bytes = 12 + 2 * cf
-        nbytes = (B * m * ns * 4
-                  + (_distinct_rows(idx, n) + B * m * ns) * row_bytes)
+        distinct = _distinct_rows(idx, n)
+        nbytes = B * m * ns * 4 + (distinct + B * m * ns) * row_bytes
         b_ms, by = bound_ms(nbytes, [])
         gg_row["shapes"].append(dict(
             name=name, B=B, n=n, m=m, ns=ns, Cf=cf, per_batch=1, per_step=1,
             ms=ms, plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=by))
-        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
-                         ("bound_ms", b_ms), ("step_ms", ms)):
+        for key, val in (("copy_ms", ms), ("copy_plain_ms", pms),
+                         ("copy_library_ms", lms), ("copy_bound_ms", b_ms)):
             gg_row[key] += val
         log(f"  group_gather {name:10s} B={B} n={n:5d} m={m:4d} ns={ns:2d} "
             f"3 f32 + {cf:3d} bf16: {ms:.4f} ms (plain {pms:.4f}, "
             f"concatenate-gather-cast {lms:.4f}, bound {b_ms:.5f}): "
             f"bit-equal")
 
+        # the MLP input, as the backbone groups it: sa1's xyz is a strided
+        # view of the cloud, the later tiers' the previous tier's centres
+        src = xyz if name.startswith("sa1") else xyz_c
+
+        def fused():
+            return group_rows_mlp_input(src, new_xyz, feats, idx, inv_r)
+
+        def chain():  # what the bf16 branch ran before: K7's copy + 4 passes
+            gx, gf = group_rows_split(src, feats, idx)
+            y = (gx - new_xyz[:, :, None, :]) * inv_r
+            return torch.cat([y, gf], dim=-1).to(torch.bfloat16)
+
+        def library():  # the same function from PyTorch's own operators
+            cat = torch.cat([src, feats.to(src.dtype)], dim=-1)
+            g = torch.gather(cat, 1, idx.reshape(B, m * ns).long()[..., None]
+                             .expand(-1, -1, 3 + cf)).reshape(B, m, ns, -1)
+            y = (g[..., :3] - new_xyz[:, :, None, :]) * inv_r
+            return torch.cat([y, g[..., 3:]], dim=-1).to(torch.bfloat16)
+
+        fms = time_ms(fused, 20)
+        fpms = time_ms(lambda: group_rows_mlp_input_plain(
+            src, new_xyz, feats, idx, inv_r), 10)
+        cms = time_ms(chain, 10)
+        flms = time_ms(library, 10)
+        # index, centres and distinct source rows read once, the bf16
+        # rows written once
+        f_bytes = (B * m * ns * idx.element_size() + B * m * 12
+                   + distinct * row_bytes + B * m * ns * 2 * (3 + cf))
+        fb_ms, fby = bound_ms(f_bytes, [])
+        gg_row["mlp_input_shapes"].append(dict(
+            name=name, B=B, n=n, m=m, ns=ns, Cf=cf, per_batch=1, per_step=1,
+            ms=fms, plain_ms=fpms, chain_ms=cms, library_ms=flms,
+            bound_ms=fb_ms, bound_by=fby, bytes=f_bytes))
+        for key, val in (("ms", fms), ("plain_ms", fpms), ("chain_ms", cms),
+                         ("library_ms", flms), ("bound_ms", fb_ms),
+                         ("step_ms", fms)):
+            gg_row[key] += val
+        log(f"  group_gather {name:10s} MLP input (3 + {cf:3d}) bf16: "
+            f"{fms:.4f} ms (plain {fpms:.4f}, replaced chain "
+            f"{cms:.4f}, PyTorch operators {flms:.4f}, bound {fb_ms:.5f}): "
+            f"bit-equal")
+
     # the one-payload form at the first tier: the f32 mode's grouping of
     # the (xyz, colour) cloud; on no default path, so it adds to no sum
-    name, n, cf, idx = groups[0]
+    name, n, cf, idx = groups[0][:4]
     B, m, ns = idx.shape
     for dt in (torch.float32, torch.bfloat16):
         cloud = torch.randn(B, n, 3 + cf, device="cuda", generator=gen).to(dt)
@@ -1826,7 +1899,8 @@ def run(args):
                       "training_ms", "library_training_ms", "evaluation_ms",
                       "library_evaluation_ms", "paths", "candidates_tested",
                       "candidates_index_order_scan", "run_to_run",
-                      "bit_equal_cpu"):
+                      "bit_equal_cpu", "chain_ms", "copy_ms", "copy_plain_ms",
+                      "copy_bound_ms", "copy_library_ms"):
             if extra in row:
                 kernels[-1][extra] = row[extra]
     report["kernels"] = kernels

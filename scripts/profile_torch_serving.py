@@ -32,7 +32,7 @@ GROUPS = (
     ("fps", "fps_"),  # fps_resident_kernel, fps_scratch_kernel
     ("ball_query", "ball_query_"),  # the scan and grid kernels
     ("attention", "attention_fwd_"),  # the _mma_ and _f32_ kernels
-    ("group_gather", "group_gather_kernel"),
+    ("group_gather", "group_gather_"),  # the copy and MLP-input kernels
     ("gather", "gather_rows_kernel"),
     ("matmul", ("gemm", "sgemm", "cutlass", "gemv", "xmma", "nvjet")),
 )

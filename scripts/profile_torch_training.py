@@ -37,7 +37,7 @@ GROUPS = (
     ("attention", "attention_fwd_"),  # the _mma_ and _f32_ kernels
     ("attention_bwd", "attention_bwd_"),
     ("scatter", "scatter_rows_add_"),
-    ("group_gather", "group_gather_kernel"),
+    ("group_gather", "group_gather_"),  # the copy and MLP-input kernels
     ("gather", "gather_rows_kernel"),
     ("matmul", ("gemm", "sgemm", "cutlass", "gemv", "xmma", "nvjet")),
 )

@@ -12,7 +12,10 @@ scatter-add within the bounds of chip_smoke.py; the launch path's rules
 (the index in its own type, no cast kernel, the caller's current stream)
 through torch.profiler. The ball query's hashed-grid kernel (sa1) on clouds
 made to break a grid; the scatter-add bit-equal to its plain version on
-the CPU and from run to run.
+the CPU and from run to run. The grouped gather's MLP-input kernel
+bit-equal to its plain version at the four set-abstraction tiers (B = 1
+and 8, int32 and int64 indices, special values, indices out of range) and
+at shapes whose tiles are not multiples of 16 bytes.
 """
 
 import os
@@ -40,7 +43,10 @@ from butd_detr_tpu_torch.ops import (
     gather_rows_plain,
     group_points,
     group_points_split,
+    group_points_mlp_input,
     group_rows,
+    group_rows_mlp_input,
+    group_rows_mlp_input_plain,
     group_rows_plain,
     group_rows_split,
     group_rows_split_plain,
@@ -638,3 +644,117 @@ def test_attention_rejects_what_the_kernel_does_not_take(gpu):
     y = torch.randn(1, 2, 4, 8, device=gpu)
     with pytest.raises(ValueError, match="seed"):
         attention(y, y, y, dropout_p=0.1)
+
+
+# the four set-abstraction tiers: source points, centres, samples, feature
+# channels, radius
+SA_TIERS = [(50000, 2048, 64, 3, 0.2), (2048, 1024, 32, 128, 0.4),
+            (1024, 512, 16, 256, 0.8), (512, 256, 16, 256, 1.2)]
+
+
+def _mlp_input_case(gpu, seed, b, n, m, ns, c, idx_dtype):
+    """A strided f32 cloud and bf16 features with -0.0, an infinity, a
+    denormal and a NaN in rows 0 and 1 of every scene, centres with them in
+    centre 0 and centre 1 at the origin, both centres grouping rows 0 and
+    1, and an index with rows out of range."""
+    gen = torch.Generator(device=gpu).manual_seed(seed)
+    cloud = torch.rand(b, n, 3 + c, device=gpu, generator=gen) * 4
+    specials = torch.tensor([-0.0, float("inf"), 1e-42, float("nan")],
+                            device=gpu)
+    cloud[:, 0, :3] = specials[[0, 2, 3]]
+    cloud[:, 1, :3] = specials[[1, 2, 0]]
+    feats = cloud[..., 3:].to(torch.bfloat16)
+    feat_specials = torch.tensor([-0.0, float("inf"), 1e-39],
+                                 device=gpu).to(torch.bfloat16)
+    feats[:, 0, :min(c, 3)] = feat_specials[:min(c, 3)]
+    if c >= 4:  # a NaN with a payload, copied as it is
+        feats[:, 0, 3:4].view(torch.int16)[...] = 0x7FA5
+    centres = torch.rand(b, m, 3, device=gpu, generator=gen) * 4
+    centres[:, 0] = specials[[0, 3, 2]]
+    centres[:, 1] = 0.0
+    idx = torch.randint(0, n, (b, m, ns), device=gpu, generator=gen)
+    idx[:, :2, :2] = torch.tensor([0, 1], device=gpu)
+    idx[:, 2, 0] = n
+    idx[:, 2, 1] = -1
+    idx[-1, -1, -1] = 2 ** 31 - 1
+    return cloud[..., :3], centres, feats, idx.to(idx_dtype)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("n,m,ns,c,radius", SA_TIERS)
+def test_group_mlp_input_kernel_bit_equal_at_the_tiers(gpu, n, m, ns, c,
+                                                       radius, b, idx_dtype):
+    xyz, centres, feats, idx = _mlp_input_case(gpu, n + b, b, n, m, ns, c,
+                                               idx_dtype)
+    inv_r = float(np.float32(1) / np.float32(radius))
+    before = dict(_cuda.LAUNCHES)
+    got = group_rows_mlp_input(xyz, centres, feats, idx, inv_r)
+    assert _cuda.LAUNCHES["group_gather"] == before["group_gather"] + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, m, ns, 3 + c)
+    want = group_rows_mlp_input_plain(xyz, centres, feats, idx, inv_r)
+    assert torch.equal(_bits(got), _bits(want))
+    # and the plain version's bits on the CPU
+    cpu = group_rows_mlp_input_plain(xyz.cpu(), centres.cpu(), feats.cpu(),
+                                     idx.cpu(), inv_r)
+    assert torch.equal(_bits(got).cpu(), _bits(cpu))
+    assert _bits(got)[0, 0, 0, 1].item() == 0x7FC0  # a NaN, pinned
+
+
+@pytest.mark.parametrize("b,n,m,ns,c", [
+    (1, 40, 3, 5, 1),     # 8-byte rows, 15 of them: a 120-byte tile
+    (2, 70, 5, 3, 2),     # 4-byte feature units, odd row counts
+    (1, 90, 7, 9, 5),     # 2-byte feature units, 16-byte rows
+    (3, 300, 11, 7, 4),   # 8-byte feature units
+    (2, 64, 9, 13, 120),  # 16-byte units, 13 rows a centre
+    (1, 50, 4, 3, 2000),  # two stages beyond 48 KB of shared memory
+])
+def test_group_mlp_input_kernel_ragged_tiles(gpu, b, n, m, ns, c):
+    xyz, centres, feats, idx = _mlp_input_case(gpu, c, b, n, m, ns, c,
+                                               torch.int64)
+    got = group_rows_mlp_input(xyz, centres, feats, idx, 2.5)
+    want = group_rows_mlp_input_plain(xyz, centres, feats, idx, 2.5)
+    assert torch.equal(_bits(got), _bits(want))
+    # a feature base 2 bytes off a 4-byte boundary: 2-byte units
+    buf = torch.empty(b * n * c + 1, device=gpu, dtype=torch.bfloat16)
+    off = buf[1:].view(b, n, c)
+    off.copy_(feats)
+    assert off.data_ptr() % 4 == 2
+    got = group_rows_mlp_input(xyz, centres, off, idx, 2.5)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_group_mlp_input_launches_one_kernel_and_no_copy(gpu, idx_dtype):
+    """A strided cloud, bf16 features and either index type: one kernel,
+    no cast or copy before it."""
+    xyz, centres, feats, idx = _mlp_input_case(gpu, 3, 2, 3000, 64, 32, 3,
+                                               idx_dtype)
+    assert not xyz.is_contiguous()
+    got = {}
+    kernels = _cuda_kernels(lambda: got.update(o=group_rows_mlp_input(
+        xyz, centres, feats, idx, 5.0)))
+    assert len(kernels) == 1 and \
+        "group_gather_mlp_input_kernel" in kernels[0][0], kernels
+
+
+def test_group_mlp_input_gradient_is_the_eager_chains(gpu):
+    """The features' gradient on the card: K5 over the cotangent's
+    channels 3:, bit-equal to autograd through the eager chain on the CPU;
+    the cloud needs none, so K5 runs once."""
+    xyz, centres, feats, idx = _mlp_input_case(gpu, 9, 2, 2048, 256, 32,
+                                               128, torch.int32)
+    xyz = torch.nan_to_num(xyz.contiguous())
+    feats = torch.nan_to_num(feats.float()).to(torch.bfloat16)
+    centres = torch.nan_to_num(centres)
+    ct = torch.randn(2, 256, 32, 131, device=gpu).to(torch.bfloat16)
+    f = feats.clone().requires_grad_()
+    before = _cuda.LAUNCHES["scatter"]
+    group_points_mlp_input(xyz, centres, f, idx, 2.5).backward(ct)
+    assert _cuda.LAUNCHES["scatter"] == before + 1
+    fc = feats.cpu().requires_grad_()
+    gx, gf = group_points_split(xyz.cpu(), fc, idx.cpu())
+    chain = torch.cat([(gx - centres.cpu()[:, :, None, :]) * 2.5, gf], -1)
+    chain.to(torch.bfloat16).backward(ct.cpu())
+    assert f.grad.dtype == torch.bfloat16
+    assert torch.equal(_bits(f.grad.cpu()), _bits(fc.grad))
