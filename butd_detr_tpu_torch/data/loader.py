@@ -1,4 +1,4 @@
-"""Batched data loader (host side).
+"""Batched, prefetching data loader (host side).
 
 Counterpart of `butd_detr_tpu/data/loader.py` (which replaces the
 reference's torch DataLoader + DistributedSampler, main_utils.py:197-233):
@@ -7,15 +7,19 @@ reference's torch DataLoader + DistributedSampler, main_utils.py:197-233):
   * a contiguous shard of the (shuffled) index order per process;
   * deterministic seeding: shuffle = f(seed, epoch), sample rng =
     f(seed, epoch, index), the same functions as the JAX package's, so the
-    same seed gives the same order and the same per-sample seeds;
+    same seed gives the same order and the same samples, in the calling
+    process or in a worker;
   * `drop_last=False` pads the tail batch to the fixed shape by cyclic
-    repetition and says in `"__valid__"` how many leading rows are real.
-
-Samples are loaded in the calling process. Worker processes with prefetch
-belong to the data slice (ROADMAP queue 1, "Data"): `num_workers` other
-than 0 raises.
+    repetition and says in `"__valid__"` how many leading rows are real;
+  * `num_workers > 0`: samples are made in worker processes, `prefetch`
+    batches ahead, so that augmentation overlaps the device's step. The
+    workers are spawned, never forked (the calling process may hold a CUDA
+    context and threads), receive the dataset once through the pool's
+    initializer, and import only `butd_detr_tpu_torch.data` and what the
+    dataset's pickle names.
 """
 
+from concurrent.futures import ProcessPoolExecutor
 from typing import Dict, Iterator, List
 
 import numpy as np
@@ -40,25 +44,40 @@ def collate(samples: List[Dict]) -> Dict:
     return out
 
 
+# the dataset of a worker process, set once by the pool's initializer
+_WORKER_DS = None
+
+
+def _worker_init(dataset):
+    global _WORKER_DS
+    _WORKER_DS = dataset
+
+
+def _worker_get(args):
+    index, seed = args
+    return _WORKER_DS.get(index, np.random.RandomState(seed))
+
+
 class DataLoader:
     """Iterates seeded, sharded, fixed-shape batches of a map-style dataset
-    (anything with __len__ and get(index, rng))."""
+    (anything with __len__ and get(index, rng)). `close()` stops the
+    workers."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, num_workers: int = 0,
-                 process_index: int = 0, process_count: int = 1):
-        if num_workers != 0:
-            raise NotImplementedError(
-                "worker processes belong to the port's data slice (ROADMAP "
-                "queue 1, 'Data'); pass num_workers=0")
+                 prefetch: int = 2, process_index: int = 0,
+                 process_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size  # per-process batch
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.num_workers = num_workers
+        self.prefetch = max(1, prefetch)
         self.process_index = process_index
         self.process_count = process_count
         self.epoch = 0
+        self._pool = None
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -98,12 +117,45 @@ class DataLoader:
             out.append((b, valid))
         return out
 
-    def __iter__(self) -> Iterator[Dict]:
-        for b, valid in self.batch_indices():
-            batch = collate([
-                self.dataset.get(
+    def _get_pool(self) -> ProcessPoolExecutor:
+        if self._pool is None:
+            import multiprocessing as mp
+
+            self._pool = ProcessPoolExecutor(
+                max_workers=self.num_workers, initializer=_worker_init,
+                initargs=(self.dataset,),
+                mp_context=mp.get_context("spawn"))
+        return self._pool
+
+    def _samples(self, batches) -> Iterator[List[Dict]]:
+        """Each batch's samples, in order: made here, or by the workers
+        with at most `prefetch` batches in flight."""
+        if self.num_workers == 0:
+            for b in batches:
+                yield [self.dataset.get(
                     int(i), np.random.RandomState(self._sample_seed(int(i))))
-                for i in b])
+                    for i in b]
+            return
+        pool = self._get_pool()
+        pending, inflight = list(batches), []
+        while pending or inflight:
+            while pending and len(inflight) < self.prefetch:
+                inflight.append([
+                    pool.submit(_worker_get,
+                                (int(i), self._sample_seed(int(i))))
+                    for i in pending.pop(0)])
+            yield [f.result() for f in inflight.pop(0)]
+
+    def __iter__(self) -> Iterator[Dict]:
+        plan = self.batch_indices()
+        for (_, valid), samples in zip(
+                plan, self._samples([b for b, _ in plan])):
+            batch = collate(samples)
             if valid < self.batch_size:
                 batch["__valid__"] = valid
             yield batch
+
+    def close(self):
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None

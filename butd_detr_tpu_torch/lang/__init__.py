@@ -1,17 +1,30 @@
-"""Text side of the port: RoBERTa (HF names) and the offline tokenizer."""
+"""Text side of the port: RoBERTa (HF names) and the tokenizers.
 
-from butd_detr_tpu_torch.lang.roberta import (
-    RobertaConfig,
-    RobertaModel,
-    roberta_base_config,
-    tiny_roberta_config,
+The RoBERTa names import torch on first use only, so that the data
+pipeline's worker processes, which unpickle a tokenizer, import no torch.
+"""
+
+from butd_detr_tpu_torch.lang.tokenizer import (
+    HFTokenizer,
+    SimpleTokenizer,
+    get_tokenizer,
 )
-from butd_detr_tpu_torch.lang.tokenizer import SimpleTokenizer
+
+_ROBERTA = ("RobertaConfig", "RobertaModel", "roberta_base_config",
+            "tiny_roberta_config")
+
+
+def __getattr__(name):
+    if name in _ROBERTA:
+        from butd_detr_tpu_torch.lang import roberta
+
+        return getattr(roberta, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
-    "RobertaConfig",
-    "RobertaModel",
+    "HFTokenizer",
     "SimpleTokenizer",
-    "roberta_base_config",
-    "tiny_roberta_config",
+    "get_tokenizer",
+    *_ROBERTA,
 ]

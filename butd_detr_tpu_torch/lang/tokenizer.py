@@ -1,14 +1,18 @@
 """Host-side tokenization into fixed-shape id/mask arrays.
 
-A copy of `butd_detr_tpu/lang/tokenizer.py:SimpleTokenizer`: a
-deterministic, dependency-free word-level tokenizer with RoBERTa's special
-token layout (bos=0, pad=1, eos=2) and a `char_to_token` map, so the
-positive-map code works unchanged. Ids are hashed into `vocab_size`, which
-a caller takes from the RoBERTa config. (A byte-exact HF tokenizer needs
-vocabulary files the repository does not carry.)
+The port's copy of `butd_detr_tpu/lang/tokenizer.py`:
+  * `SimpleTokenizer`: a deterministic, dependency-free word-level
+    tokenizer with RoBERTa's special token layout (bos=0, pad=1, eos=2)
+    and a `char_to_token` map, so the positive-map code works unchanged.
+    Ids are hashed into `vocab_size`;
+  * `HFTokenizer`: `transformers`' RoBERTa tokenizer read from the local
+    cache only (the repository carries no vocabulary files);
+  * `get_tokenizer`: the first when the second does not load, the rule of
+    the JAX package, so both pick the same tokenizer on one machine.
 """
 
 import hashlib
+import os
 import re
 from dataclasses import dataclass
 from typing import List, Optional
@@ -69,3 +73,38 @@ class SimpleTokenizer:
             char_fns.append(c2t)
         return Tokenized(ids=ids, attention_mask=mask,
                          _char_to_token=char_fns)
+
+
+class HFTokenizer:
+    """`RobertaTokenizerFast` from the local cache, emitting fixed-shape
+    arrays; never reaches the network."""
+
+    def __init__(self, name: str = "roberta-base", max_len: int = 64):
+        os.environ.setdefault("HF_HUB_OFFLINE", "1")
+        from transformers import RobertaTokenizerFast
+
+        self.tok = RobertaTokenizerFast.from_pretrained(
+            name, local_files_only=True)
+        self.max_len = max_len
+        self.vocab_size = self.tok.vocab_size
+
+    def __call__(self, texts: List[str], max_len: Optional[int] = None):
+        L = max_len or self.max_len
+        enc = self.tok(texts, padding="max_length", truncation=True,
+                       max_length=L, return_tensors="np")
+        # one more encoding a text for char_to_token (host side, cold path)
+        encs = [self.tok(t, truncation=True, max_length=L) for t in texts]
+        return Tokenized(
+            ids=enc["input_ids"].astype(np.int32),
+            attention_mask=enc["attention_mask"].astype(np.int32),
+            _char_to_token=[(lambda ci, e=e: e.char_to_token(ci))
+                            for e in encs])
+
+
+def get_tokenizer(name: str = "roberta-base", max_len: int = 64,
+                  vocab_size: int = 1024):
+    """HF fast tokenizer when it loads, else the deterministic fallback."""
+    try:
+        return HFTokenizer(name, max_len=max_len)
+    except Exception:  # no transformers, or no cached vocabulary
+        return SimpleTokenizer(vocab_size=vocab_size, max_len=max_len)

@@ -8,10 +8,10 @@ kernels on `cuda`), scores the queries against the phrase's token span —
 similarity) — and returns the top-k boxes (cxcyczwhd) with their scores.
 It runs on `cuda` unless the caller passes `device="cpu"`.
 
-Carries its own copies of the JAX package's host helpers it needs:
-`token_positive_map` (data/positive_map.py) and `MEAN_RGB`
-(data/augment.py); the scorers `span_scores`, `contrast_scores` and
-`pred_boxes` are the port's evaluators' (eval/grounding.py).
+The host helpers `token_positive_map` and `MEAN_RGB` are the port's data
+pipeline's (data/positive_map.py, data/augment.py); the scorers
+`span_scores`, `contrast_scores` and `pred_boxes` are the port's
+evaluators' (eval/grounding.py).
 """
 
 from typing import Dict, Optional, Sequence
@@ -20,6 +20,9 @@ import numpy as np
 import torch
 
 from butd_detr_tpu_torch.config import Config
+from butd_detr_tpu_torch.data.augment import MEAN_RGB
+from butd_detr_tpu_torch.data.positive_map import NUM_BINS, \
+    token_positive_map
 from butd_detr_tpu_torch.eval.grounding import (
     contrast_scores,
     pred_boxes,
@@ -31,9 +34,6 @@ from butd_detr_tpu_torch.lang.roberta import RobertaConfig, \
 from butd_detr_tpu_torch.lang.tokenizer import SimpleTokenizer
 from butd_detr_tpu_torch.models.bdetr import BeaUTyDETR
 
-NUM_BINS = 256
-MEAN_RGB = np.array([109.8, 97.2, 83.8]) / 256
-
 
 def resolve_device(device=None) -> torch.device:
     """`cuda` unless the caller asks for another device; raises when CUDA
@@ -44,77 +44,6 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
     return dev
-
-
-# ------------------------------------------------ positive maps (host side)
-
-def normalize_caption(utterance: str) -> str:
-    return " ".join(utterance.replace(",", " ,").split())
-
-
-def find_char_spans(utterance: str, cat_names: Sequence[str],
-                    max_num_obj: int = 132) -> np.ndarray:
-    """Character [start, end) spans of each name in the padded caption:
-    exact ' name ' match, then prefix match, then a substring extended to
-    word boundaries (reference joint_det_dataset.py:856-884)."""
-    caption = " " + normalize_caption(utterance) + " "
-    spans = np.zeros((max_num_obj, 2))
-    for c, cat_name in enumerate(cat_names):
-        start = caption.find(f" {cat_name} ")
-        if start >= 0:
-            length = len(cat_name)
-        else:
-            start = caption.find(" " + cat_name)
-            if start >= 0:
-                length = len(caption[start + 1:].split()[0])
-            else:
-                start = caption.find(cat_name)
-                if start < 0:
-                    raise ValueError(f"{cat_name!r} not in {caption!r}")
-                orig = start
-                while caption[start - 1] != " ":
-                    start -= 1
-                length = len(cat_name) + orig - start
-                while caption[length + start] != " ":
-                    length += 1
-        spans[c] = start, start + length
-    return spans
-
-
-def get_positive_map(tokenized, char_spans: np.ndarray,
-                     batch_idx: int = 0) -> np.ndarray:
-    """(n, 2) char spans -> (n, 256) row-normalized token map, with the
-    reference's +-1/2/3 char_to_token probing."""
-    positive_map = np.zeros((len(char_spans), NUM_BINS), np.float32)
-    c2t = lambda ci: tokenized.char_to_token(batch_idx, ci)  # noqa: E731
-    for j, (beg, end) in enumerate(char_spans):
-        beg, end = int(beg), int(end)
-        beg_pos = c2t(beg)
-        if beg_pos is None:
-            beg_pos = c2t(beg + 1)
-            if beg_pos is None:
-                beg_pos = c2t(beg + 2)
-        end_pos = c2t(end - 1)
-        if end_pos is None:
-            end_pos = c2t(end - 2)
-            if end_pos is None:
-                end_pos = c2t(end - 3)
-        if beg_pos is None or end_pos is None:
-            continue
-        positive_map[j, beg_pos:min(end_pos + 1, NUM_BINS)] = 1.0
-    return positive_map / (positive_map.sum(-1, keepdims=True) + 1e-12)
-
-
-def token_positive_map(tokenizer, utterance: str, cat_names: Sequence[str],
-                       max_num_obj: int = 132, max_len: int = 256):
-    """(max_num_obj, 2) char spans and (max_num_obj, 256) token map."""
-    caption = normalize_caption(utterance)
-    spans = find_char_spans(utterance, cat_names, max_num_obj)
-    tokenized = tokenizer([caption], max_len=max_len)
-    pmap = np.zeros((max_num_obj, NUM_BINS), np.float32)
-    pmap[:len(cat_names)] = get_positive_map(tokenized,
-                                             spans[:len(cat_names)])
-    return spans, pmap
 
 
 # ------------------------------------------------------------ inputs

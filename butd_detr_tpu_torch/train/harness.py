@@ -7,19 +7,29 @@ mesh through its loops; here `train.step.Trainer` holds the model, the
 optimizer and the step counter, and the loops take the trainer. Everything
 runs on `cuda` unless the caller passes `device="cpu"`.
 
+`get_datasets` builds the two `JointGroundingDataset`s from
+`--data_root` as the JAX harness does; a caller may subclass it (the smoke
+script and the profile scripts return synthetic scenes). Each epoch logs
+one `epoch stats` line of JSON: steps or batches, scenes/s, the share of
+the epoch spent waiting on the loader, the kernels launched and, on the
+card, the peak memory.
+
 What waits for its slice raises `NotImplementedError` naming the ROADMAP
-queue: `get_datasets` (the ScanNet/ReferIt3D datasets, "Data": callers
-subclass it, as the studies do), the detection evaluation for
-`test_dataset == "scannet"` ("Evaluation: detection"), `--mp` and `--dp`
-above 1 ("Distribution"), `--use_bf16` ("Precision") and the profiler
-window ("The rest of the surface").
+queue: the detection evaluation for `test_dataset == "scannet"`
+("Evaluation: detection"), `--mp` and `--dp` above 1 ("Distribution"),
+`--use_bf16` ("Precision"), `--use_multiview` ("Data: multiview") and the
+profiler window ("The rest of the surface").
 """
 
+import json
 import os
 import time
 from typing import Dict, List
 
+import torch
+
 from butd_detr_tpu_torch.config import Config
+from butd_detr_tpu_torch.data.joint_dataset import JointGroundingDataset
 from butd_detr_tpu_torch.data.loader import DataLoader
 from butd_detr_tpu_torch.eval.grounding import (
     GroundingEvaluator,
@@ -27,6 +37,7 @@ from butd_detr_tpu_torch.eval.grounding import (
 )
 from butd_detr_tpu_torch.lang.roberta import RobertaConfig, \
     roberta_base_config
+from butd_detr_tpu_torch.ops import _cuda
 from butd_detr_tpu_torch.predict import build_model, resolve_device
 from butd_detr_tpu_torch.train.checkpoint import (
     latest_checkpoint,
@@ -57,12 +68,68 @@ EVALUATOR_KEYS = (
 )
 
 
+class EpochMeter:
+    """Iterates a loader for one epoch and times it: the epoch's seconds,
+    the seconds spent waiting for a batch from the loader (the first
+    batch's apart: it starts the workers), the host seconds spent on each
+    batch between its arrival and the request for the next (a step's wall
+    time where the caller reads its metrics back), the kernel launches
+    and, on the card, the peak memory. The clock starts at construction,
+    after the device has finished what came before."""
+
+    def __init__(self, loader, device: torch.device):
+        self.loader = loader
+        self.device = device
+        self.wait = []
+        self.handled = []
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        self._launches = dict(_cuda.LAUNCHES)
+        self._t0 = time.perf_counter()
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        batches = iter(self.loader)
+        while True:
+            t = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                return
+            arrived = time.perf_counter()
+            self.wait.append(arrived - t)
+            yield batch
+            self.handled.append(time.perf_counter() - arrived)
+
+    def stats(self, scenes: int) -> Dict:
+        """The epoch's numbers, once its last batch has been handled."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        seconds = time.perf_counter() - self._t0
+        wait = sum(self.wait)
+        return dict(
+            batches=len(self.wait), scenes=scenes, seconds=seconds,
+            scenes_per_second=scenes / seconds,
+            loader_wait_seconds=wait, loader_wait_share=wait / seconds,
+            first_batch_wait_seconds=self.wait[0] if self.wait else 0.0,
+            batch_seconds=self.handled,
+            launches={k: v - self._launches[k]
+                      for k, v in _cuda.LAUNCHES.items()},
+            peak_memory_bytes=(torch.cuda.max_memory_allocated(self.device)
+                               if cuda else None))
+
+
 def _refuse_unported(cfg: Config) -> None:
     waits = {
         "--mp > 1 (tensor parallelism)": (cfg.mp > 1, "Distribution"),
         "--dp > 1 (data parallelism)": ((cfg.dp or 1) > 1, "Distribution"),
         "--use_bf16 (the bf16 transformer stack)": (cfg.use_bf16,
                                                     "Precision"),
+        "--use_multiview (ENet multiview features)": (cfg.use_multiview,
+                                                      "Data: multiview"),
         "--profile_dir (the profiler window)": (
             bool(cfg.profile_dir), "The rest of the surface"),
     }
@@ -90,12 +157,33 @@ class TrainTester:
 
     def get_datasets(self):
         """(train_dataset, test_dataset): map-style datasets with `__len__`
-        and `get(index, rng)` (train_dist_mod.py:38-74)."""
-        raise NotImplementedError(
-            "JointGroundingDataset is not ported yet (ROADMAP queue 1, "
-            "'Data'); subclass TrainTester and return (train_dataset, "
-            "test_dataset) from get_datasets, e.g. two "
-            "data.SyntheticGroundingDataset")
+        and `get(index, rng)` (train_dist_mod.py:38-74). The test set
+        shares the train set's tokenizer, and its scans under `--debug`
+        (both on the val split) or `--eval_train` (both on train)."""
+        cfg = self.cfg
+        dataset_dict = {d: 1 for d in cfg.dataset}
+        if cfg.joint_det:
+            dataset_dict["scannet"] = 10
+        self.logger.info(f"Loading datasets: {sorted(dataset_dict)}")
+        common = dict(
+            test_dataset=cfg.test_dataset, data_path=cfg.data_root,
+            use_color=cfg.use_color, use_height=cfg.use_height,
+            use_multiview=cfg.use_multiview,
+            detect_intermediate=cfg.detect_intermediate, butd=cfg.butd,
+            butd_gt=cfg.butd_gt, butd_cls=cfg.butd_cls, overfit=cfg.debug,
+            max_text_len=cfg.max_text_len, max_num_obj=cfg.max_num_obj,
+            max_det_boxes=cfg.max_det_boxes, spatial_sort=cfg.spatial_sort)
+        train_dataset = JointGroundingDataset(
+            dataset_dict=dataset_dict,
+            split="train" if not cfg.debug else "val",
+            augment_det=cfg.augment_det, **common)
+        test_dataset = JointGroundingDataset(
+            dataset_dict=dataset_dict,
+            split="val" if not cfg.eval_train else "train",
+            scans=train_dataset.scans if cfg.debug or cfg.eval_train
+            else None,
+            tokenizer=train_dataset.tokenizer, **common)
+        return train_dataset, test_dataset
 
     def get_loaders(self):
         cfg = self.cfg
@@ -145,8 +233,15 @@ class TrainTester:
     # ---------------- main ----------------
 
     def main(self) -> Trainer:
-        cfg = self.cfg
         train_loader, test_loader = self.get_loaders()
+        try:
+            return self._main(train_loader, test_loader)
+        finally:
+            for loader in (train_loader, test_loader):
+                loader.close()
+
+    def _main(self, train_loader, test_loader) -> Trainer:
+        cfg = self.cfg
         self.logger.info(f"lengths: train {len(train_loader.dataset)}, "
                          f"test {len(test_loader.dataset)}")
         t0 = time.time()
@@ -185,13 +280,18 @@ class TrainTester:
 
     # ---------------- loops ----------------
 
+    def _log_epoch_stats(self, phase: str, epoch: int, stats: Dict):
+        self.logger.info("epoch stats " + json.dumps(
+            dict(phase=phase, epoch=epoch, **stats), sort_keys=True))
+
     def train_one_epoch(self, epoch: int, train_loader, trainer: Trainer):
         """main_utils.py:401-456. The metrics stay on the device and are
         read back once per `print_freq` window (the window's last step, as
         the JAX harness logs)."""
         cfg = self.cfg
         n = len(train_loader)
-        for batch_idx, batch in enumerate(train_loader):
+        meter = EpochMeter(train_loader, self.device)
+        for batch_idx, batch in enumerate(meter):
             metrics = trainer.train_step_on_device(
                 {k: batch[k] for k in (*INPUT_KEYS, *TARGET_KEYS)})
             if (batch_idx + 1) % cfg.print_freq == 0:
@@ -199,6 +299,8 @@ class TrainTester:
                 self.logger.info(
                     f"Train: [{epoch}][{batch_idx + 1}/{n}] " + " ".join(
                         f"{k} {v:.4f}" for k, v in sorted(stat.items())))
+        self._log_epoch_stats("train", epoch,
+                              meter.stats(scenes=n * cfg.batch_size))
 
     def _eval_batches(self, test_loader, trainer: Trainer):
         """Yield (batch, end_points) for every eval batch, accumulating and
@@ -267,12 +369,15 @@ class TrainTester:
                 only_root=True, thresholds=(0.25, 0.5), topks=(1, 5, 10),
                 prefixes=prefixes, logger=self.logger,
                 with_contrast=cfg.use_contrastive_align)
-        for _, end_points in self._eval_batches(test_loader, trainer):
+        meter = EpochMeter(test_loader, self.device)
+        for _, end_points in self._eval_batches(meter, trainer):
             evaluator.evaluate(end_points)
         evaluator.synchronize_between_processes()
+        self._log_epoch_stats("eval", epoch, meter.stats(
+            scenes=len(test_loader.dataset) // process_count()))
         if is_main_process():
             evaluator.print_stats()
         return evaluator
 
 
-__all__ = ["EVALUATOR_KEYS", "TrainTester"]
+__all__ = ["EVALUATOR_KEYS", "EpochMeter", "TrainTester"]

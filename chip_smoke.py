@@ -91,7 +91,20 @@ the last line is printed:
    saved ones, every batch launches 4 FPS, 4 ball query, 51 attention, 8
    row gather and 4 grouped gather kernels and no backward kernel, the
    evaluator counts every scene once per prefix and mode, and every
-   accuracy lies in [0, 1]. A second, warm epoch is timed (scenes/s).
+   accuracy lies in [0, 1]. A second, warm epoch is timed (scenes/s);
+8. the command line, as a user starts it: `make_rich_scannet` writes a
+   ScanNet-format root (8 train and 8 val scenes, 5 objects each, 60,000
+   points a scan), `prepare_data_torch.py --num_workers 2` builds its scan
+   caches (50,000 points a scan, subsampled without replacement), and
+   `train_torch.py` with the flags of scripts/train_test_cls.sh (B = 24)
+   and `--max_epoch 1 --val_freq 1 --num_workers 4` trains one epoch (40
+   sr3d rows and 80 detection prompts: 5 steps), saves a checkpoint and
+   evaluates the 40 val rows twice (after the epoch and at the end). Both
+   processes must exit 0; every logged loss is finite, every accuracy in
+   [0, 1], and the epochs' `epoch stats` lines give the launches (per step
+   and per batch those of phases 6 and 7), the scenes/s, the share of the
+   epoch spent waiting on the loader and the peak memory, printed beside
+   the card's name and power limit.
 
 Prints the `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. `--report PATH` also writes a fuller JSON
@@ -1384,6 +1397,30 @@ def compare_gradients_card_cpu(args):
 TRAIN_LAUNCHES = {"fps": 4, "ball_query": 4, "group_gather": 4}
 
 
+def attention_calls(cfg, roberta):
+    """Attention calls of one forward: RoBERTa's layers, 5 a BiEncoder
+    layer, 4 a decoder layer."""
+    return (roberta.num_hidden_layers + 5 * cfg.num_encoder_layers
+            + 4 * cfg.num_decoder_layers)
+
+
+def training_step_launches(cfg, roberta):
+    """Launches of one training step: the forward's, the backward of every
+    attention call but the frozen text tower's, a scatter-add for each of
+    the model's 6 gathers and each loss prefix's matched-box gather."""
+    att = attention_calls(cfg, roberta)
+    return dict(TRAIN_LAUNCHES, attention=att,
+                attention_bwd=att - roberta.num_hidden_layers,
+                scatter=6 + cfg.num_decoder_layers + 1,
+                gather=FORWARD_LAUNCHES["gather"]
+                + cfg.num_decoder_layers + 1)
+
+
+def evaluation_batch_launches(cfg, roberta):
+    return dict(FORWARD_LAUNCHES, attention=attention_calls(cfg, roberta),
+                attention_bwd=0, scatter=0)
+
+
 def train_steps(args, cfg, roberta, npoints, batches):
     """`Trainer` at full width: 1 warm-up step, then the timed steps.
     Returns the phase's report and the trainer."""
@@ -1425,13 +1462,7 @@ def train_steps(args, cfg, roberta, npoints, batches):
     steps = len(step_ms)
     repeat_diff = repeat_step_difference(trainer, batches[-1])
 
-    att = (roberta.num_hidden_layers + 5 * cfg.num_encoder_layers
-           + 4 * cfg.num_decoder_layers)
-    expect = dict(TRAIN_LAUNCHES, attention=att,
-                  attention_bwd=att - roberta.num_hidden_layers,
-                  scatter=6 + cfg.num_decoder_layers + 1,
-                  gather=FORWARD_LAUNCHES["gather"]
-                  + cfg.num_decoder_layers + 1)
+    expect = training_step_launches(cfg, roberta)
     for name, n in expect.items():
         check(launches[name] == n * steps,
               f"{name}: {launches[name]} launches in {steps} training "
@@ -1574,10 +1605,7 @@ def evaluation_epoch(args, cfg, roberta, npoints, trainer):
                                   restored)  # the warm, timed epoch
     check(len(epochs) == 2, f"{len(epochs)} evaluation epochs ran, not 2")
 
-    att = (roberta.num_hidden_layers + 5 * cfg.num_encoder_layers
-           + 4 * cfg.num_decoder_layers)
-    per_batch = dict(FORWARD_LAUNCHES, attention=att, attention_bwd=0,
-                     scatter=0)
+    per_batch = evaluation_batch_launches(cfg, roberta)
     batches = -(-n // B)
     accuracies = {}
     for ep in epochs:
@@ -1610,6 +1638,161 @@ def evaluation_epoch(args, cfg, roberta, npoints, trainer):
                 warm_epoch_seconds=warm["seconds"], scenes_per_second=rate,
                 launches=warm["launches"], per_batch=per_batch,
                 accuracies=accuracies, checkpoint_bytes=size)
+
+
+# ------------------------------------------------------------- phase 8
+
+# scripts/train_test_cls.sh's model, data and optimizer flags at its batch
+CLS_FLAGS = [
+    "--num_decoder_layers", "6", "--use_color", "--weight_decay", "0.0005",
+    "--lr_backbone", "1e-3", "--lr", "1e-4", "--dataset", "sr3d",
+    "--test_dataset", "sr3d", "--detect_intermediate", "--joint_det",
+    "--use_soft_token_loss", "--use_contrastive_align", "--butd_cls",
+    "--self_attend", "--batch_size", "24",
+]
+CLI_SCENES = dict(n_train=8, n_val=8, objects_per_scan=5,
+                  points_per_scan=60_000)
+
+
+def run_child(cmd, timeout, what):
+    """Run `cmd` from the checkout's root in a session of its own; on
+    timeout kill the whole session (the child and its loader workers).
+    Returns its output; fails when it exits non-zero."""
+    import signal
+
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"{what} did not finish in {timeout} s")
+    if proc.returncode != 0:
+        tail = "\n".join(out.splitlines()[-40:])
+        raise SmokeFailure(f"{what} exited {proc.returncode}:\n{tail}")
+    return out
+
+
+def _accuracies(text):
+    """[(name, value)] of every per-prefix accuracy the evaluators logged
+    ('<prefix> Box given span (<mode>) Acc: <value>'), in order."""
+    out = []
+    for line in text.splitlines():
+        msg = line.split("INFO: ", 1)[-1]
+        if " Acc: " in msg:
+            name, value = msg.rsplit(" Acc: ", 1)
+            out.append((name, float(value)))
+    return out
+
+
+def train_and_evaluate_from_a_data_root(args, cfg, roberta, card):
+    """Write a ScanNet-format root (`make_rich_scannet`), build its scan
+    caches with `prepare_data_torch.py`, then train one epoch and evaluate
+    through `train_torch.py` with the flags of scripts/train_test_cls.sh,
+    4 loader workers: two processes started as a user starts them. The
+    numbers come from the `epoch stats` lines of the run's log."""
+    import math
+    import tempfile
+
+    from butd_detr_tpu_torch.data import make_rich_scannet
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        make_rich_scannet(root, seed=args.seed, **CLI_SCENES)
+        written = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_child([sys.executable, "prepare_data_torch.py", "--data_root",
+                   root, "--num_workers", "2"], 300, "prepare_data_torch.py")
+        prepared = time.perf_counter() - t0
+        log(f"  wrote {CLI_SCENES['n_train']} + {CLI_SCENES['n_val']} scenes "
+            f"of {CLI_SCENES['points_per_scan']} points in {written:.1f} s; "
+            f"prepare_data_torch.py built their caches in {prepared:.1f} s")
+        log_dir = os.path.join(tmp, "log")
+        cmd = [sys.executable, "train_torch.py", *CLS_FLAGS,
+               "--max_epoch", "1", "--val_freq", "1", "--num_workers", "4",
+               "--print_freq", "1", "--rng_seed", str(args.seed),
+               "--data_root", root, "--log_dir", log_dir]
+        t0 = time.perf_counter()
+        run_child(cmd, 600, "train_torch.py")
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(log_dir, "log.txt")) as f:
+            text = f.read()
+        checkpoints = sorted(n for n in os.listdir(log_dir)
+                             if n.startswith("ckpt_epoch_"))
+
+    stats = [json.loads(line.split("epoch stats ", 1)[1])
+             for line in text.splitlines() if "epoch stats " in line]
+    check([s["phase"] for s in stats] == ["train", "eval", "eval"],
+          f"epochs run: {[s['phase'] for s in stats]}")
+    train, evals = stats[0], stats[1:]
+    check(checkpoints == ["ckpt_epoch_1.pth"],
+          f"checkpoints written: {checkpoints}")
+    steps = train["batches"]
+    check(steps >= 1 and train["scenes"] == steps * 24,
+          f"{steps} training steps for {train['scenes']} scenes")
+    losses = []
+    for line in text.splitlines():
+        if "Train: [1][" not in line:
+            continue
+        fields = line.split("] ", 2)[-1].split()
+        values = dict(zip(fields[::2], map(float, fields[1::2])))
+        check(all(math.isfinite(v) for v in values.values()),
+              f"non-finite training metrics: {line}")
+        losses.append(values["loss"])
+    check(len(losses) == steps, f"{len(losses)} logged steps of {steps}")
+    check(train["peak_memory_bytes"] is not None,
+          "the training epoch did not run on the card")
+    per_step = training_step_launches(cfg, roberta)
+    for name, n in per_step.items():
+        check(train["launches"][name] == n * steps,
+              f"{name}: {train['launches'][name]} launches in {steps} "
+              f"training steps, expected {n} each")
+    per_batch = evaluation_batch_launches(cfg, roberta)
+    for ev in evals:
+        check(ev["scenes"] == 5 * CLI_SCENES["n_val"]
+              and ev["batches"] == -(-ev["scenes"] // 24),
+              f"evaluated {ev['scenes']} scenes in {ev['batches']} batches")
+        for name, n in per_batch.items():
+            check(ev["launches"][name] == n * ev["batches"],
+                  f"{name}: {ev['launches'][name]} launches in "
+                  f"{ev['batches']} evaluation batches, expected {n} each")
+    logged = _accuracies(text)
+    modes = 2 * (cfg.num_decoder_layers + 1)  # 7 prefixes x bbs, bbf
+    check(len(logged) == modes * len(evals),
+          f"{len(logged)} accuracies logged, not {modes * len(evals)}")
+    check(all(0.0 <= v <= 1.0 for _, v in logged),
+          f"an accuracy outside [0, 1]: {logged}")
+    accuracies = dict(logged[-modes:])
+    ev = evals[-1]
+    def ms(xs):
+        return ", ".join(f"{x * 1e3:.0f}" for x in xs)
+
+    log(f"  train_torch.py ran {seconds:.1f} s: {steps} steps at B = 24 "
+        f"({train['scenes']} scenes), {train['scenes_per_second']:.2f} "
+        f"scenes/s over the epoch ({train['seconds']:.2f} s), loader wait "
+        f"{train['loader_wait_share']:.1%} of it (the first batch "
+        f"{train['first_batch_wait_seconds']:.2f} s), steps "
+        f"{ms(train['batch_seconds'])} ms, peak device memory "
+        f"{train['peak_memory_bytes'] / 1e9:.2f} GB; losses "
+        f"{', '.join(f'{x:.3f}' for x in losses)}")
+    log(f"  evaluation: {ev['scenes']} scenes in {ev['batches']} batches, "
+        f"{ev['scenes_per_second']:.2f} scenes/s (the first epoch "
+        f"{evals[0]['scenes_per_second']:.2f}), loader wait "
+        f"{ev['loader_wait_share']:.1%}, batches {ms(ev['batch_seconds'])} "
+        f"ms, peak device memory {ev['peak_memory_bytes'] / 1e9:.2f} GB; "
+        f"card {card}")
+    log("  accuracies " + ", ".join(f"{k} {v:.3f}"
+                                    for k, v in accuracies.items()))
+    return dict(seconds=seconds, prepare_seconds=prepared, steps=steps,
+                losses=losses, train=train, evaluations=evals,
+                per_step=per_step, per_batch=per_batch,
+                accuracies=accuracies, card=card,
+                launches={k: train["launches"][k]
+                          + sum(e["launches"][k] for e in evals)
+                          for k in train["launches"]})
 
 
 # ------------------------------------------------------------- phase 4
@@ -1808,9 +1991,7 @@ def run(args):
         lat.append((time.perf_counter() - t) * 1e3)
         outs.append(out)
     launches = dict(_cuda.LAUNCHES)
-    per_req_att = (roberta.num_hidden_layers + 5 * cfg.num_encoder_layers
-                   + 4 * cfg.num_decoder_layers)
-    expect = dict(FORWARD_LAUNCHES, attention=per_req_att)
+    expect = dict(FORWARD_LAUNCHES, attention=attention_calls(cfg, roberta))
     for name, n in expect.items():
         check(launches[name] == n * args.requests,
               f"{name}: {launches[name]} launches for {args.requests} "
@@ -1858,6 +2039,16 @@ def run(args):
                                             trainer)
     eval_launches = report["evaluation"]["launches"]
     del trainer
+    torch.cuda.empty_cache()
+
+    # 8. train and evaluate from a data root through the CLI
+    card = card_name_and_limit()
+    log("== phase 8: prepare_data_torch.py and train_torch.py on a "
+        f"ScanNet-format root ({CLI_SCENES['points_per_scan']} points a "
+        "scan), B=24, 4 loader workers")
+    report["cli"] = train_and_evaluate_from_a_data_root(args, cfg, roberta,
+                                                        card)
+    cli_launches = report["cli"]["launches"]
 
     kernels = []
     replaces = {
@@ -1877,15 +2068,18 @@ def run(args):
         check(name in backward_only or (launches[name] > 0
                                         and eval_launches[name] > 0),
               f"{name}: not launched on the serving or evaluation path")
+        check(cli_launches[name] > 0,
+              f"{name}: not launched by train_torch.py")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"butd_detr_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": (launches[name] + train_launches[name]
-                         + eval_launches[name]),
+                         + eval_launches[name] + cli_launches[name]),
             "launches_serving": launches[name],
             "launches_training": train_launches[name],
             "launches_evaluation": eval_launches[name],
+            "launches_cli": cli_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -1909,6 +2103,16 @@ def run(args):
                         "scatter": sc_row, "gather": g_row,
                         "group_gather": gg_row}
     return report
+
+
+def card_name_and_limit():
+    """The card's name and power limit as nvidia-smi gives them, or ''."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    lines = smi.stdout.strip().splitlines() if smi.returncode == 0 else []
+    return lines[0] if lines else ""
 
 
 def main(argv=None):
@@ -1944,12 +2148,7 @@ def main(argv=None):
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        and smi.stdout.strip() else ""
+    card = card_name_and_limit()
     if not card:
         print("chip_smoke: nvidia-smi gave no card line", file=sys.stderr)
         return 1

@@ -472,19 +472,26 @@ def test_scatter_kernel_matches_plain(gpu, dtype, m, c, n):
 def test_scatter_kernel_is_reproducible(gpu, dtype, m, c, n, one):
     """Five runs give the same bits, also with all rows on one index (a
     segment longer than the shared-memory sort: the index-order walk);
-    no torch.zeros or cast kernel runs around the call."""
+    each call launches the kernel once (the launch count), and no
+    torch.zeros or cast kernel runs around the call (the profiler, which
+    on the card now and then returns no kernel event at all: such a
+    profile is taken once more)."""
     g = torch.Generator(device=gpu).manual_seed(m + n)
     rows = torch.randn(8, m, c, device=gpu, generator=g).to(dtype)
     idx = torch.randint(0, n, (8, m), device=gpu, generator=g)
     if one:
         idx[:] = n // 2
+    before = _cuda.LAUNCHES["scatter"]
     first = scatter_rows_add(rows, idx, n)
     for _ in range(4):
         assert torch.equal(scatter_rows_add(rows, idx, n), first)
+    assert _cuda.LAUNCHES["scatter"] == before + 5
     assert torch.equal(first.cpu(),
                        scatter_rows_add_plain(rows.cpu(), idx.cpu(), n))
     kernels = _cuda_kernels(lambda: scatter_rows_add(rows, idx, n))
-    assert len(kernels) == 2 and all(
+    if not kernels:
+        kernels = _cuda_kernels(lambda: scatter_rows_add(rows, idx, n))
+    assert kernels and all(
         "scatter_rows_add_" in name for name, _ in kernels), kernels
 
 

@@ -2,11 +2,14 @@
 the CPU:
 
 (a) one set of weights (through `state_dict_from_jax`) and the same
-    synthetic scenes through the JAX package's loader + `make_eval_step` +
+    scenes through the JAX package's loader + `make_eval_step` +
     `GroundingGTEvaluator` and through the port's
     `TrainTester.evaluate_one_epoch`, with a padded tail batch: integer end
     points equal, floats within the bound of tests/test_torch_model.py
-    (|err| <= 1e-3 + 5e-3 * std(reference)), every evaluator counter equal;
+    (|err| <= 1e-3 + 5e-3 * std(reference)), every evaluator counter equal.
+    Two cases: synthetic scenes through the `get_datasets` seam, and the
+    val split of a `make_fake_scannet` root through the port's own
+    `get_datasets` beside the JAX package's `JointGroundingDataset`;
 (b) checkpoints: save -> load into a fresh trainer, `reduce_lr`,
     `latest_checkpoint`, and a resumed run against the uninterrupted one,
     bit for bit with dropout on;
@@ -26,7 +29,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from butd_detr_tpu.data import JointGroundingDataset as JDataset
 from butd_detr_tpu.data.loader import DataLoader as JDataLoader
+from butd_detr_tpu.data.scan import load_scans_parallel as j_load_scans
+from butd_detr_tpu.lang.tokenizer import SimpleTokenizer as JTokenizer
 from butd_detr_tpu.eval import GroundingGTEvaluator as JGTEvaluator
 from butd_detr_tpu.lang.roberta import RobertaConfig as JRobertaConfig
 from butd_detr_tpu.train.config import (
@@ -46,6 +52,8 @@ from butd_detr_tpu_torch.data import (
     DataLoader,
     SyntheticGroundingDataset,
     collate,
+    make_fake_scannet,
+    save_scan_cache,
 )
 from butd_detr_tpu_torch.lang import RobertaConfig
 from butd_detr_tpu_torch.train import (
@@ -79,13 +87,14 @@ class SyntheticTrainTester(TrainTester):
 
     n_train, n_test = 8, 10
     state_dict = None
+    roberta = ROBERTA
 
     def get_datasets(self):
         return (SyntheticGroundingDataset(self.n_train, seed=11, **SCENES),
                 SyntheticGroundingDataset(self.n_test, seed=12, **SCENES))
 
     def _roberta_config(self):
-        return RobertaConfig(**ROBERTA)
+        return RobertaConfig(**self.roberta)
 
     def get_model(self):
         return build_model(self.cfg, self._roberta_config(), NPOINTS)
@@ -98,6 +107,26 @@ class SyntheticTrainTester(TrainTester):
         return trainer
 
 
+class ScanNetTrainTester(SyntheticTrainTester):
+    """The tests' small model over a ScanNet-format root, through the
+    port's own `get_datasets`; the text tower takes `get_tokenizer`'s
+    hashed 1024-word vocabulary."""
+
+    roberta = dict(ROBERTA, vocab_size=1024)
+    get_datasets = TrainTester.get_datasets
+
+
+def _scannet_root(tmp):
+    """A `make_fake_scannet` root of 5 scenes with its scan caches built at
+    the model's 1024 points: sr3d+'s val split has 10 rows."""
+    root = make_fake_scannet(str(tmp / "root"), points_per_scan=2000,
+                             scan_ids=[f"scene{i:04d}_00" for i in range(5)])
+    for split in ("train", "val"):
+        save_scan_cache(os.path.join(root, f"{split}_v3scans.pkl"), split,
+                        root, num_workers=1, keep_points=1024)
+    return root
+
+
 def _tester(tmp_path, **overrides):
     cfg = Config(**dict(CFG, log_dir=str(tmp_path / "log"), **overrides))
     return SyntheticTrainTester(cfg, device="cpu")
@@ -105,16 +134,37 @@ def _tester(tmp_path, **overrides):
 
 # ------------------------------------------------ (a) the evaluation epoch
 
-@pytest.fixture(scope="module")
-def epoch(tmp_path_factory):
+@pytest.fixture(scope="module", params=["synthetic", "scannet"])
+def epoch(request, tmp_path_factory):
     """10 scenes at B = 4 (two full batches and a tail of 2) through both
-    packages, with one set of weights."""
+    packages, with one set of weights: synthetic scenes, or sr3d+'s val
+    split of a ScanNet-format root (the JAX side on the JAX package's own
+    dataset and scans)."""
     tmp = tmp_path_factory.mktemp("epoch")
-    tester = _tester(tmp)
-    _, test_set = tester.get_datasets()
+    if request.param == "synthetic":
+        tester = _tester(tmp)
+        _, test_set = tester.get_datasets()
+        jkw = CFG
+    else:
+        root = _scannet_root(tmp)
+        jkw = dict(CFG, data_root=root, test_dataset="sr3d+")
+        tester = ScanNetTrainTester(Config(**dict(jkw, log_dir=str(
+            tmp / "log"))), device="cpu")
+        assert type(tester.get_datasets()[1].tokenizer).__name__ == \
+            "SimpleTokenizer"
+        meta = os.path.join(root, "meta_data")
+        with open(os.path.join(meta, "scannetv2_val.txt")) as f:
+            scan_ids = f.read().split()
+        test_set = JDataset(
+            dataset_dict={"sr3d": 1}, test_dataset="sr3d+", split="val",
+            data_path=root, use_color=True, butd_cls=True, max_text_len=12,
+            max_num_obj=8, max_det_boxes=8,
+            tokenizer=JTokenizer(vocab_size=1024, max_len=12),
+            scans=j_load_scans(scan_ids, os.path.join(root, "scans"), meta,
+                               num_workers=1, keep_points=1024))
 
-    jcfg = JConfig(**dict(CFG, log_dir=str(tmp / "jlog")))
-    jm = j_build_model(jcfg, roberta_config=JRobertaConfig(**ROBERTA),
+    jcfg = JConfig(**dict(jkw, log_dir=str(tmp / "jlog")))
+    jm = j_build_model(jcfg, roberta_config=JRobertaConfig(**tester.roberta),
                        backbone_npoints=NPOINTS)
     jloader = JDataLoader(test_set, batch_size=4, shuffle=False,
                           drop_last=False, seed=jcfg.rng_seed)
@@ -390,8 +440,6 @@ def test_loader_yields_the_jax_loaders_batches(kw):
             np.testing.assert_array_equal(g["draw"], w["draw"])
     if not kw["drop_last"]:
         assert "__valid__" in got[-1] and "__valid__" not in got[0]
-    with pytest.raises(NotImplementedError, match="Data"):
-        DataLoader(data, batch_size=4, num_workers=2)
 
 
 def test_synthetic_dataset_has_the_evaluators_extras():
@@ -447,11 +495,10 @@ def test_main_trains_saves_evaluates_and_resumes(tmp_path):
 
 def test_what_waits_for_its_slice_says_so(tmp_path):
     cfg = Config(**dict(CFG, log_dir=str(tmp_path / "log")))
-    with pytest.raises(NotImplementedError, match="Data"):
-        TrainTester(cfg, device="cpu").get_datasets()
     for kw, queue in ((dict(mp=2), "Distribution"),
                       (dict(profile_dir="p"), "rest of the surface"),
-                      (dict(use_bf16=True), "Precision")):
+                      (dict(use_bf16=True), "Precision"),
+                      (dict(use_multiview=True), "Data: multiview")):
         with pytest.raises(NotImplementedError, match=queue):
             TrainTester(dataclasses.replace(cfg, **kw), device="cpu")
     tester = _tester(tmp_path, test_dataset="scannet")
