@@ -17,6 +17,10 @@ Any flax path without a mapping raises KeyError naming it.
 tree shaped like the JAX parameters — a tree of gradients, say — so that a
 test can lay `jax.grad`'s result beside `param.grad` by parameter name.
 
+`load_text_init(path, model)` loads a text trunk saved under flax paths
+(`studies/attrib_r5/text_init.npz`, from `scripts/pretrain_text.py`) into
+`model.text_encoder` through the same map.
+
 The evaluation epoch (harness, evaluators, checkpoints) adds no parameter,
 so its tests move one set of weights across with this map unchanged.
 """
@@ -193,3 +197,46 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict
     return OrderedDict(
         (k, torch.from_numpy(np.array(v)))  # a writable copy
         for k, v in sorted(out.items()))
+
+
+def load_text_init(path: str, model) -> None:
+    """Load the text trunk of the npz at `path` (flax-path keys such as
+    `layer_0/attention/q_proj/kernel`, the tree of the JAX model's
+    `params["text_encoder"]`) into `model.text_encoder`, in place.
+
+    Shape-checked as the JAX package's loader
+    (`scripts/probe_common.py:load_text_init`): raises KeyError naming the
+    first key that is missing or has no place in the trunk, and ValueError
+    naming the first whose shape differs."""
+    data = np.load(path)
+    prefix = "text_encoder."
+    current = model.text_encoder.state_dict()
+    arrays, source = {}, {}
+    for key in sorted(data.files):
+        tree = node = {}
+        *parents, leaf = key.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = data[key]
+        try:
+            ((name, arr),) = named_arrays_from_jax(
+                {"text_encoder": tree}).items()
+        except KeyError:  # a flax path the converter does not know
+            name, arr = "", None
+        name = name[len(prefix):]
+        if name not in current:
+            raise KeyError(f"text_init {path}: {key} has no place in the "
+                           f"text encoder")
+        arrays[name], source[name] = arr, key
+    missing = sorted(set(current) - set(arrays))
+    if missing:
+        raise KeyError(f"text_init {path}: no array for text_encoder."
+                       f"{missing[0]} ({len(missing)} missing)")
+    for name, arr in arrays.items():
+        if tuple(arr.shape) != tuple(current[name].shape):
+            raise ValueError(
+                f"text_init {path}: {source[name]} has shape "
+                f"{tuple(data[source[name]].shape)}, the text encoder's "
+                f"{name} {tuple(current[name].shape)}")
+    model.text_encoder.load_state_dict(
+        {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()})

@@ -48,6 +48,7 @@ from butd_detr_tpu_torch.data.synthetic import (
     SyntheticGroundingDataset,
     make_fake_scannet,
     make_rich_scannet,
+    make_trainval_root,
     synthetic_batch,
 )
 
@@ -74,6 +75,7 @@ __all__ = [
     "load_scans_parallel",
     "make_fake_scannet",
     "make_rich_scannet",
+    "make_trainval_root",
     "normalize_caption",
     "points2box",
     "read_label_mapping",

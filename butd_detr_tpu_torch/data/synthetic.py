@@ -16,6 +16,7 @@ files, in both packages.
 import json
 import os
 import os.path as osp
+import shutil
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -460,3 +461,32 @@ def make_rich_scannet(root: str, n_train: int = 96, n_val: int = 24,
     with open(osp.join(root, "cls_results.json"), "w") as f:
         json.dump(cls_results, f)
     return root
+
+
+def make_trainval_root(root: str) -> str:
+    """A shadow data root, `<root>_trainval`, whose test split lists the
+    TRAIN scans: every entry of `root` linked by its absolute path (a
+    relative target would resolve against the link's own directory),
+    `meta_data` copied with `sr3d_test_scans.txt` and
+    `scannetv2_val.txt` replaced by their train counterparts, and a
+    stale val scan cache removed. Made once; later calls return it."""
+    alt = root.rstrip("/") + "_trainval"
+    if osp.exists(osp.join(alt, "meta_data", "sr3d_test_scans.txt")):
+        return alt
+    os.makedirs(alt, exist_ok=True)
+    for name in os.listdir(root):
+        src = osp.join(root, name)
+        dst = osp.join(alt, name)
+        if name == "meta_data":
+            shutil.copytree(src, dst, dirs_exist_ok=True)
+        elif not osp.exists(dst):
+            os.symlink(osp.abspath(src), dst)
+    meta = osp.join(alt, "meta_data")
+    shutil.copy(osp.join(meta, "sr3d_train_scans.txt"),
+                osp.join(meta, "sr3d_test_scans.txt"))
+    shutil.copy(osp.join(meta, "scannetv2_train.txt"),
+                osp.join(meta, "scannetv2_val.txt"))
+    stale = osp.join(alt, "val_v3scans.pkl")
+    if osp.exists(stale) and not osp.islink(stale):
+        os.remove(stale)
+    return alt

@@ -11,7 +11,7 @@ from butd_detr_tpu_torch.lang.tokenizer import (
 )
 
 _ROBERTA = ("RobertaConfig", "RobertaModel", "roberta_base_config",
-            "tiny_roberta_config")
+            "small_text_roberta_config", "tiny_roberta_config")
 
 
 def __getattr__(name):

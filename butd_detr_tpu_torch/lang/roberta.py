@@ -43,6 +43,15 @@ def tiny_roberta_config(**kw) -> RobertaConfig:
     return RobertaConfig(**defaults)
 
 
+def small_text_roberta_config() -> RobertaConfig:
+    """The accuracy study's `--small_text` trunk: 4 layers x 128-d x 4
+    heads over SimpleTokenizer's hashed 1024 vocabulary, small enough to
+    train from scratch within a study of a few thousand steps (the JAX
+    package's `small_text_roberta_config`)."""
+    return tiny_roberta_config(hidden_size=128, num_hidden_layers=4,
+                               num_attention_heads=4, intermediate_size=256)
+
+
 def create_position_ids(input_ids: torch.Tensor, pad_token_id: int):
     mask = (input_ids != pad_token_id).long()
     return torch.cumsum(mask, dim=1) * mask + pad_token_id

@@ -104,9 +104,33 @@ the last line is printed:
    [0, 1], and the epochs' `epoch stats` lines give the launches (per step
    and per batch those of phases 6 and 7), the scenes/s, the share of the
    epoch spent waiting on the loader and the peak memory, printed beside
-   the card's name and power limit.
+   the card's name and power limit;
+9. the overfit probe: `scripts/overfit_probe_torch.py` with the JAX
+   package's jax_b12_nt32 invocation (12 fixed samples of a
+   `make_rich_scannet` root of 24 + 8 scenes at 20,000 points, 5,000
+   points a cloud, the 4-layer 128-d text tower started from
+   studies/attrib_r5/text_init.npz and trained, 32 queries, eos 0.02,
+   220 steps, a probe every 15) as a child process; each probe row is
+   printed beside the JAX row of the same step. Fails unless every value
+   is finite, `last_matched_ce` at step 220 is below 0.75 x its step-0
+   value, and every step and probe forward launched the worked-out counts
+   (a step: K1 4, K2 4, K3 43, K4 43, K5 13, K6 15, K7 4; a probe: K1 4,
+   K2 4, K3 43, K6 8, K7 4);
+10. a study resumed: `scripts/accuracy_study_torch.py` with the nt32
+   study's flags (studies/cls_r5_nt32/invocation.json) cut to the same 24
+   + 8 scenes and 2 epochs, evaluated each epoch, epoch 1 in one process
+   and epoch 2 in a second that `--resume`s its checkpoint. Fails unless
+   both exit 0, the history has rows at epochs 1 and 2 with the step
+   count continuing, every accuracy lies in [0, 1], every logged loss is
+   finite and every step and evaluation batch launched the counts of
+   phase 9 (the text at 128 tokens).
+Phase 2 also holds K1, K2, K6 and K7 bit-equal, and K3 and K4 within
+their bounds (p = 0 and 0.1, both modes), at the shapes of phases 9 and
+10: B = 12 at 5,000 points and B = 24 at 20,000, the small text tower's
+4 heads of Dh 32 at L 32 and 128 with key padding, 32 queries.
 
-Prints the `kernels` JSON line, the card's name and power limit, and last
+Prints the whole run's wall time, the `kernels` JSON line, the card's
+name and power limit, and last
 `{"ok": true, "device": {...}}`. `--report PATH` also writes a fuller JSON
 report (per-tier and per-shape times, latencies, the card-vs-CPU errors).
 """
@@ -1308,6 +1332,168 @@ def check_gathers(rows, groups, gen, batched):
     return g_row, gg_row
 
 
+# ------------------------------------------------------------- phase 2,
+# the accuracy study's shapes
+
+# the overfit probe (scripts/overfit_probe_torch.py, the JAX package's
+# jax_b12_nt32 invocation) and the nt32 study (studies/cls_r5_nt32)
+PROBE_FLAGS = ["--overfit", "12", "--steps", "220", "--probe_freq", "15",
+               "--num_points", "5000", "--small_text", "--text_init",
+               os.path.join("studies", "attrib_r5", "text_init.npz"),
+               "--eos_coef", "0.02", "--num_target", "32"]
+STUDY_FLAGS = ["--butd_cls", "--trainable_text", "--small_text",
+               "--text_init",
+               os.path.join("studies", "attrib_r5", "text_init.npz"),
+               "--eos_coef", "0.02", "--num_target", "32",
+               "--eval_train_split", "--joint_det", "--val_freq", "1",
+               "--lr_decay_epochs", "55", "70", "--num_points", "20000"]
+# the scenes both phases read: the study's 20,000-point scans, cut to
+# 24 train + 8 val scenes (the probe's 12 samples are the first scenes',
+# the same whatever the count)
+STUDY_SCENES = dict(n_train=24, n_val=8, objects_per_scan=5,
+                    points_per_scan=20_000)
+
+
+def study_configs():
+    """(name, Config, batch, points) of the probe and the study, as their
+    scripts build them."""
+    from butd_detr_tpu_torch.config import Config
+
+    common = dict(use_color=True, butd_cls=True, self_attend=True,
+                  use_soft_token_loss=True, use_contrastive_align=True,
+                  max_num_obj=16, max_det_boxes=16, max_text_len=32,
+                  num_target=32, eos_coef=0.02, freeze_text_encoder=False,
+                  text_encoder_lr=1e-4, lr=1e-4, lr_backbone=1e-3)
+    return [("probe", Config(batch_size=12, num_points=5000, **common),
+             12, 5000),
+            ("study", Config(batch_size=24, num_points=20000,
+                             joint_det=True, detect_intermediate=True,
+                             **common), 24, 20000)]
+
+
+def check_study_shapes(gen, seed):
+    """K1, K2, K6 and K7 bit-equal to their plain versions on the clouds
+    of the probe (B = 12, 5,000 points) and the study (B = 24, 20,000),
+    at every tier; K3 and K4 within their bounds at every attention shape
+    of those two models (the 4-layer, 128-d text tower: 4 heads, Dh 32, L
+    32 or 128 with key padding; 32 queries), p = 0 and 0.1, both modes."""
+    import numpy as np
+    import torch
+
+    from butd_detr_tpu_torch.lang import small_text_roberta_config
+    from butd_detr_tpu_torch.ops import (
+        attention,
+        attention_backward,
+        attention_backward_plain,
+        attention_plain,
+        ball_query_plain,
+        dropout_keep_mask,
+        furthest_point_sample,
+        furthest_point_sample_plain,
+        gather_rows,
+        gather_rows_plain,
+        group_rows_mlp_input,
+        group_rows_mlp_input_plain,
+    )
+
+    npoints = (2048, 1024, 512, 256)
+    roberta = small_text_roberta_config()
+    out = {}
+    for name, cfg, B, N in study_configs():
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(seed + N)
+        clouds = np.stack([make_scene(rng, n_points=N)[0] for _ in range(B)])
+        xyz = torch.from_numpy(clouds[..., :3].copy()).cuda()
+        tiers = sa_tiers(xyz, npoints, (0.2, 0.4, 0.8, 1.2), (64, 32, 16, 16))
+        paths = []
+        for t_xyz, new_xyz, npoint, r, ns in tiers:
+            check(torch.equal(furthest_point_sample(t_xyz, npoint),
+                              furthest_point_sample_plain(t_xyz, npoint)),
+                  f"{name}: FPS kernel != plain at B={B}, "
+                  f"N={t_xyz.shape[1]}")
+            paths.append(ball_query_tier(
+                r, ns, t_xyz, new_xyz,
+                ball_query_plain(r, ns, t_xyz, new_xyz))["path"])
+        rows, groups = forward_gathers(tiers, npoints, cfg, gen)
+        for gname, dtype, n, C, idx, per_batch, per_step in rows:
+            if not (per_batch or per_step):
+                continue
+            src = torch.randn(B, n, C, device="cuda", generator=gen).to(dtype)
+            check(torch.equal(_bits(gather_rows(src, idx)),
+                              _bits(gather_rows_plain(src, idx))),
+                  f"{name}: gather {gname} kernel != plain")
+        for gname, n, cf, idx, new_xyz, inv_r in groups:
+            i = int(gname[2]) - 1
+            feats = torch.randn(B, n, cf, device="cuda",
+                                generator=gen).to(torch.bfloat16)
+            src = tiers[i][0]
+            check(torch.equal(
+                _bits(group_rows_mlp_input(src, new_xyz, feats, idx, inv_r)),
+                _bits(group_rows_mlp_input_plain(src, new_xyz, feats, idx,
+                                                 inv_r))),
+                f"{name}: group_gather {gname} MLP input kernel != plain")
+        del tiers, rows, groups
+
+        shapes = attention_shapes(cfg, roberta, npoints)
+        worst = {True: 0.0, False: 0.0}
+        for sname, H, Lq, Lk, Dh, pad_kind, _ in shapes:
+            q, k, v, do = (torch.randn(B, L, H, Dh, device="cuda",
+                                       generator=gen).transpose(1, 2)
+                           for L in (Lq, Lk, Lk, Lq))
+            keys = torch.arange(Lk, device="cuda")[None].expand(B, -1)
+            pad = torch.zeros(B, Lk, dtype=torch.bool, device="cuda")
+            if pad_kind == "text":  # utterances of 4 to 12 words
+                pad = keys >= 6 + torch.arange(B, device="cuda")[:, None] % 9
+            elif pad_kind == "boxes":
+                pad = (keys >= 5).contiguous()  # 5 objects a scene
+            scale = Dh ** -0.5
+            for p in (0.0, 0.1):
+                keep = (dropout_keep_mask(seed, B, H, Lq, Lk, p,
+                                          device="cuda") if p else None)
+                for precise in (True, False):
+                    kw = dict(sm_scale=scale, dropout_p=p, precise=precise)
+                    got = attention(q, k, v, pad, seed=seed, **kw)
+                    want = attention_plain(q, k, v, pad, keep_mask=keep,
+                                           **kw)
+                    err = (got - want).abs().max().item()
+                    # bf16 mode: each entry of P may land one bf16 step
+                    # (2^-8 relative) away, so at most 2^-8 max|v| / (1 - p)
+                    # when a row has few keys (5 boxes) and P is large
+                    atol = 2e-5 if precise else (
+                        4e-3 + 2 ** -8 * v.abs().max().item() / (1 - p))
+                    check(torch.allclose(got, want, atol=atol,
+                                         rtol=1e-4 if precise else 4e-3),
+                          f"{name}: attention {sname} p={p} "
+                          f"precise={precise}: max err {err}")
+                    worst[precise] = max(worst[precise], err)
+                    grads = attention_backward(q, k, v, do, pad, seed=seed,
+                                               **kw)
+                    wants = attention_backward_plain(q, k, v, do, pad,
+                                                     keep_mask=keep, **kw)
+                    for what, g, w in zip("qkv", grads, wants):
+                        err = (g - w).abs().max().item()
+                        ok = (torch.allclose(g, w, atol=2e-5, rtol=1e-4)
+                              if precise else
+                              err <= 4e-3 + 4e-3 * w.abs().max().item())
+                        check(ok, f"{name}: attention backward {sname} "
+                                  f"d{what} p={p} precise={precise}: max "
+                                  f"err {err}")
+                        worst[precise] = max(worst[precise], err)
+            del q, k, v, do
+        out[name] = dict(batch=B, points=N, ball_query_paths=paths,
+                         attention_shapes=[s[:5] for s in shapes],
+                         attention_max_abs_err=worst[False],
+                         attention_max_abs_err_precise=worst[True],
+                         seconds=time.perf_counter() - t0)
+        log(f"  {name} shapes (B = {B}, {N} points; text tower 4 x 128, "
+            f"L {cfg.max_text_len}; 32 queries): fps, ball query "
+            f"({', '.join(paths)}), gathers and the MLP input bit-equal; "
+            f"attention forward and backward at {len(shapes)} shapes, "
+            f"p = 0 and 0.1, within bound (max err {worst[False]:.3g}, "
+            f"precise {worst[True]:.3g}); {out[name]['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------- phase 5
 
 def compare_gradients_card_cpu(args):
@@ -1406,11 +1592,12 @@ def attention_calls(cfg, roberta):
 
 def training_step_launches(cfg, roberta):
     """Launches of one training step: the forward's, the backward of every
-    attention call but the frozen text tower's, a scatter-add for each of
+    attention call but a frozen text tower's, a scatter-add for each of
     the model's 6 gathers and each loss prefix's matched-box gather."""
     att = attention_calls(cfg, roberta)
+    frozen = roberta.num_hidden_layers if cfg.freeze_text_encoder else 0
     return dict(TRAIN_LAUNCHES, attention=att,
-                attention_bwd=att - roberta.num_hidden_layers,
+                attention_bwd=att - frozen,
                 scatter=6 + cfg.num_decoder_layers + 1,
                 gather=FORWARD_LAUNCHES["gather"]
                 + cfg.num_decoder_layers + 1)
@@ -1795,6 +1982,175 @@ def train_and_evaluate_from_a_data_root(args, cfg, roberta, card):
                           for k in train["launches"]})
 
 
+# ------------------------------------------------------------- phases 9, 10
+
+def _finite_metrics(text, epoch):
+    """The loss values of every 'Train: [epoch][' line of a harness log;
+    fails on a non-finite one."""
+    import math
+
+    losses = []
+    for line in text.splitlines():
+        if f"Train: [{epoch}][" not in line:
+            continue
+        fields = line.split("] ", 2)[-1].split()
+        values = dict(zip(fields[::2], map(float, fields[1::2])))
+        check(all(math.isfinite(v) for v in values.values()),
+              f"non-finite training metrics: {line}")
+        losses.append(values["loss"])
+    return losses
+
+
+def overfit_probe(args, root, card):
+    """scripts/overfit_probe_torch.py as a child process with the JAX
+    package's jax_b12_nt32 invocation (12 fixed samples, 5,000 points, the
+    small text tower from text_init.npz, trainable; 32 queries, eos 0.02;
+    220 steps, a probe every 15). Every probe row is printed beside the
+    JAX row of the same step; fails unless every value is finite, the last
+    prefix's matched CE at step 220 is below 0.75 x its step-0 value, and
+    every training step and probe forward launched the worked-out
+    counts."""
+    import math
+    import tempfile
+
+    from butd_detr_tpu_torch.lang import small_text_roberta_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "probe")
+        t0 = time.perf_counter()
+        text = run_child(
+            [sys.executable, os.path.join("scripts", "overfit_probe_torch.py"),
+             "--data", root, "--out", out_dir, "--seed", str(args.seed),
+             *PROBE_FLAGS], 900, "overfit_probe_torch.py")
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "probe.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    summary = json.loads(text.strip().splitlines()[-1])
+    with open(os.path.join(ROOT, "studies", "attrib_r5", "jax_b12_nt32",
+                           "probe.jsonl")) as f:
+        jax_rows = {r["step"]: r for r in map(json.loads, f)}
+    steps = [r["step"] for r in rows]
+    check(steps == [*range(0, 220, 15), 220], f"probe steps {steps}")
+    check(all(math.isfinite(v) for r in rows for v in r.values()),
+          "a probe value is not finite")
+    first, last = rows[0]["last_matched_ce"], rows[-1]["last_matched_ce"]
+    keys = ("last_matched_ce", "last_eos_ce", "last_p_span",
+            "proposal_matched_ce", "last_acc")
+    for r in rows:
+        j = jax_rows.get(r["step"], {})
+        log(f"  step {r['step']:3d}: " + ", ".join(
+            f"{k} {r[k]:.3f} (JAX {j[k]:.3f})" if k in j else
+            f"{k} {r[k]:.3f}" for k in keys))
+    cfg, roberta = study_configs()[0][1], small_text_roberta_config()
+    per_step = training_step_launches(cfg, roberta)
+    per_probe = evaluation_batch_launches(cfg, roberta)
+    n_steps, n_probes = summary["steps"], summary["probes"]
+    for name, n in per_step.items():
+        check(summary["train_launches"][name] == n * n_steps,
+              f"probe: {name} launched {summary['train_launches'][name]} "
+              f"times in {n_steps} steps, expected {n} each")
+    for name, n in per_probe.items():
+        check(summary["probe_launches"][name] == n * n_probes,
+              f"probe: {name} launched {summary['probe_launches'][name]} "
+              f"times in {n_probes} probe forwards, expected {n} each")
+    check(summary["finite"], "the probe's last training metrics are not "
+          "finite")
+    check(last < 0.75 * first,
+          f"last_matched_ce {last} at step 220 is not below 0.75 x its "
+          f"step-0 value {first}")
+    log(f"  overfit_probe_torch.py ran {seconds:.1f} s: {n_steps} steps at "
+        f"B = 12, {summary['seconds_per_step'] * 1e3:.1f} ms a step; "
+        f"last_matched_ce {first:.3f} -> {last:.3f} (JAX "
+        f"{jax_rows[0]['last_matched_ce']} -> "
+        f"{jax_rows[220]['last_matched_ce']}); launches a step {per_step}, "
+        f"a probe {per_probe}; card {card}")
+    return dict(seconds=seconds, rows=rows, summary=summary,
+                per_step=per_step, per_probe=per_probe,
+                launches={k: summary["train_launches"][k]
+                          + summary["probe_launches"][k]
+                          for k in summary["train_launches"]})
+
+
+def study_with_resume(args, root, card):
+    """scripts/accuracy_study_torch.py with the nt32 study's flags, cut to
+    24 train and 8 val scenes and 2 epochs, evaluated each epoch: epoch 1
+    in one process, epoch 2 in a second that resumes its checkpoint.
+    Fails unless both exit 0, the history has rows at epochs 1 and 2 with
+    the step count continuing across the resume, every accuracy lies in
+    [0, 1], every logged loss is finite, and every step and evaluation
+    batch launched the worked-out counts."""
+    import tempfile
+
+    from butd_detr_tpu_torch.lang import small_text_roberta_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "study")
+        os.makedirs(out_dir)
+        os.symlink(root, os.path.join(out_dir, "data"))
+        cmd = [sys.executable, os.path.join("scripts",
+                                            "accuracy_study_torch.py"),
+               "--out", out_dir, *STUDY_FLAGS,
+               "--n_train", str(STUDY_SCENES["n_train"]),
+               "--n_val", str(STUDY_SCENES["n_val"])]
+        seconds = []
+        for extra, what in ((["--epochs", "1"], "epoch 1"),
+                            (["--epochs", "2", "--resume", os.path.join(
+                                out_dir, "log", "ckpt_epoch_1.pth")],
+                             "epoch 2, resumed")):
+            t0 = time.perf_counter()
+            run_child(cmd + extra, 900, f"accuracy_study_torch.py ({what})")
+            seconds.append(time.perf_counter() - t0)
+        with open(os.path.join(out_dir, "history.jsonl")) as f:
+            history = [json.loads(line) for line in f]
+        with open(os.path.join(out_dir, "log", "log.txt")) as f:
+            text = f.read()
+
+    check([r["epoch"] for r in history] == [1, 1, 2, 2],
+          f"history epochs {[r['epoch'] for r in history]}")
+    s1, s2 = history[0]["step"], history[2]["step"]
+    check(s1 > 0 and s2 == 2 * s1 and history[1]["step"] == s1
+          and history[3]["step"] == s2,
+          f"history steps {[r['step'] for r in history]}")
+    accs = [v for r in history for k, v in r.items() if k.startswith("acc")]
+    check(len(accs) == 16 and all(0.0 <= v <= 1.0 for v in accs),
+          f"accuracies {accs}")
+    check("restored " in text and "start_epoch=2" in text,
+          "the second process did not resume epoch 1's checkpoint")
+    losses = _finite_metrics(text, 1) + _finite_metrics(text, 2)
+    check(len(losses) == 2 * (s1 // 10), f"{len(losses)} logged windows")
+    stats = [json.loads(line.split("epoch stats ", 1)[1])
+             for line in text.splitlines() if "epoch stats " in line]
+    check([x["phase"] for x in stats] == ["train", "eval", "eval"] * 2,
+          f"epochs run: {[x['phase'] for x in stats]}")
+    cfg, roberta = study_configs()[1][1], small_text_roberta_config()
+    per_step = training_step_launches(cfg, roberta)
+    per_batch = evaluation_batch_launches(cfg, roberta)
+    for x in stats:
+        per = per_step if x["phase"] == "train" else per_batch
+        for name, n in per.items():
+            check(x["launches"][name] == n * x["batches"],
+                  f"study {x['phase']} epoch {x['epoch']}: {name} launched "
+                  f"{x['launches'][name]} times in {x['batches']} batches, "
+                  f"expected {n} each")
+    trains = [x for x in stats if x["phase"] == "train"]
+    evals = [x for x in stats if x["phase"] == "eval"]
+    check(all(x["peak_memory_bytes"] is not None for x in stats),
+          "the study did not run on the card")
+    steps_ms = ", ".join(f"{t * 1e3:.0f}" for t in trains[1]["batch_seconds"])
+    log(f"  accuracy_study_torch.py: epoch 1 in {seconds[0]:.1f} s, epoch 2 "
+        f"(resumed) in {seconds[1]:.1f} s; {s1} steps an epoch at B = 24, "
+        f"steps {steps_ms} ms in epoch 2 ({trains[1]['scenes_per_second']:.2f} scenes/s, "
+        f"loader wait {trains[1]['loader_wait_share']:.1%}, peak "
+        f"{trains[1]['peak_memory_bytes'] / 1e9:.2f} GB); evaluation "
+        f"{evals[-1]['scenes_per_second']:.2f} scenes/s warm; history "
+        f"{history[2]}; launches a step {per_step}, a batch {per_batch}; "
+        f"card {card}")
+    return dict(seconds=seconds, history=history, losses=losses,
+                epochs=stats, per_step=per_step, per_batch=per_batch,
+                launches={k: sum(x["launches"][k] for x in stats)
+                          for k in stats[0]["launches"]})
+
+
 # ------------------------------------------------------------- phase 4
 
 def compare_card_cpu(args, roberta, npoints, scene, utterance):
@@ -1962,7 +2318,10 @@ def run(args):
         row["request_ms"] = one["ms"]
         row["request_shapes"] = one["shapes"]
     del train_tiers
+    log("  the accuracy study's shapes (phases 9 and 10)")
+    report["study_shapes"] = check_study_shapes(gen, args.seed)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     # 3. serving at full width
     log("== phase 3: serve requests at full width (butd_cls, SR3D)")
@@ -2050,6 +2409,25 @@ def run(args):
                                                         card)
     cli_launches = report["cli"]["launches"]
 
+    # 9, 10. the accuracy study: the overfit probe, a study resumed
+    import tempfile
+
+    from butd_detr_tpu_torch.data import make_rich_scannet
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        make_rich_scannet(root, **STUDY_SCENES)
+        log("== phase 9: overfit_probe_torch.py, the jax_b12_nt32 "
+            "invocation (220 steps at B = 12, 5,000 points, small text "
+            "tower from text_init.npz)")
+        report["probe"] = overfit_probe(args, root, card)
+        log("== phase 10: accuracy_study_torch.py, the nt32 study cut to "
+            f"{STUDY_SCENES['n_train']} + {STUDY_SCENES['n_val']} scenes "
+            "and 2 epochs, the second resumed in a new process")
+        report["study"] = study_with_resume(args, root, card)
+    probe_launches = report["probe"]["launches"]
+    study_launches = report["study"]["launches"]
+
     kernels = []
     replaces = {
         "fps": "butd_detr_tpu/ops/pallas_fps.py:142",
@@ -2070,16 +2448,21 @@ def run(args):
               f"{name}: not launched on the serving or evaluation path")
         check(cli_launches[name] > 0,
               f"{name}: not launched by train_torch.py")
+        check(probe_launches[name] > 0 and study_launches[name] > 0,
+              f"{name}: not launched by the overfit probe or the study")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"butd_detr_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": (launches[name] + train_launches[name]
-                         + eval_launches[name] + cli_launches[name]),
+                         + eval_launches[name] + cli_launches[name]
+                         + probe_launches[name] + study_launches[name]),
             "launches_serving": launches[name],
             "launches_training": train_launches[name],
             "launches_evaluation": eval_launches[name],
             "launches_cli": cli_launches[name],
+            "launches_probe": probe_launches[name],
+            "launches_study": study_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -2125,6 +2508,7 @@ def main(argv=None):
     ap.add_argument("--report", default=None,
                     help="also write the full JSON report to this path")
     args = ap.parse_args(argv)
+    t0 = time.perf_counter()
     if min(args.requests, args.train_steps, args.train_batch,
            args.eval_scenes) < 1:
         ap.error("--requests, --train-steps, --train-batch and "
@@ -2148,6 +2532,8 @@ def main(argv=None):
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    report["wall_seconds"] = time.perf_counter() - t0
+    log(f"chip_smoke: all phases passed in {report['wall_seconds']:.1f} s")
     card = card_name_and_limit()
     if not card:
         print("chip_smoke: nvidia-smi gave no card line", file=sys.stderr)
