@@ -13,8 +13,8 @@ from butd_detr_tpu_torch.losses.criterion import (
 )
 from butd_detr_tpu_torch.losses.matcher import (
     hungarian_match,
-    linear_sum_assignment_host,
     matcher_cost_matrix,
+    scipy_match_oracle,
 )
 
 __all__ = [
@@ -22,11 +22,11 @@ __all__ = [
     "compute_hungarian_loss",
     "compute_points_obj_cls_loss_hard_topk",
     "hungarian_match",
-    "linear_sum_assignment_host",
     "loss_boxes",
     "loss_contrastive_align",
     "loss_labels_st",
     "matcher_cost_matrix",
+    "scipy_match_oracle",
     "set_criterion_losses",
     "sigmoid_focal_loss",
 ]

@@ -6,6 +6,11 @@ models/losses.py:94-617): every loss is a masked tensor op over padded
 (B, G_max) targets. `num_boxes` is the one global count of valid targets
 of the batch. The matched predictions are gathered with the port's
 `gather_points`, so their gradient is the row scatter-add.
+
+Nothing crosses between host and device, so the loss never makes the host
+wait: the matching solves where the costs lie, and a value written through
+an index tensor is a tensor on the device (a Python number there is
+copied from the host, a synchronisation).
 """
 
 from typing import Dict, NamedTuple
@@ -53,7 +58,8 @@ def _matched_weight(b_ids, q_ids, num_queries, eos_coef):
     B = q_ids.shape[0]
     matched = torch.zeros(B, num_queries + 1, dtype=torch.bool,
                           device=q_ids.device)
-    matched[b_ids, q_ids] = True
+    matched[b_ids, q_ids] = torch.ones((), dtype=torch.bool,
+                                       device=q_ids.device)
     one = torch.ones((), device=q_ids.device)
     return torch.where(matched[:, :num_queries], one, eos_coef * one)
 
@@ -115,8 +121,9 @@ def loss_contrastive_align(proj_queries, proj_tokens, text_mask, positive_map,
     ar = torch.arange(B, device=dev)
     inds = text_mask.long().sum(dim=1) - 1  # (B,) last real token
     pm = torch.zeros(B, Q + 1, L, device=dev)
-    pm[ar, :, inds] = 0.5
-    pm[ar, :, inds - 1] = 0.5
+    half = torch.full((), 0.5, device=dev)
+    pm[ar, :, inds] = half
+    pm[ar, :, inds - 1] = half
     pm[:, Q] = 0.0
     # matched queries get their target's positive map rows
     b_ids, q_ids = _matched_rows(assignment, box_label_mask, Q)
@@ -126,7 +133,7 @@ def loss_contrastive_align(proj_queries, proj_tokens, text_mask, positive_map,
     qmask = _matched_weight(b_ids, q_ids, Q, eos_coef)
     # per-token weight: 1 for the eos token, eos_coef otherwise; 0 on pads
     tmask = torch.full((B, L), float(eos_coef), device=dev)
-    tmask[ar, inds] = 1.0
+    tmask[ar, inds] = torch.ones((), device=dev)
     tmask = tmask * tok_real
 
     pos_logits = torch.where(positive, -logits, torch.zeros_like(logits))
@@ -189,7 +196,8 @@ def compute_points_obj_cls_loss_hard_topk(end_points, topk: int):
     topk_inds = torch.where(box_label_mask[:, :, None] > 0, topk_inds,
                             torch.full_like(topk_inds, K)).reshape(B, -1)
     objectness_label = torch.zeros(B, K + 1, device=dev)
-    objectness_label[torch.arange(B, device=dev)[:, None], topk_inds] = 1.0
+    objectness_label[torch.arange(B, device=dev)[:, None], topk_inds] = \
+        torch.ones((), device=dev)
     objectness_label = objectness_label[:, :K].masked_fill(seed_is_bg, 0.0)
 
     cls_weights = torch.full((B, K), 1.0 / max(K, 1), device=dev)
@@ -238,7 +246,7 @@ def compute_hungarian_loss(end_points: Dict[str, torch.Tensor],
     compute_hungarian_loss): 8 * kps + (ce + 5 * bbox + giou + contrastive)
     / (layers + 1). Adds the per-prefix and summed losses to `end_points`
     and returns (loss, end_points). All prefixes' cost matrices are matched
-    in one call (one copy to the host)."""
+    in one call, on the device."""
     prefixes = prediction_prefixes(num_decoder_layers)
     targets = {
         "boxes": torch.cat([end_points["center_label"][:, :, :3],

@@ -1,24 +1,24 @@
-"""Hungarian matching: the cost matrices on the device, the assignment on
-the host.
+"""Hungarian matching, where the costs live.
 
-Counterpart of `butd_detr_tpu/losses/matcher.py`. The cost matrix is
-computed where the predictions live (`matcher_cost_matrix`, as
-matcher.py:154-189). The assignment is `scipy.optimize.
-linear_sum_assignment` on the host, on each matrix sliced to its valid
-targets, as the reference does (models/losses.py:318-324); all matrices of a
-call travel to the host in ONE copy. The JAX package solves the same problem
-on the device (a Jonker-Volgenant solver, matcher.py:33-141); both return
-the exact optimum and agree up to cost ties.
+Counterpart of `butd_detr_tpu/losses/matcher.py`. The cost matrices are
+computed where the predictions lie (`matcher_cost_matrix`, as
+matcher.py:154-189), and the assignment is solved there too, by the
+port's counterpart of the JAX package's on-device Jonker-Volgenant solver
+(`ops/assignment.py`: the kernel csrc/assignment.cu on the card, its plain
+version on the CPU). A call reads nothing back to the host. The reference
+solves on the host with scipy on each matrix sliced to its valid targets
+(models/losses.py:318-324); `scipy_match_oracle` is that path, kept for
+the tests. Both give the exact optimum and agree up to cost ties.
 """
 
 import numpy as np
 import torch
-from scipy.optimize import linear_sum_assignment
 
 from butd_detr_tpu_torch.losses.boxes import (
     box_cxcyczwhd_to_xyzxyz,
     generalized_box_iou3d,
 )
+from butd_detr_tpu_torch.ops.assignment import batched_linear_sum_assignment
 
 
 def matcher_cost_matrix(pred_logits, pred_boxes, positive_map, gt_boxes,
@@ -46,37 +46,35 @@ def matcher_cost_matrix(pred_logits, pred_boxes, positive_map, gt_boxes,
                        torch.zeros_like(cost))
 
 
-def linear_sum_assignment_host(cost_bqg: np.ndarray,
-                               n_valid: np.ndarray) -> np.ndarray:
-    """(B, Q, G) costs and (B,) valid-target counts -> (B, G) int64: the
-    query matched to each valid target, 0 for the padded ones (masked
-    downstream)."""
-    B, _, G = cost_bqg.shape
-    out = np.zeros((B, G), np.int64)
-    for b in range(B):
-        g = int(n_valid[b])
-        queries, targets = linear_sum_assignment(cost_bqg[b, :, :g])
-        out[b, targets] = queries
-    return out
-
-
 @torch.no_grad()
 def hungarian_match(pred_logits, pred_boxes, positive_map, gt_boxes,
                     box_label_mask, cost_class: float = 1.0,
                     cost_bbox: float = 0.0, cost_giou: float = 2.0,
                     tgt_labels=None) -> torch.Tensor:
     """(B, G) int64 on the predictions' device: the query matched to each
-    target. NaN costs (a diverged run) are mapped to large finite values so
-    that the solver still returns."""
+    target (0 for the padded ones, masked downstream). The solver maps NaN
+    and infinite costs (a diverged run) to finite ones, as the JAX matcher
+    does before it solves (matcher.py:207), so that it still returns."""
     cost = matcher_cost_matrix(pred_logits, pred_boxes, positive_map,
                                gt_boxes, box_label_mask, cost_class,
                                cost_bbox, cost_giou, tgt_labels)
-    cost = torch.nan_to_num(cost, nan=1e6, posinf=1e6, neginf=-1e6)
-    B = cost.shape[0]
-    n_valid = (box_label_mask > 0).sum(dim=-1).to(cost.dtype)
-    # one device-to-host copy: the costs with the counts appended
-    host = torch.cat([cost.reshape(B, -1), n_valid[:, None]], dim=1).cpu() \
-        .numpy()
-    assignment = linear_sum_assignment_host(
-        host[:, :-1].reshape(cost.shape), host[:, -1].astype(np.int64))
-    return torch.from_numpy(assignment).to(cost.device)
+    n_valid = (box_label_mask > 0).sum(dim=-1)
+    # rows = targets: a view, which the kernel reads as it lies
+    return batched_linear_sum_assignment(cost.transpose(1, 2),
+                                         n_valid).long()
+
+
+def scipy_match_oracle(cost_bqg, box_label_mask) -> np.ndarray:
+    """The reference's host path, for the tests: scipy on each (Q, G)
+    matrix sliced to its valid targets -> (B, G) int64, the query of each
+    valid target, -1 for the padded ones."""
+    from scipy.optimize import linear_sum_assignment
+
+    cost = np.asarray(cost_bqg)
+    mask = np.asarray(box_label_mask)
+    out = np.full(mask.shape, -1, np.int64)
+    for b in range(cost.shape[0]):
+        g = int((mask[b] > 0).sum())
+        queries, targets = linear_sum_assignment(cost[b, :, :g])
+        out[b, targets] = queries
+    return out

@@ -2,8 +2,13 @@
 kernels for FPS, ball query, attention (forward with dropout, backward),
 the row gathers (one payload, xyz and features under one index, or a
 set-abstraction tier's whole bf16 MLP input) and the row scatter-add behind
-the gathers' gradients."""
+the gathers' gradients, and the batched linear sum assignment behind the
+Hungarian matching."""
 
+from butd_detr_tpu_torch.ops.assignment import (
+    batched_linear_sum_assignment,
+    batched_linear_sum_assignment_plain,
+)
 from butd_detr_tpu_torch.ops.attention import (
     attention,
     attention_backward,
@@ -53,6 +58,8 @@ __all__ = [
     "ball_query",
     "ball_query_plain",
     "ball_query_stats",
+    "batched_linear_sum_assignment",
+    "batched_linear_sum_assignment_plain",
     "bf16_rn",
     "dropout_keep_mask",
     "dropout_keep_mask_plain",

@@ -62,6 +62,7 @@ KERNELS: Dict[str, list] = {
     "scatter": [],
     "gather": [],
     "group_gather": ["-fmad=false"],
+    "assignment": [],
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -111,6 +112,11 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _VP],
         "group_mlp_input_launch": [_I, _VP, _LL, _LL, _VP, _VP, _VP, _I, _VP,
                                    _I, _I, _I, _I, _I, _F, _VP],
+    },
+    "assignment": {
+        "assignment_launch": [_I, _VP, _LL, _LL, _LL, _VP, _I, _VP, _I, _I,
+                              _I, _VP],
+        "assignment_smem_bytes": [_I, _I],
     },
 }
 # The struct format of one 8-byte slot of each parameter type.

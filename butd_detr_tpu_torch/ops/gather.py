@@ -145,7 +145,7 @@ def index_operand(idx: torch.Tensor, device: int
     their own type (the kernels are instantiated for both, so no cast
     kernel runs), any other integer type is cast to int32; the result is
     contiguous and on CUDA device `device` (an index on the host is copied
-    there: `three_nn`'s callers or the matcher may hand one over)."""
+    there: `three_nn`'s callers may hand one over)."""
     dtype = idx.dtype
     if dtype is not torch.int64 and dtype is not torch.int32:
         if dtype.is_floating_point or dtype is torch.bool:

@@ -56,7 +56,15 @@ the last line is printed:
    concatenate, cast) and the same function from PyTorch operators
    (concatenate, torch.gather, subtract, scale, concatenate, cast), its
    bound counting the index, the centres and the distinct source rows
-   read once and the bf16 rows written once. Each is timed against
+   read once and the bf16 rows written once; the assignment kernel of the
+   loss's matching (K8, csrc/assignment.cu, no Pallas counterpart)
+   bit-equal to its plain version, run on the card and on the CPU, at
+   the matcher call of every path that takes one (56 x (132, 256) at
+   B = 8, 168 x (132, 256) at B = 24, 84 and 168 x (16, 32) in the probe
+   and the study; 132 valid rows), with NaN and infinite costs and with
+   every cost tied, its optimum scipy's within 1e-5 relative, timed
+   beside scipy on the host with both copies (the port's earlier path).
+   Each is timed against
    its plain version and a library yardstick
    the port never calls (scaled_dot_product_attention and autograd through
    it, index_add_, torch.gather and the concatenate-gather-cast);
@@ -64,7 +72,7 @@ the last line is printed:
    model (50k points, RoBERTa-base shape, 3 encoder + 6 decoder layers)
    with seeded random weights answers `--requests` synthetic requests; the
    launch counters must show 4 FPS, 4 ball-query, 51 attention, 8 row
-   gather and 4 grouped gather launches per request;
+   gather and 4 grouped gather launches per request, and no assignment;
 4. card vs CPU: one request again in f32 with the precise attention mode,
    on the card and with the plain versions on the CPU (same weights):
    integer end points equal (the kps order up to f32 near-ties, see
@@ -80,7 +88,9 @@ the last line is printed:
    steps on synthetic batches of `--train-batch` scenes: finite losses and
    gradient norm, the text tower unchanged, and per step 4 FPS, 4 ball
    query, 51 attention, 39 attention-backward, 13 scatter-add, 15 row
-   gather and 4 grouped gather launches; then one step taken twice from
+   gather, 4 grouped gather and 1 assignment launches; then one step's
+   `compute_hungarian_loss` under torch.cuda.set_sync_debug_mode("error"),
+   which fails on any synchronisation; then one step taken twice from
    the same state and generator, and the largest parameter difference
    printed (a number: library kernels may still add with atomics);
 7. evaluation: the weights of phase 6 are saved with `save_checkpoint`,
@@ -91,7 +101,10 @@ the last line is printed:
    saved ones, every batch launches 4 FPS, 4 ball query, 51 attention, 8
    row gather and 4 grouped gather kernels and no backward kernel, the
    evaluator counts every scene once per prefix and mode, and every
-   accuracy lies in [0, 1]. A second, warm epoch is timed (scenes/s);
+   accuracy lies in [0, 1]. A second, warm epoch is timed (scenes/s). A
+   third runs with scripts/train_test_det.sh's `--butd` in place of
+   `--butd_cls`, whose batches carry the loss: per batch also 7 row
+   gathers and 1 assignment;
 8. the command line, as a user starts it: `make_rich_scannet` writes a
    ScanNet-format root (8 train and 8 val scenes, 5 objects each, 60,000
    points a scan), `prepare_data_torch.py --num_workers 2` builds its scan
@@ -114,8 +127,8 @@ the last line is printed:
    printed beside the JAX row of the same step. Fails unless every value
    is finite, `last_matched_ce` at step 220 is below 0.75 x its step-0
    value, and every step and probe forward launched the worked-out counts
-   (a step: K1 4, K2 4, K3 43, K4 43, K5 13, K6 15, K7 4; a probe: K1 4,
-   K2 4, K3 43, K6 8, K7 4);
+   (a step: K1 4, K2 4, K3 43, K4 43, K5 13, K6 15, K7 4, K8 1; a probe:
+   K1 4, K2 4, K3 43, K6 8, K7 4);
 10. a study resumed: `scripts/accuracy_study_torch.py` with the nt32
    study's flags (studies/cls_r5_nt32/invocation.json) cut to the same 24
    + 8 scenes and 2 epochs, evaluated each epoch, epoch 1 in one process
@@ -1494,6 +1507,184 @@ def check_study_shapes(gen, seed):
     return out
 
 
+# ------------------------------------------------------------- phase 2,
+# the assignment
+
+# (name, matrices, targets G, queries Q, valid targets a matrix): the one
+# matcher call of a loss (7 prefixes x B scenes) on each path that takes
+# it. synthetic_batch gives 6 valid targets a scene; make_rich_scannet's
+# rows 1 (sr3d) to 5 (a detection prompt over its 5 objects).
+ASSIGNMENT_SHAPES = [
+    ("training", 7 * 8, 132, 256, (6,)),
+    ("cli", 7 * 24, 132, 256, (1, 2, 3, 4, 5)),
+    ("probe", 7 * 12, 16, 32, (1, 2, 3, 4, 5)),
+    ("study", 7 * 24, 16, 32, (1, 2, 3, 4, 5)),
+    ("full", 7 * 8, 132, 256, (132,)),
+]
+
+
+def matcher_costs(gen, M, G, Q, n_valid):
+    """The transposed (M, G, Q) view of `matcher_cost_matrix` on random
+    predictions (M, Q) and targets (M, G), the first n_valid[m] valid:
+    the solver's input as `hungarian_match` hands it over."""
+    import torch
+
+    from butd_detr_tpu_torch.losses import matcher_cost_matrix
+
+    def boxes(n):
+        return torch.cat([torch.rand(M, n, 3, device="cuda",
+                                     generator=gen) * 3 + 1,
+                          torch.rand(M, n, 3, device="cuda",
+                                     generator=gen) * 0.5 + 0.2], -1)
+
+    mask = (torch.arange(G, device="cuda")[None] < n_valid[:, None]).float()
+    pmap = torch.zeros(M, G, 256, device="cuda")
+    start = torch.randint(1, 10, (M, G), device="cuda", generator=gen)
+    ar = torch.arange(M, device="cuda")[:, None]
+    gr = torch.arange(G, device="cuda")[None]
+    pmap[ar, gr, start] = 0.5
+    pmap[ar, gr, start + 1] = 0.5
+    logits = torch.randn(M, Q, 256, device="cuda", generator=gen)
+    cost = matcher_cost_matrix(logits, boxes(Q), pmap * mask[..., None],
+                               boxes(G), mask)
+    return cost.transpose(1, 2)
+
+
+def scipy_host_assignment(cost_mgq, n_valid):
+    """The port's earlier path, the yardstick: one copy of the costs and
+    counts to the host, scipy on each matrix's valid rows, the assignment
+    copied back to the device."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    M, G, Q = cost_mgq.shape
+    host = torch.cat([cost_mgq.reshape(M, -1),
+                      n_valid[:, None].float()], 1).cpu().numpy()
+    out = np.zeros((M, G), np.int64)
+    for m in range(M):
+        n = int(host[m, -1])
+        rows, cols = linear_sum_assignment(
+            host[m, :-1].reshape(G, Q)[:n])
+        out[m, rows] = cols
+    return torch.from_numpy(out).to(cost_mgq.device)
+
+
+def host_ms(fn, reps=5):
+    """The median host time of `fn` from a synchronized start to a
+    synchronized end."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def check_assignment(gen):
+    """The assignment kernel bit-equal to its plain version (run on the
+    card and on the CPU) at every path's shape (ASSIGNMENT_SHAPES), with
+    NaN and infinite costs and with every cost tied; its optimum equal to
+    scipy's within 1e-5 relative; timed beside the plain version, its
+    bound and scipy on the host with the copies (the port's earlier
+    path)."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from butd_detr_tpu_torch.ops import _cuda
+    from butd_detr_tpu_torch.ops.assignment import (
+        batched_linear_sum_assignment as solve,
+        batched_linear_sum_assignment_plain as solve_plain,
+    )
+
+    lib = _cuda.lib("assignment")
+    cases = []
+    for name, M, G, Q, counts in ASSIGNMENT_SHAPES:
+        pick = torch.randint(0, len(counts), (M,), device="cuda",
+                             generator=gen)
+        n_valid = torch.tensor(counts, device="cuda")[pick]
+        cases.append((name, matcher_costs(gen, M, G, Q, n_valid), n_valid))
+    M, G, Q = 56, 132, 256
+    n_valid = torch.full((M,), 20, device="cuda")
+    nan = matcher_costs(gen, M, G, Q, n_valid).contiguous()
+    nan[0, 3] = float("nan")
+    nan[1, :, 7] = float("inf")
+    nan[2] = float("nan")
+    nan[3, 5, 9] = -float("inf")
+    cases.append(("nan", nan, n_valid))
+    cases.append(("all_tied", torch.full((4, G, Q), 0.5, device="cuda"),
+                  torch.tensor([G, 64, 1, 0], device="cuda")))
+
+    row = dict(name="assignment", max_abs_err=0, shapes={})
+    for name, cost, n_valid in cases:
+        M, G, Q = cost.shape
+        got = solve(cost, n_valid)
+        want = solve_plain(cost, n_valid)
+        check(torch.equal(got, want),
+              f"assignment {name}: kernel != plain on the card "
+              f"({int((got != want).sum())} of {got.numel()} rows)")
+        check(torch.equal(got.cpu(), solve_plain(cost.cpu(),
+                                                 n_valid.cpu())),
+              f"assignment {name}: kernel != plain on the CPU")
+        # scipy's optimum on the valid rows of the guarded costs
+        host = torch.nan_to_num(cost, nan=1e6, posinf=1e6,
+                                neginf=-1e6).double().cpu().numpy()
+        a = got.cpu().numpy()
+        worst = 0.0
+        for m, n in enumerate(n_valid.tolist()):
+            rows, cols = linear_sum_assignment(host[m, :n])
+            best = host[m, rows, cols].sum()
+            ours = host[m, np.arange(n), a[m, :n]].sum()
+            check(len(set(a[m, :n].tolist())) == n,
+                  f"assignment {name}: matrix {m} repeats a column")
+            worst = max(worst, abs(ours - best) / max(abs(best), 1e-30))
+        check(worst <= 1e-5, f"assignment {name}: optimum {worst:.3g} "
+                             "relative from scipy's")
+        smem = int(lib.assignment_smem_bytes(G, Q))
+        # the tile of min(G, Q) rows of Q + 1 costs fits, or each path
+        # step reads its row from device memory
+        entry = dict(matrices=M, targets=G, queries=Q,
+                     rows=int(n_valid.sum()), smem_bytes=smem,
+                     staged=smem >= min(G, Q) * (Q + 1) * 4,
+                     optimum_rel_err=worst)
+        if name in ("training", "cli", "probe", "study", "full"):
+            before = _cuda.LAUNCHES["assignment"]
+            entry["ms"] = time_ms(lambda: solve(cost, n_valid), 20)
+            check(_cuda.LAUNCHES["assignment"] == before + 21,
+                  f"assignment {name}: not one launch a call")
+            entry["plain_ms"] = time_ms(lambda: solve_plain(cost, n_valid),
+                                        1)
+            entry["library_ms"] = host_ms(
+                lambda: scipy_host_assignment(cost, n_valid))
+            # bytes: the valid rows' costs and the counts read once, the
+            # assignment written once; operations: at least one path step
+            # a row, 3 additions, a compare and a select a column
+            rows = entry["rows"]
+            entry["bound_ms"], entry["bound_by"] = bound_ms(
+                rows * Q * 4 + M * 8 + M * G * 4,
+                [(5 * rows * Q, F32_OPS_PER_S)])
+        row["shapes"][name] = entry
+        log(f"  assignment {name}: {M} x ({G}, {Q}), {entry['rows']} rows "
+            f"solved, bit-equal (card and CPU), optimum within "
+            f"{worst:.2g} of scipy's" + (
+                f"; {entry['ms']:.3f} ms (plain {entry['plain_ms']:.1f}, "
+                f"bound {entry['bound_ms']:.5f}, scipy on the host with the "
+                f"copies {entry['library_ms']:.2f}); {entry['smem_bytes']} "
+                f"B of shared memory" if "ms" in entry else ""))
+    main = row["shapes"]["training"]
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+        row[k] = main[k]
+    for name in ("cli", "probe", "study"):
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            row[f"{k}_{name}"] = row["shapes"][name][k]
+    return row
+
+
 # ------------------------------------------------------------- phase 5
 
 def compare_gradients_card_cpu(args):
@@ -1593,19 +1784,57 @@ def attention_calls(cfg, roberta):
 def training_step_launches(cfg, roberta):
     """Launches of one training step: the forward's, the backward of every
     attention call but a frozen text tower's, a scatter-add for each of
-    the model's 6 gathers and each loss prefix's matched-box gather."""
+    the model's 6 gathers and each loss prefix's matched-box gather, and
+    the loss's one assignment (all prefixes' matrices in one call)."""
     att = attention_calls(cfg, roberta)
     frozen = roberta.num_hidden_layers if cfg.freeze_text_encoder else 0
     return dict(TRAIN_LAUNCHES, attention=att,
                 attention_bwd=att - frozen,
                 scatter=6 + cfg.num_decoder_layers + 1,
                 gather=FORWARD_LAUNCHES["gather"]
-                + cfg.num_decoder_layers + 1)
+                + cfg.num_decoder_layers + 1, assignment=1)
 
 
-def evaluation_batch_launches(cfg, roberta):
+def evaluation_batch_launches(cfg, roberta, with_loss=False):
+    """Launches of one evaluation batch; with the loss (an evaluation
+    without butd_cls), also the loss's matched-box gathers and its
+    assignment."""
+    loss_gathers = cfg.num_decoder_layers + 1 if with_loss else 0
     return dict(FORWARD_LAUNCHES, attention=attention_calls(cfg, roberta),
-                attention_bwd=0, scatter=0)
+                attention_bwd=0, scatter=0,
+                gather=FORWARD_LAUNCHES["gather"] + loss_gathers,
+                assignment=int(with_loss))
+
+
+def loss_without_sync(trainer, batch):
+    """One step's `compute_hungarian_loss` (the trainer's loss, on the end
+    points of a train-mode forward) under
+    torch.cuda.set_sync_debug_mode("error"), so that any operation of the
+    loss that makes the host wait for the card raises: the matching
+    included. Returns the loss and the call's assignment launches."""
+    import math
+
+    import torch
+
+    from butd_detr_tpu_torch.ops import _cuda
+
+    end_points = trainer.forward(trainer.to_device(batch))
+    torch.cuda.synchronize()
+    before = _cuda.LAUNCHES["assignment"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = trainer.loss(end_points)
+    except RuntimeError as e:
+        raise SmokeFailure(f"compute_hungarian_loss synchronised: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launched = _cuda.LAUNCHES["assignment"] - before
+    value = float(loss.detach())
+    check(launched == 1, f"the loss launched {launched} assignments, not 1")
+    check(math.isfinite(value), f"the loss is {value}")
+    log(f"  compute_hungarian_loss under set_sync_debug_mode('error'): no "
+        f"synchronisation, loss {value:.3f}, {launched} assignment launch")
+    return dict(loss=value, assignment_launches=launched)
 
 
 def train_steps(args, cfg, roberta, npoints, batches):
@@ -1722,7 +1951,9 @@ def evaluation_epoch(args, cfg, roberta, npoints, trainer):
     """Save the trainer's weights, restore them into a fresh `TrainTester`
     and run `evaluate_one_epoch` over synthetic scenes through
     `TrainTester.main` (`--eval` with a checkpoint); then a second, warm
-    epoch for the time."""
+    epoch for the time; then a third with the evaluation flags of
+    scripts/train_test_det.sh (`--butd` in place of `--butd_cls`), whose
+    batches carry the loss, the matching included."""
     import dataclasses
     import tempfile
 
@@ -1790,10 +2021,28 @@ def evaluation_epoch(args, cfg, roberta, npoints, trainer):
         _, test_loader = tester.get_loaders()
         tester.evaluate_one_epoch(args.train_steps + 1, test_loader,
                                   restored)  # the warm, timed epoch
-    check(len(epochs) == 2, f"{len(epochs)} evaluation epochs ran, not 2")
+        det = SmokeTester(dataclasses.replace(
+            ecfg, butd_cls=False, butd=True,
+            log_dir=os.path.join(tmp, "log_det")), device="cuda")
+        _, det_loader = det.get_loaders()
+        det.evaluate_one_epoch(args.train_steps + 1, det_loader, restored)
+    check(len(epochs) == 3, f"{len(epochs)} evaluation epochs ran, not 3")
+    with_loss = epochs.pop()
+    per_batch_loss = evaluation_batch_launches(cfg, roberta, with_loss=True)
+    batches = -(-n // B)
+    for name, k in per_batch_loss.items():
+        check(with_loss["launches"][name] == k * batches,
+              f"{name}: {with_loss['launches'][name]} launches in {batches} "
+              f"evaluation batches with the loss, expected {k} each")
+    ev = with_loss.pop("evaluator")
+    check(type(ev).__name__ == "GroundingEvaluator"
+          and ev.gts[("last_", 0.25, 1, "bbf")] == n,
+          "the evaluation with the loss did not count every scene once")
+    log(f"  an epoch with the loss (train_test_det.sh's --butd): "
+        f"{with_loss['seconds'] * 1e3:.1f} ms, launches "
+        f"{with_loss['launches']}")
 
     per_batch = evaluation_batch_launches(cfg, roberta)
-    batches = -(-n // B)
     accuracies = {}
     for ep in epochs:
         check(ep["batches"] == batches, f"{ep['batches']} batches")
@@ -1824,7 +2073,10 @@ def evaluation_epoch(args, cfg, roberta, npoints, trainer):
                 first_epoch_seconds=first["seconds"],
                 warm_epoch_seconds=warm["seconds"], scenes_per_second=rate,
                 launches=warm["launches"], per_batch=per_batch,
-                accuracies=accuracies, checkpoint_bytes=size)
+                accuracies=accuracies, checkpoint_bytes=size,
+                with_loss=dict(seconds=with_loss["seconds"],
+                               launches=with_loss["launches"],
+                               per_batch=per_batch_loss))
 
 
 # ------------------------------------------------------------- phase 8
@@ -2320,6 +2572,8 @@ def run(args):
     del train_tiers
     log("  the accuracy study's shapes (phases 9 and 10)")
     report["study_shapes"] = check_study_shapes(gen, args.seed)
+    log("  the assignment of the loss's matching, at every path's shape")
+    as_row = check_assignment(gen)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -2350,7 +2604,8 @@ def run(args):
         lat.append((time.perf_counter() - t) * 1e3)
         outs.append(out)
     launches = dict(_cuda.LAUNCHES)
-    expect = dict(FORWARD_LAUNCHES, attention=attention_calls(cfg, roberta))
+    expect = dict(FORWARD_LAUNCHES, attention=attention_calls(cfg, roberta),
+                  assignment=0)
     for name, n in expect.items():
         check(launches[name] == n * args.requests,
               f"{name}: {launches[name]} launches for {args.requests} "
@@ -2390,13 +2645,16 @@ def run(args):
     report["training"], trainer = train_steps(args, cfg, roberta, npoints,
                                               batches)
     train_launches = report["training"]["launches"]
+    report["training"]["loss_without_sync"] = loss_without_sync(
+        trainer, batches[-1])
 
     # 7. an evaluation epoch at full width, from a checkpoint
     log(f"== phase 7: checkpoint round trip and an evaluation epoch of "
         f"{args.eval_scenes} scenes at full width, B={args.train_batch}")
     report["evaluation"] = evaluation_epoch(args, cfg, roberta, npoints,
                                             trainer)
-    eval_launches = report["evaluation"]["launches"]
+    eval_launches = {k: v + report["evaluation"]["with_loss"]["launches"][k]
+                     for k, v in report["evaluation"]["launches"].items()}
     del trainer
     torch.cuda.empty_cache()
 
@@ -2437,14 +2695,21 @@ def run(args):
         "scatter": "butd_detr_tpu/ops/pallas_scatter.py:108",
         "gather": "butd_detr_tpu/ops/pallas_scatter.py:198",
         "group_gather": "butd_detr_tpu/ops/pallas_window_gather.py:101",
+        # no Pallas kernel: the JAX package's solver is XLA's while_loop
+        "assignment": "butd_detr_tpu/losses/matcher.py:33",
     }
     backward_only = ("attention_bwd", "scatter")
-    for row in (fps_row, bq_row, att_row, bwd_row, sc_row, g_row, gg_row):
+    for row in (fps_row, bq_row, att_row, bwd_row, sc_row, g_row, gg_row,
+                as_row):
         name = row["name"]
         check(train_launches[name] > 0,
               f"{name}: not launched on the training path")
-        check(name in backward_only or (launches[name] > 0
-                                        and eval_launches[name] > 0),
+        if name == "assignment":  # the loss's: no request computes one
+            check(launches[name] == 0 and eval_launches[name] > 0,
+                  f"{name}: launched by a request, or not by the "
+                  "evaluation with the loss")
+        check(name in backward_only or name == "assignment"
+              or (launches[name] > 0 and eval_launches[name] > 0),
               f"{name}: not launched on the serving or evaluation path")
         check(cli_launches[name] > 0,
               f"{name}: not launched by train_torch.py")
@@ -2477,14 +2742,18 @@ def run(args):
                       "library_evaluation_ms", "paths", "candidates_tested",
                       "candidates_index_order_scan", "run_to_run",
                       "bit_equal_cpu", "chain_ms", "copy_ms", "copy_plain_ms",
-                      "copy_bound_ms", "copy_library_ms"):
+                      "copy_bound_ms", "copy_library_ms", "ms_cli",
+                      "plain_ms_cli", "library_ms_cli", "bound_ms_cli",
+                      "ms_probe", "plain_ms_probe", "library_ms_probe",
+                      "bound_ms_probe", "ms_study", "plain_ms_study",
+                      "library_ms_study", "bound_ms_study"):
             if extra in row:
                 kernels[-1][extra] = row[extra]
     report["kernels"] = kernels
     report["detail"] = {"fps": fps_row, "ball_query": bq_row,
                         "attention": att_row, "attention_bwd": bwd_row,
                         "scatter": sc_row, "gather": g_row,
-                        "group_gather": gg_row}
+                        "group_gather": gg_row, "assignment": as_row}
     return report
 
 

@@ -9,14 +9,15 @@ Builds the full-width SR3D butd_cls `Trainer` of butd_detr_tpu_torch on
 does), warms it up, then:
   * times `--steps` whole `train_step`s on the host clock (each ends in one
     copy of the metrics to the host);
-  * runs 3 more steps stage by stage (copy the batch in, forward, loss with
-    the host matcher, backward, clip + optimizer), the device synchronized
-    between stages: host ms per stage, and the matcher's share of the loss
-    stage (cost matrices, the copy to the host, scipy's solver, the copy
-    back);
+  * runs 3 more steps stage by stage (copy the batch in, forward, loss,
+    backward, clip + optimizer), the device synchronized between stages:
+    host ms per stage, and the matcher's host ms inside the loss stage
+    (`hungarian_match`: the cost matrices and the assignment kernel,
+    synchronized at both ends);
   * runs 3 such staged steps again under torch.profiler: device kernel ms
-    per stage by kernel group (the port's CUDA kernels, matrix products,
-    the rest), and the device's busy and idle share of a whole step.
+    per stage by kernel group (the port's CUDA kernels, the assignment
+    kernel among them, matrix products, the rest), and the device's busy
+    and idle share of a whole step.
 Prints one JSON object (also written to `--report PATH` when given) with
 the card's name and power limit. Needs one NVIDIA GPU.
 """
@@ -39,6 +40,7 @@ GROUPS = (
     ("scatter", "scatter_rows_add_"),
     ("group_gather", "group_gather_"),  # the copy and MLP-input kernels
     ("gather", "gather_rows_kernel"),
+    ("assignment", "assignment_kernel"),
     ("matmul", ("gemm", "sgemm", "cutlass", "gemv", "xmma", "nvjet")),
 )
 STAGES = ("to_device", "forward", "loss", "backward", "optimizer")
@@ -99,25 +101,18 @@ def main(argv=None):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
 
-    # the matcher's host time inside the loss stage, and scipy's inside it
-    clock = {"matcher": 0.0, "solver": 0.0}
+    # the matcher's host time inside the loss stage
+    matcher_ms = [0.0]
 
-    def timed(fn, key, sync):
-        def wrapper(*a, **kw):
-            if sync:
-                torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            if sync:
-                torch.cuda.synchronize()
-            clock[key] += (time.perf_counter() - t) * 1e3
-            return out
-        return wrapper
+    def timed_match(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = matcher.hungarian_match(*a, **kw)
+        torch.cuda.synchronize()
+        matcher_ms[0] += (time.perf_counter() - t) * 1e3
+        return out
 
-    criterion.hungarian_match = timed(matcher.hungarian_match, "matcher",
-                                      True)
-    matcher.linear_sum_assignment_host = timed(
-        matcher.linear_sum_assignment_host, "solver", False)
+    criterion.hungarian_match = timed_match
 
     host_ms = dict.fromkeys(STAGES, 0.0)
 
@@ -147,7 +142,7 @@ def main(argv=None):
     first = 2 + args.steps
     staged_ms = staged_steps(batches[first:first + n_prof])
     result_host = {s: v / n_prof for s, v in host_ms.items()}
-    result_clock = {k: v / n_prof for k, v in clock.items()}
+    matcher_ms_in_loss = matcher_ms[0] / n_prof
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = staged_steps(batches[first + n_prof:])
@@ -207,8 +202,8 @@ def main(argv=None):
         "staged_wall_ms_per_step": staged_ms,
         "staged_and_profiled_wall_ms_per_step": profiled_ms,
         "host_ms_by_stage": result_host,
-        "matcher_ms_in_loss": result_clock["matcher"],
-        "solver_ms_in_matcher": result_clock["solver"],
+        "matcher_ms_in_loss": matcher_ms_in_loss,
+        "assignment_device_ms": groups.get("assignment", 0.0),
         "device_ms_by_stage": {s: sum(v.values())
                                for s, v in by_stage.items()},
         "device_ms_by_stage_and_group": by_stage,

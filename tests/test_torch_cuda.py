@@ -15,7 +15,11 @@ made to break a grid; the scatter-add bit-equal to its plain version on
 the CPU and from run to run. The grouped gather's MLP-input kernel
 bit-equal to its plain version at the four set-abstraction tiers (B = 1
 and 8, int32 and int64 indices, special values, indices out of range) and
-at shapes whose tiles are not multiples of 16 bytes.
+at shapes whose tiles are not multiples of 16 bytes. The assignment
+kernel bit-equal to its plain version at the loss's shapes (the costs
+staged in shared memory, or read from device memory where they do not
+fit), with NaN costs, more valid rows than columns, int32 and int64
+counts, one launch a call and no synchronisation.
 """
 
 import os
@@ -27,6 +31,8 @@ import torch
 
 from butd_detr_tpu_torch.ops import (
     _cuda,
+    batched_linear_sum_assignment,
+    batched_linear_sum_assignment_plain,
     attention,
     attention_backward,
     attention_backward_plain,
@@ -765,3 +771,117 @@ def test_group_mlp_input_gradient_is_the_eager_chains(gpu):
     chain.to(torch.bfloat16).backward(ct.cpu())
     assert f.grad.dtype == torch.bfloat16
     assert torch.equal(_bits(f.grad.cpu()), _bits(fc.grad))
+
+
+# --------------------------------------------------------------- assignment
+
+@pytest.mark.parametrize("count_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("m,g,q,layout", [
+    (56, 132, 256, "view"),  # a training step's loss at B = 8
+    (84, 16, 32, "view"),  # the probe's: B = 12, 32 queries
+    (8, 300, 256, "view"),  # the tile does not fit: rows from memory
+    (6, 5, 1000, "contiguous"),  # 1000 threads a block
+    (5, 40, 32, "contiguous"),  # more valid rows than columns
+    (4, 132, 256, "contiguous"),
+])
+def test_assignment_kernel_bit_equal(gpu, count_dtype, m, g, q, layout):
+    rng = np.random.RandomState(m * g + q)
+    cost = torch.from_numpy(rng.rand(m, q, g).astype(np.float32))
+    cost[0, 1, 2] = float("nan")
+    cost[-1, :, 0] = float("inf")
+    cost = cost.transpose(1, 2)
+    if layout == "contiguous":
+        cost = cost.contiguous()
+    n_valid = torch.from_numpy(rng.randint(0, g + 1, m)).to(count_dtype)
+    n_valid[0] = g
+    want = batched_linear_sum_assignment_plain(cost, n_valid)
+    before = _cuda.LAUNCHES["assignment"]
+    got = batched_linear_sum_assignment(cost.to(gpu), n_valid.to(gpu))
+    assert _cuda.LAUNCHES["assignment"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+def test_assignment_kernel_ties_and_empty_matrices(gpu):
+    cost = torch.full((4, 132, 256), 0.5)
+    cost[1, :, 1::2] = 0.25
+    n_valid = torch.tensor([132, 77, 1, 0])
+    got = batched_linear_sum_assignment(cost.to(gpu), n_valid.to(gpu))
+    assert torch.equal(got.cpu(),
+                       batched_linear_sum_assignment_plain(cost, n_valid))
+    assert int(got[3].abs().max()) == 0
+
+
+def test_assignment_launches_one_kernel_and_never_syncs(gpu):
+    """The matcher's call: a transposed view and int64 counts, read as
+    they are (one kernel, no copy or cast), with no synchronisation."""
+    cost = torch.rand(56, 256, 132, device=gpu).transpose(1, 2)
+    n_valid = torch.full((56,), 6, device=gpu, dtype=torch.int64)
+    batched_linear_sum_assignment(cost, n_valid)  # built and loaded
+
+    def call():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            batched_linear_sum_assignment(cost, n_valid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    kernels = _cuda_kernels(call)
+    assert len(kernels) == 1 and "assignment_kernel" in kernels[0][0], \
+        kernels
+
+
+def test_assignment_refuses_what_the_kernel_does_not_take(gpu):
+    with pytest.raises(ValueError, match="1024"):
+        batched_linear_sum_assignment(torch.zeros(1, 2, 1025, device=gpu),
+                                      torch.ones(1, device=gpu,
+                                                 dtype=torch.int32))
+    with pytest.raises(ValueError, match="lies on"):
+        batched_linear_sum_assignment(torch.zeros(1, 2, 4, device=gpu),
+                                      torch.ones(1, dtype=torch.int32))
+
+
+def test_hungarian_loss_never_syncs(gpu):
+    """compute_hungarian_loss on the card (soft-token and label costs):
+    no operation makes the host wait, the matching included, and one
+    assignment launch for all prefixes."""
+    from butd_detr_tpu_torch.losses import (
+        CriterionConfig,
+        compute_hungarian_loss,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    B, Q, G, L, K, N, layers = 3, 24, 7, 14, 40, 200, 3
+    mask = (torch.arange(G)[None] < torch.tensor([[4], [7], [1]])).float()
+    text_mask = (torch.arange(L)[None] < torch.tensor([[9], [14], [6]]))
+    unit = lambda *s: torch.nn.functional.normalize(
+        torch.randn(*s, generator=g), dim=-1)
+    ep = {
+        "center_label": torch.rand(B, G, 3, generator=g) * 3,
+        "size_gts": torch.rand(B, G, 3, generator=g) * 0.5 + 0.2,
+        "sem_cls_label": torch.randint(0, 256, (B, G), generator=g),
+        "box_label_mask": mask,
+        "positive_map": torch.rand(B, G, 256, generator=g) * mask[..., None],
+        "text_mask": text_mask.int(),
+        "point_instance_label": torch.randint(-1, G, (B, N), generator=g),
+        "seed_inds": torch.randint(0, N, (B, K), generator=g),
+        "seed_xyz": torch.rand(B, K, 3, generator=g) * 3,
+        "seeds_obj_cls_logits": torch.randn(B, K, generator=g),
+        "proj_tokens": unit(B, L, 64),
+    }
+    for p in ["proposal_", "0head_", "1head_", "last_"]:
+        ep[p + "center"] = torch.rand(B, Q, 3, generator=g) * 3
+        ep[p + "pred_size"] = torch.rand(B, Q, 3, generator=g) * 0.6 + 0.1
+        ep[p + "sem_cls_scores"] = torch.randn(B, Q, 256, generator=g)
+        ep[p + "proj_queries"] = unit(B, Q, 64)
+    ep = {k: v.to(gpu) for k, v in ep.items()}
+    for soft_token in (True, False):
+        cfg = CriterionConfig(use_soft_token=soft_token)
+        compute_hungarian_loss(dict(ep), layers, cfg, 4)  # warm
+        torch.cuda.synchronize()
+        before = _cuda.LAUNCHES["assignment"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, _ = compute_hungarian_loss(dict(ep), layers, cfg, 4)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert _cuda.LAUNCHES["assignment"] == before + 1
+        assert torch.isfinite(loss).item()

@@ -247,8 +247,8 @@ def _seeded_end_points(seed, B=3, Q=24, G=7, L=14, K=40, N=200, layers=3):
 
 @pytest.mark.parametrize("soft_token", [True, False])
 def test_hungarian_loss_matches_the_jax_criterion(soft_token):
-    """The same assignment (scipy on the host against the JAX package's
-    on-device solver) and every loss to 1e-5, with the default config
+    """The same assignment (the port's solver against the JAX package's,
+    both on the CPU) and every loss to 1e-5, with the default config
     (pad tokens masked out of the contrastive normalizer)."""
     ep, layers = _seeded_end_points(3)
     jep = {k: jnp.asarray(v) for k, v in ep.items()}
