@@ -7,6 +7,9 @@ kernels on `cuda`), scores the queries against the phrase's token span —
 `bbs` (softmaxed soft-token scores) or `bbf` (contrastive query-token
 similarity) — and returns the top-k boxes (cxcyczwhd) with their scores.
 It runs on `cuda` unless the caller passes `device="cpu"`.
+`GroundingPredictor.from_checkpoint` loads the weights from a `.pth` file:
+the port's `ckpt_epoch_E.pth` (train/checkpoint.py) or a reference
+checkpoint (`predict_torch.py` is the command line).
 
 The host helpers `token_positive_map` and `MEAN_RGB` are the port's data
 pipeline's (data/positive_map.py, data/augment.py); the scorers
@@ -14,6 +17,8 @@ pipeline's (data/positive_map.py, data/augment.py); the scorers
 evaluators' (eval/grounding.py).
 """
 
+import argparse
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -139,6 +144,24 @@ class GroundingPredictor:
         else:
             load_state_dict(model, state_dict)
         self.model = model.to(self.device).eval()
+
+    @classmethod
+    def from_checkpoint(cls, cfg: Config, path: str, tokenizer=None, **kw
+                        ) -> "GroundingPredictor":
+        """The predictor with the weights of the `.pth` file at `path`: the
+        `model` entry of the port's `ckpt_epoch_E.pth` or of a reference
+        checkpoint (whose keys may carry a DDP `module.` prefix, and whose
+        `config` entry is an `argparse.Namespace`), or a bare state dict.
+        `kw` goes to the constructor (`roberta_config`, `backbone_npoints`,
+        `device`). A directory, which would be the JAX package's orbax
+        checkpoint, raises `ValueError`: it cannot be read without JAX."""
+        if os.path.isdir(path):
+            raise ValueError(
+                f"{path} is a directory (an orbax checkpoint of the JAX "
+                "package?); the port reads .pth files only")
+        with torch.serialization.safe_globals([argparse.Namespace]):
+            payload = torch.load(path, map_location="cpu", weights_only=True)
+        return cls(cfg, tokenizer, payload.get("model", payload), **kw)
 
     def _span_map(self, utterance: str, phrase: str) -> np.ndarray:
         """(1, 256) binarized token map of `phrase` inside `utterance`."""

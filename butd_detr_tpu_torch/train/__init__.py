@@ -6,7 +6,10 @@ from butd_detr_tpu_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from butd_detr_tpu_torch.train.harness import TrainTester
+from butd_detr_tpu_torch.train.harness import (
+    TrainTester,
+    detection_token_map,
+)
 from butd_detr_tpu_torch.train.optimizer import (
     clip_by_global_norm_,
     make_optimizer,
@@ -33,6 +36,7 @@ __all__ = [
     "build_model",
     "clip_by_global_norm_",
     "criterion_config",
+    "detection_token_map",
     "latest_checkpoint",
     "load_checkpoint",
     "make_optimizer",

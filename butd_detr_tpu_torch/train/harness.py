@@ -14,26 +14,40 @@ one `epoch stats` line of JSON: steps or batches, scenes/s, the share of
 the epoch spent waiting on the loader, the kernels launched and, on the
 card, the peak memory.
 
+With `--test_dataset scannet` the evaluation is detection mAP and AR at
+`--ap_iou_thresholds` on the fixed 18-class prompt, as the JAX harness's
+`evaluate_one_epoch_det`: contrastive scores projected onto the classes,
+NMS and VOC AP on the host (`eval/detection.py`, numpy).
+
 What waits for its slice raises `NotImplementedError` naming the ROADMAP
-queue: the detection evaluation for `test_dataset == "scannet"`
-("Evaluation: detection"), `--mp` and `--dp` above 1 ("Distribution"),
-`--use_bf16` ("Precision"), `--use_multiview` ("Data: multiview") and the
-profiler window ("The rest of the surface").
+queue: `--mp` and `--dp` above 1 ("Distribution"), `--use_bf16`
+("Precision"), `--use_multiview` ("Data: multiview") and the profiler
+window ("The rest of the surface").
 """
 
 import json
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from butd_detr_tpu_torch.config import Config
 from butd_detr_tpu_torch.data.joint_dataset import JointGroundingDataset
 from butd_detr_tpu_torch.data.loader import DataLoader
+from butd_detr_tpu_torch.data.positive_map import normalize_caption
+from butd_detr_tpu_torch.data.scannet_config import ScannetDatasetConfig
+from butd_detr_tpu_torch.eval.detection import (
+    APCalculator,
+    default_parse_config,
+    parse_groundtruths,
+    parse_predictions,
+)
 from butd_detr_tpu_torch.eval.grounding import (
     GroundingEvaluator,
     GroundingGTEvaluator,
+    _to_host,
 )
 from butd_detr_tpu_torch.lang.roberta import RobertaConfig, \
     roberta_base_config
@@ -66,6 +80,56 @@ EVALUATOR_KEYS = (
     "is_unique", "sem_cls_label", "box_label_mask", "center_label",
     "size_gts", "positive_map", "point_clouds",
 )
+# what the detection evaluation reads of a batch's end points: the
+# projection's features and the boxes of parse_predictions and
+# parse_groundtruths
+DETECTION_KEYS = (
+    "last_proj_queries", "proj_tokens", "last_center", "last_pred_size",
+    "center_label", "size_gts", "box_label_mask", "sem_cls_label",
+)
+
+DET18_PROMPT_NAMES = (
+    "cabinet", "bed", "chair", "couch", "table", "door",
+    "window", "bookshelf", "picture", "counter", "desk", "curtain",
+    "refrigerator", "shower curtain", "toilet", "sink", "bathtub",
+    "other furniture",
+)
+
+
+def detection_token_map(tokenizer) -> Tuple[np.ndarray, np.ndarray]:
+    """(wordidx, tokenidx): which token positions of the fixed 18-class
+    detection prompt vote for which class (18 = the classes, plus bin 0
+    for no-object). Computed from the tokenizer's char_to_token — for HF
+    RoBERTa this reproduces the reference's hardcoded tables
+    (train_dist_mod.py:206-218)."""
+    prompt = " . ".join(DET18_PROMPT_NAMES) + " . not mentioned"
+    caption = normalize_caption(prompt)
+    tok = tokenizer([caption], max_len=256)
+    wordidx, tokenidx = [], []
+    cursor = 0
+    for w, name in enumerate(list(DET18_PROMPT_NAMES) + ["not mentioned"]):
+        start = caption.index(name, cursor)
+        cursor = start + len(name)
+        toks = set()
+        for ci in range(start, start + len(name)):
+            t = tok.char_to_token(0, ci)
+            if t is not None:
+                toks.add(t)
+        for t in sorted(toks):
+            wordidx.append(0 if name == "not mentioned" else w + 1)
+            tokenidx.append(t)
+    return np.asarray(wordidx), np.asarray(tokenidx)
+
+
+def detection_inputs_to_host(end_points: Dict) -> Dict[str, np.ndarray]:
+    """The `DETECTION_KEYS` entries of one batch as numpy arrays: the
+    device's tensors in one copy (as f32, exact for their f32 values,
+    labels and masks), the host's as they are."""
+    on_device = {k: end_points[k] for k in DETECTION_KEYS
+                 if isinstance(end_points[k], torch.Tensor)}
+    host = {k: np.asarray(end_points[k]) for k in DETECTION_KEYS
+            if k not in on_device}
+    return dict(host, **(_to_host(on_device) if on_device else {}))
 
 
 class EpochMeter:
@@ -352,13 +416,12 @@ class TrainTester:
             yield batch, end_points
 
     def evaluate_one_epoch(self, epoch: int, test_loader, trainer: Trainer):
-        """Grounding evaluation (train_dist_mod.py:112-159); returns the
-        evaluator."""
+        """Grounding evaluation (train_dist_mod.py:112-159), or detection
+        evaluation when testing on scannet (:161-278); returns the
+        evaluator, or the detection metrics."""
         cfg = self.cfg
         if cfg.test_dataset == "scannet":
-            raise NotImplementedError(
-                "the detection evaluation (test_dataset 'scannet') is not "
-                "ported yet (ROADMAP queue 1, 'Evaluation: detection')")
+            return self.evaluate_one_epoch_det(epoch, test_loader, trainer)
         prefixes = self.prefixes()
         if cfg.butd_cls or cfg.butd_gt:
             evaluator = GroundingGTEvaluator(
@@ -379,5 +442,63 @@ class TrainTester:
             evaluator.print_stats()
         return evaluator
 
+    def evaluate_one_epoch_det(self, epoch: int, test_loader,
+                               trainer: Trainer) -> Dict[float, Dict]:
+        """Detection mAP on the scannet prompt (train_dist_mod.py:161-278):
+        contrastive scores -> 256-bin -> 19-class projection -> NMS -> AP,
+        at every `ap_iou_thresholds`. Returns {threshold: metrics}. The
+        `epoch stats` line adds `detection_seconds`, the host seconds of
+        the projection, NMS and AP, and `detection_copy_seconds`, those of
+        the end points' copy to the host, which waits for the batch's
+        forward pass."""
+        cfg = self.cfg
+        dc18 = ScannetDatasetConfig(18)
+        parse_cfg = default_parse_config(dataset_num_class=dc18.num_class)
+        wordidx, tokenidx = detection_token_map(
+            test_loader.dataset.tokenizer)
+        calculators = [APCalculator(t, dc18.class2type)
+                       for t in cfg.ap_iou_thresholds]
+        meter = EpochMeter(test_loader, self.device)
+        seconds = copy_seconds = 0.0
+        for _, end_points in self._eval_batches(meter, trainer):
+            t0 = time.perf_counter()
+            ep = detection_inputs_to_host(end_points)
+            t1 = time.perf_counter()
+            copy_seconds += t1 - t0
+            # contrastive similarities as 256-bin scores (a numpy
+            # division, as the JAX harness's)
+            sim = np.einsum(
+                "bqd,btd->bqt",
+                np.asarray(ep["last_proj_queries"], np.float32),
+                np.asarray(ep["proj_tokens"], np.float32)) / 0.07
+            scores = np.zeros(sim.shape[:2] + (256,), np.float32)
+            scores[:, :, :sim.shape[-1]] = sim
+            # token -> 19-class projection (bin 18 collects 'not mentioned')
+            sem = np.zeros(sim.shape[:2] + (19,), np.float32)
+            for w, t in zip(wordidx, tokenidx):
+                cls = 18 if w == 0 else w - 1
+                sem[..., cls] += scores[..., t]
+            ep["last_sem_cls_scores"] = sem
+            preds = parse_predictions(ep, parse_cfg, "last_")
+            gts = parse_groundtruths(ep)
+            for calc in calculators:
+                calc.step(preds, gts)
+            seconds += time.perf_counter() - t1
+        t0 = time.perf_counter()
+        results = {t: calc.compute_metrics()
+                   for t, calc in zip(cfg.ap_iou_thresholds, calculators)}
+        seconds += time.perf_counter() - t0
+        stats = meter.stats(
+            scenes=len(test_loader.dataset) // process_count())
+        self._log_epoch_stats("eval", epoch, dict(
+            stats, detection_seconds=seconds,
+            detection_copy_seconds=copy_seconds))
+        for t, metrics in results.items():
+            self.logger.info(f"=====> last_ IOU THRESH: {t} <=====")
+            self.logger.info(
+                f"mAP {metrics['mAP']:.4f} AR {metrics['AR']:.4f}")
+        return results
 
-__all__ = ["EVALUATOR_KEYS", "EpochMeter", "TrainTester"]
+
+__all__ = ["DET18_PROMPT_NAMES", "EVALUATOR_KEYS", "EpochMeter",
+           "TrainTester", "detection_token_map"]

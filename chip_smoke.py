@@ -76,7 +76,13 @@ the last line is printed:
 4. card vs CPU: one request again in f32 with the precise attention mode,
    on the card and with the plain versions on the CPU (same weights):
    integer end points equal (the kps order up to f32 near-ties, see
-   compare_card_cpu), floats within 1e-3 + 5e-3 * std;
+   compare_card_cpu), floats within 1e-3 + 5e-3 * std; then the same
+   request on the card in the default mode (bf16 backbone MLPs,
+   bf16-operand attention), held against that f32 CPU run with the same
+   near-tie protocol: backbone indices equal, every prefix's boxes
+   (centres, sizes) and scores (class scores, contrastive projections)
+   within 1e-2 + 2^-8 * max|CPU|, the largest error of each end-point
+   group printed;
 5. gradients, card vs CPU: the loss and every parameter's gradient of a
    small model (2 encoder + 2 decoder layers, 4096 points, 2 scenes; f32,
    precise attention, eval mode so that no dropout mask differs) computed
@@ -117,7 +123,18 @@ the last line is printed:
    [0, 1], and the epochs' `epoch stats` lines give the launches (per step
    and per batch those of phases 6 and 7), the scenes/s, the share of the
    epoch spent waiting on the loader and the peak memory, printed beside
-   the card's name and power limit;
+   the card's name and power limit. From the checkpoint it wrote, on the
+   same root: `predict_torch.py` grounds one request on a val scan as a
+   child process (its JSON parsed, its 10 boxes and scores finite; its
+   wall seconds) and again in this process through `predict_torch.main`
+   (the launch counts, a request's kernels, read around that call; the
+   child's answer), both equal to an in-process
+   `GroundingPredictor.from_checkpoint(...).predict` on the same scan,
+   and `train_torch.py --eval --test_dataset scannet --checkpoint_path`
+   runs the detection evaluation on the 18-class prompt over the 8 val
+   scenes (mAP and AR in [0, 1] at 0.25 and 0.5, an evaluation batch's
+   launches, the scenes/s, the projection/NMS/AP host seconds and the
+   end points' copy to the host printed);
 9. the overfit probe: `scripts/overfit_probe_torch.py` with the JAX
    package's jax_b12_nt32 invocation (12 fixed samples of a
    `make_rich_scannet` root of 24 + 8 scenes at 20,000 points, 5,000
@@ -2161,14 +2178,19 @@ def train_and_evaluate_from_a_data_root(args, cfg, roberta, card):
             text = f.read()
         checkpoints = sorted(n for n in os.listdir(log_dir)
                              if n.startswith("ckpt_epoch_"))
+        check(checkpoints == ["ckpt_epoch_1.pth"],
+              f"checkpoints written: {checkpoints}")
+        ckpt = os.path.join(log_dir, checkpoints[0])
+        grounding = ground_from_the_checkpoint(args, cfg, roberta, root,
+                                               ckpt)
+        detection = detection_epoch_from_the_checkpoint(
+            args, cfg, roberta, root, ckpt, os.path.join(tmp, "det_log"))
 
     stats = [json.loads(line.split("epoch stats ", 1)[1])
              for line in text.splitlines() if "epoch stats " in line]
     check([s["phase"] for s in stats] == ["train", "eval", "eval"],
           f"epochs run: {[s['phase'] for s in stats]}")
     train, evals = stats[0], stats[1:]
-    check(checkpoints == ["ckpt_epoch_1.pth"],
-          f"checkpoints written: {checkpoints}")
     steps = train["batches"]
     check(steps >= 1 and train["scenes"] == steps * 24,
           f"{steps} training steps for {train['scenes']} scenes")
@@ -2225,13 +2247,176 @@ def train_and_evaluate_from_a_data_root(args, cfg, roberta, card):
         f"card {card}")
     log("  accuracies " + ", ".join(f"{k} {v:.3f}"
                                     for k, v in accuracies.items()))
+    log(f"  predict_torch.py ran {grounding['cli_seconds']:.1f} s (the "
+        f"process, start to end); the same request in process "
+        f"{grounding['request_ms']:.1f} ms warm; top-10 scores "
+        f"{', '.join(f'{x:.3f}' for x in grounding['scores'])}; card "
+        f"{card}")
+    det = detection["stats"]
+    log(f"  detection evaluation (train_torch.py --eval --test_dataset "
+        f"scannet) ran {detection['seconds']:.1f} s: {det['scenes']} scenes "
+        f"in {det['batches']} batch(es), {det['scenes_per_second']:.2f} "
+        f"scenes/s over the epoch ({det['seconds']:.2f} s), of which the "
+        f"projection, NMS and AP {det['detection_seconds']:.3f} host s "
+        f"(the end points' copy to the host, which waits for the forward "
+        f"pass, {det['detection_copy_seconds']:.3f} s); "
+        + ", ".join(f"mAP@{t} {m['mAP']:.4f} AR@{t} {m['AR']:.4f}"
+                    for t, m in detection["metrics"].items())
+        + f"; card {card}")
+    launches = {k: train["launches"][k] + det["launches"][k]
+                + grounding["launches"][k]
+                + sum(e["launches"][k] for e in evals)
+                for k in train["launches"]}
     return dict(seconds=seconds, prepare_seconds=prepared, steps=steps,
                 losses=losses, train=train, evaluations=evals,
                 per_step=per_step, per_batch=per_batch,
-                accuracies=accuracies, card=card,
-                launches={k: train["launches"][k]
-                          + sum(e["launches"][k] for e in evals)
-                          for k in train["launches"]})
+                accuracies=accuracies, card=card, grounding=grounding,
+                detection=detection, launches=launches)
+
+
+# a request of the command line: one val scene of phase 8's root
+CLI_REQUEST = ("the chair next to the wooden table", "chair")
+
+
+def ground_from_the_checkpoint(args, cfg, roberta, root, ckpt):
+    """`predict_torch.py` as a user starts it, on one val scan of `root`
+    with the checkpoint `train_torch.py` wrote and its flags; its JSON
+    must parse and its 10 boxes and scores be finite (the child process
+    gives the command's wall seconds). The same command line then runs in
+    this process, `predict_torch.main(argv)`, with the launch counts set
+    to 0 just before and read just after: it must launch a request's
+    kernels (phase 3) and print the child's answer. Both must equal an
+    in-process `GroundingPredictor.from_checkpoint(...).predict` on the
+    same scan, which gives the warm request's ms."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from butd_detr_tpu_torch.config import parse_config
+    from butd_detr_tpu_torch.data.scan import Scan
+    from butd_detr_tpu_torch.lang import get_tokenizer
+    from butd_detr_tpu_torch.ops import _cuda
+    from butd_detr_tpu_torch.predict import GroundingPredictor
+
+    with open(os.path.join(root, "meta_data", "scannetv2_val.txt")) as f:
+        scan_id = f.read().split()[0]
+    utterance, phrase = CLI_REQUEST
+    argv = [*CLS_FLAGS, "--data_root", root, "--checkpoint_path", ckpt,
+            "--scan_id", scan_id, "--utterance", utterance,
+            "--phrase", phrase, "--top_k", "10"]
+    t0 = time.perf_counter()
+    out = run_child([sys.executable, "predict_torch.py", *argv], 300,
+                    "predict_torch.py")
+    cli_seconds = time.perf_counter() - t0
+    lines = [x for x in out.splitlines() if x.startswith("{")]
+    check(bool(lines), f"predict_torch.py printed no JSON:\n{out[-2000:]}")
+    answer = json.loads(lines[-1])
+    check([answer[k] for k in ("scan_id", "utterance", "phrase", "mode")]
+          == [scan_id, utterance, phrase, "bbf"],
+          f"predict_torch.py answered {lines[-1][:300]}")
+    boxes = np.asarray(answer["boxes_cxcyczwhd"], np.float64)
+    scores = np.asarray(answer["scores"], np.float64)
+    check(boxes.shape == (10, 6) and scores.shape == (10,)
+          and np.isfinite(boxes).all() and np.isfinite(scores).all(),
+          f"predict_torch.py: boxes {boxes.shape}, scores {scores.shape}, "
+          "or not finite")
+
+    # the entry point's own launches: its main, in this process
+    import predict_torch
+
+    pcfg = parse_config(CLS_FLAGS)
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with contextlib.redirect_stdout(printed):
+        predict_torch.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    expect = dict(FORWARD_LAUNCHES, attention=attention_calls(pcfg, roberta),
+                  assignment=0)
+    for name, n in expect.items():
+        check(launches[name] == n, f"predict_torch.main: {launches[name]} "
+              f"{name} launches, expected {n}")
+    check(json.loads(printed.getvalue().splitlines()[-1]) == answer,
+          "predict_torch.main in process answered otherwise than the "
+          f"child process: {printed.getvalue()[-300:]}")
+    torch.cuda.empty_cache()
+
+
+    pred = GroundingPredictor.from_checkpoint(
+        pcfg, ckpt, get_tokenizer(max_len=pcfg.max_text_len),
+        roberta_config=roberta, device="cuda")
+    scan = Scan(scan_id, os.path.join(root, "scans"),
+                meta_dir=os.path.join(root, "meta_data"))
+    cloud = np.concatenate([scan.orig_pc, scan.color], axis=1)
+
+    def request():
+        return pred.predict(cloud, utterance, phrase=phrase, top_k=10)
+
+    request()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = request()
+    request_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(boxes, want["boxes"].astype(np.float64))
+          and np.array_equal(scores, want["scores"].astype(np.float64)),
+          "predict_torch.py's boxes or scores differ from the in-process "
+          f"predictor's: {scores} vs {want['scores']}")
+    del pred
+    torch.cuda.empty_cache()
+    return dict(scan_id=scan_id, cli_seconds=cli_seconds,
+                request_ms=request_ms, scores=scores.tolist(),
+                launches=launches)
+
+
+def detection_epoch_from_the_checkpoint(args, cfg, roberta, root, ckpt,
+                                        log_dir):
+    """`train_torch.py --eval --test_dataset scannet --checkpoint_path`
+    with the checkpoint's flags: the detection evaluation on the 18-class
+    prompt over `root`'s val scenes. mAP and AR must lie in [0, 1] at
+    every `ap_iou_thresholds`, and every batch launch an evaluation
+    batch's kernels (phase 7, without the loss: `--butd_cls`)."""
+    flags = list(CLS_FLAGS)
+    flags[flags.index("--test_dataset") + 1] = "scannet"
+    t0 = time.perf_counter()
+    run_child([sys.executable, "train_torch.py", *flags, "--eval",
+               "--checkpoint_path", ckpt, "--num_workers", "4",
+               "--print_freq", "1", "--rng_seed", str(args.seed),
+               "--data_root", root, "--log_dir", log_dir], 600,
+              "train_torch.py --eval --test_dataset scannet")
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        text = f.read()
+    stats = [json.loads(line.split("epoch stats ", 1)[1])
+             for line in text.splitlines() if "epoch stats " in line]
+    check([s["phase"] for s in stats] == ["eval"],
+          f"detection evaluation: epochs run {[s['phase'] for s in stats]}")
+    stats = stats[0]
+    check(stats["scenes"] == CLI_SCENES["n_val"]
+          and stats["batches"] == -(-stats["scenes"] // 24),
+          f"detection evaluation: {stats['scenes']} scenes in "
+          f"{stats['batches']} batches")
+    per_batch = evaluation_batch_launches(cfg, roberta)
+    for name, n in per_batch.items():
+        check(stats["launches"][name] == n * stats["batches"],
+              f"detection evaluation: {stats['launches'][name]} {name} "
+              f"launches in {stats['batches']} batches, expected {n} each")
+    metrics, threshold = {}, None
+    for line in text.splitlines():
+        msg = line.split("INFO: ", 1)[-1]
+        if msg.startswith("=====> last_ IOU THRESH: "):
+            threshold = float(msg.split(": ", 1)[1].split()[0])
+        elif msg.startswith("mAP ") and threshold is not None:
+            fields = msg.split()
+            metrics[threshold] = dict(mAP=float(fields[1]),
+                                      AR=float(fields[3]))
+    check(sorted(metrics) == [0.25, 0.5],
+          f"detection evaluation: metrics at {sorted(metrics)}")
+    check(all(0.0 <= v <= 1.0 for m in metrics.values() for v in m.values()),
+          f"detection evaluation: mAP or AR outside [0, 1]: {metrics}")
+    return dict(seconds=seconds, stats=stats, metrics=metrics)
 
 
 # ------------------------------------------------------------- phases 9, 10
@@ -2405,6 +2590,55 @@ def study_with_resume(args, root, card):
 
 # ------------------------------------------------------------- phase 4
 
+# the default mode (bf16 backbone MLPs, bf16-operand K3) against the f32
+# CPU run, on the same queries: every float end point (the backbone's
+# features, the encoder's, the kps logits, every prefix's box centres and
+# sizes in metres and its class and contrastive scores) must lie within
+# 1e-2 + 2^-8 * max|CPU| (a bf16 rounding of the end point's largest
+# value, plus 1 cm / 0.01 of a score); a reduced-size CPU rehearsal
+# (8,192 points, 128 queries) gave at most 3.5e-3 on boxes and 4.5e-3 on
+# scores. The largest error of each group is logged.
+DEFAULT_MODE_GROUPS = {
+    "boxes": ("center", "pred_size"),
+    "scores": ("sem_cls_scores", "proj_queries"),
+}
+
+
+def default_mode_bound(want):
+    import numpy as np
+
+    return 1e-2 + 2.0 ** -8 * float(np.abs(want).max())
+
+
+def _group(key):
+    """The end-point group of `key`, for the default mode's log."""
+    for name, suffixes in DEFAULT_MODE_GROUPS.items():
+        if key.endswith(suffixes):
+            return name
+    if key.startswith(("sa", "fp2")):
+        return "backbone"
+    return "encoder" if key in ("seed_features", "text_feats",
+                                "text_memory", "proj_tokens",
+                                "seeds_obj_cls_logits") else "queries"
+
+
+def _near_tie_selection(card, logits_cpu):
+    """The card run's kps selection against the CPU's top k: (the card's
+    selection, ranks that differ, the largest CPU-logit gap at such a
+    rank, the logits' error). A rank may differ only where the CPU logits
+    lie within twice the logits' card-vs-CPU error."""
+    from butd_detr_tpu_torch.models import top_k_stable
+
+    logits_card = card["seeds_obj_cls_logits"]
+    inds_c = card["query_points_sample_inds"].long()
+    inds_p = top_k_stable(logits_cpu, inds_c.shape[1])
+    n_diff = int((inds_c != inds_p).sum())
+    logit_err = float((logits_card - logits_cpu).abs().max())
+    gap = float((logits_cpu.gather(1, inds_c)
+                 - logits_cpu.gather(1, inds_p)).abs().max())
+    return inds_c, n_diff, gap, logit_err
+
+
 def compare_card_cpu(args, roberta, npoints, scene, utterance):
     """One request in f32 with the precise attention mode, on the card
     (kernels) and on the CPU (plain versions), with the same seeded
@@ -2417,22 +2651,37 @@ def compare_card_cpu(args, roberta, npoints, scene, utterance):
     the selections are equal, or every rank where they differ holds CPU
     logits within twice the logits' measured card-vs-CPU error. The CPU
     decoder then runs on the card's selection, so every later end point is
-    compared on the same queries."""
+    compared on the same queries.
+
+    Then the same request on the card in the default mode (bf16 backbone
+    MLPs, bf16-operand K3; the same weights), held against the same f32
+    CPU run with the same near-tie protocol (the CPU decoder runs again,
+    on this run's selection; the kps logits are first held within the
+    bound below, so that a fault there cannot widen its own near-tie
+    tolerance): the integer end points of the backbone equal, every float
+    end point (backbone, encoder, queries, every prefix's boxes and
+    scores) within 1e-2 + 2^-8 * max|CPU| (`default_mode_bound`); the
+    largest error of every end-point group is logged."""
     import numpy as np
     import torch
 
     from butd_detr_tpu_torch.config import butd_cls_config
-    from butd_detr_tpu_torch.models import top_k_stable
     from butd_detr_tpu_torch.ops import _cuda
     from butd_detr_tpu_torch.predict import GroundingPredictor
 
     cfg32 = butd_cls_config(backbone_bf16=False, attn_precise=True)
+    cfg_default = butd_cls_config()
     cloud, boxes, cids = scene
     preds = {}
-    for dev in ("cuda", "cpu"):
-        preds[dev] = GroundingPredictor(cfg32, roberta_config=roberta,
-                                        backbone_npoints=npoints,
-                                        device=dev, seed=args.seed)
+    for name, cfg, dev in (("cuda", cfg32, "cuda"), ("cpu", cfg32, "cpu"),
+                           ("default", cfg_default, "cuda")):
+        preds[name] = GroundingPredictor(cfg, roberta_config=roberta,
+                                         backbone_npoints=npoints,
+                                         device=dev, seed=args.seed)
+    weights = preds["cuda"].model.state_dict()
+    check(all(torch.equal(v, weights[k]) for k, v in
+              preds["default"].model.state_dict().items()),
+          "the default-mode model's weights differ from the f32 model's")
     with torch.inference_mode():
         t = time.perf_counter()
         pc = preds["cuda"]
@@ -2448,49 +2697,92 @@ def compare_card_cpu(args, roberta, npoints, scene, utterance):
               f"{_cuda.LAUNCHES['group_gather']} grouped gathers, expected "
               f"{FORWARD_LAUNCHES['gather'] + 3} and 1")
         log(f"  card forward {time.perf_counter() - t:.1f} s")
+        pd = preds["default"]
+        _cuda.reset_launches()
+        default = pd.model(pd.make_inputs(cloud, utterance, boxes, cids))
+        default = {k: v.float().cpu() if v.is_floating_point() else v.cpu()
+                   for k, v in default.items()}
+        expect = dict(FORWARD_LAUNCHES,
+                      attention=attention_calls(cfg_default, roberta))
+        for name, n in expect.items():
+            check(_cuda.LAUNCHES[name] == n,
+                  f"default-mode request: {_cuda.LAUNCHES[name]} {name} "
+                  f"launches, expected {n}")
         t = time.perf_counter()
         pp = preds["cpu"]
-        cpu, detected = pp.model.encode(
+        encoded, detected = pp.model.encode(
             pp.make_inputs(cloud, utterance, boxes, cids))
-        logits_c = card["seeds_obj_cls_logits"]
-        logits_p = cpu["seeds_obj_cls_logits"]
-        inds_c = card["query_points_sample_inds"].long()
-        inds_p = top_k_stable(logits_p, cfg32.num_target)
-        n_diff = int((inds_c != inds_p).sum())
-        logit_err = float((logits_c - logits_p).abs().max())
-        gap = float((logits_p.gather(1, inds_c)
-                     - logits_p.gather(1, inds_p)).abs().max())
+        logits_p = encoded["seeds_obj_cls_logits"]
+        inds_c, n_diff, gap, logit_err = _near_tie_selection(card, logits_p)
         check(n_diff == 0 or gap <= 2 * logit_err,
               f"kps selection: {n_diff} ranks differ by up to {gap} in "
               f"logit, more than twice the logits' error {logit_err}")
-        cpu = pp.model.decode(cpu, detected, inds_c.to(torch.int32))
+        inds_d, d_diff, d_gap, d_logit_err = _near_tie_selection(
+            default, logits_p)
+        check(d_logit_err <= default_mode_bound(logits_p.numpy()),
+              f"default mode: seeds_obj_cls_logits err {d_logit_err} > "
+              f"{default_mode_bound(logits_p.numpy())}")
+        check(d_diff == 0 or d_gap <= 2 * d_logit_err,
+              f"default mode, kps selection: {d_diff} ranks differ by up to "
+              f"{d_gap} in logit, more than twice the logits' error "
+              f"{d_logit_err}")
+        cpu = pp.model.decode({k: v.clone() for k, v in encoded.items()},
+                              detected, inds_c.to(torch.int32))
+        cpu_d = pp.model.decode(encoded, detected, inds_d.to(torch.int32))
         log(f"  cpu forward {time.perf_counter() - t:.1f} s")
     del preds
     log(f"  kps selection: {n_diff} of {inds_c.numel()} ranks differ "
         f"(largest CPU-logit gap at a differing rank {gap:.3g}; logits' "
         f"card-vs-CPU error {logit_err:.3g})")
     worst, ints = [], []
-    for k, want in cpu.items():
+    for key, want in cpu.items():
         want = want.numpy()
-        got = card[k].numpy()
+        got = card[key].numpy()
         if want.dtype.kind in "iub":
-            if k != "query_points_sample_inds":
-                check(np.array_equal(got, want), f"card vs CPU: {k} differs")
-                ints.append(k)
+            if key != "query_points_sample_inds":
+                check(np.array_equal(got, want),
+                      f"card vs CPU: {key} differs")
+                ints.append(key)
             continue
-        check(np.isfinite(got).all(), f"card: {k} not finite")
+        check(np.isfinite(got).all(), f"card: {key} not finite")
         err = float(np.abs(got.astype(np.float64) - want).max())
         lim = 1e-3 + 5e-3 * float(np.std(want))
-        worst.append((err / lim, k, err, lim))
-        check(err <= lim, f"card vs CPU: {k} err {err} > {lim}")
+        worst.append((err / lim, key, err, lim))
+        check(err <= lim, f"card vs CPU: {key} err {err} > {lim}")
     worst.sort(reverse=True)
     log(f"  equal: {', '.join(ints)}; {len(worst)} float end points "
         f"within bound, worst {worst[0][1]} {worst[0][2]:.3g} <= "
         f"{worst[0][3]:.3g}")
+
+    # the default mode against the f32 CPU run, on its own selection
+    groups = {}
+    for key, want in cpu_d.items():
+        want = want.numpy()
+        got = default[key].numpy()
+        if want.dtype.kind in "iub":
+            if key.startswith(("sa", "fp2", "seed_inds")):
+                check(np.array_equal(got, want),
+                      f"default mode vs CPU: {key} differs")
+            continue
+        check(np.isfinite(got).all(), f"default mode: {key} not finite")
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        lim = default_mode_bound(want)
+        name = _group(key)
+        check(err <= lim, f"default mode vs CPU: {key} err {err} > {lim}")
+        if err / lim > groups.get(name, {}).get("ratio", -1.0):
+            groups[name] = dict(key=key, err=err, lim=lim, ratio=err / lim,
+                                max_abs=float(np.abs(want).max()))
+    log(f"  default mode: kps selection {d_diff} of {inds_d.numel()} ranks "
+        f"differ (largest CPU-logit gap {d_gap:.3g}; logits' error "
+        f"{d_logit_err:.3g}); largest error by group: " + "; ".join(
+            f"{name} {g['key']} {g['err']:.3g} (bound {g['lim']:.3g}, "
+            f"max|CPU| {g['max_abs']:.3g})" for name, g in groups.items()))
     return dict(kps_ranks_differing=n_diff, kps_gap=gap,
                 logit_err=logit_err, equal_ints=ints,
                 worst=[dict(key=k, err=e, lim=lm)
-                       for _, k, e, lm in worst[:5]])
+                       for _, k, e, lm in worst[:5]],
+                default_mode=dict(kps_ranks_differing=d_diff, kps_gap=d_gap,
+                                  logit_err=d_logit_err, groups=groups))
 
 
 # ------------------------------------------------------------- main
@@ -2628,8 +2920,9 @@ def run(args):
     del pred
     torch.cuda.empty_cache()
 
-    # 4. card vs CPU, f32 + precise, same weights
-    log("== phase 4: one request on the card and on the CPU (f32, precise)")
+    # 4. card vs CPU, f32 + precise, same weights; then the default mode
+    log("== phase 4: one request on the card and on the CPU (f32, precise), "
+        "and on the card in the default mode")
     report["card_vs_cpu"] = compare_card_cpu(args, roberta, npoints,
                                              scenes[0], REQUESTS[0][0])
     torch.cuda.empty_cache()
@@ -2660,7 +2953,8 @@ def run(args):
 
     # 8. train and evaluate from a data root through the CLI
     card = card_name_and_limit()
-    log("== phase 8: prepare_data_torch.py and train_torch.py on a "
+    log("== phase 8: prepare_data_torch.py, train_torch.py, predict_torch.py "
+        "and the detection evaluation on a "
         f"ScanNet-format root ({CLI_SCENES['points_per_scan']} points a "
         "scan), B=24, 4 loader workers")
     report["cli"] = train_and_evaluate_from_a_data_root(args, cfg, roberta,

@@ -501,9 +501,6 @@ def test_what_waits_for_its_slice_says_so(tmp_path):
                       (dict(use_multiview=True), "Data: multiview")):
         with pytest.raises(NotImplementedError, match=queue):
             TrainTester(dataclasses.replace(cfg, **kw), device="cpu")
-    tester = _tester(tmp_path, test_dataset="scannet")
-    with pytest.raises(NotImplementedError, match="detection"):
-        tester.evaluate_one_epoch(1, None, None)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TrainTester(cfg)

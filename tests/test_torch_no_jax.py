@@ -1,9 +1,14 @@
 """The port imports no JAX. In a fresh process, every module of
-`butd_detr_tpu_torch` (`train/study.py` included) or one of the port's
-study command lines (`scripts/*_torch.py` of the accuracy study) is
-imported; the process must then hold no module of `jax`, `flax`, the JAX
-package or the JAX package's study scripts (`scripts.probe_common`,
-`scripts.train_split_eval`)."""
+`butd_detr_tpu_torch` (`train/study.py` included), one of the port's
+study command lines (`scripts/*_torch.py` of the accuracy study) or one
+of its entry points at the repository's root (`predict_torch.py`,
+`train_torch.py`, `prepare_data_torch.py`, `chip_smoke.py`) is imported;
+an entry point's `main` (not `chip_smoke.py`'s, whose phases import the
+port lazily and which the package-wide case covers) then runs on
+arguments that stop it once it has imported what it needs (a data root
+that does not exist, no GPU). The process must then hold no module of
+`jax`, `flax`, the JAX package or the JAX package's study scripts
+(`scripts.probe_common`, `scripts.train_split_eval`)."""
 
 import os
 import subprocess
@@ -15,10 +20,18 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ("accuracy_study_torch.py", "overfit_probe_torch.py",
            "diag_grounding_torch.py")
+MISSING = "/nonexistent/data_root"
+ENTRY_POINTS = {
+    "predict_torch.py": ["--scan_id", "scene0000_00", "--utterance", "a",
+                         "--data_root", MISSING],
+    "train_torch.py": ["--data_root", MISSING, "--log_dir", "{tmp}/log"],
+    "prepare_data_torch.py": ["--data_root", MISSING, "--num_workers", "1"],
+}
 
 
-@pytest.mark.parametrize("what", ["butd_detr_tpu_torch", *SCRIPTS])
-def test_imports_no_jax(what):
+@pytest.mark.parametrize("what", ["butd_detr_tpu_torch", *SCRIPTS,
+                                  *ENTRY_POINTS, "chip_smoke.py"])
+def test_imports_no_jax(what, tmp_path):
     if what == "butd_detr_tpu_torch":
         load = textwrap.dedent("""
             import importlib, pkgutil
@@ -33,8 +46,20 @@ def test_imports_no_jax(what):
         load = textwrap.dedent(f"""
             import importlib.util
             spec = importlib.util.spec_from_file_location(
-                "cli", {os.path.join(ROOT, "scripts", what)!r})
-            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+                "cli", {os.path.join(ROOT, "scripts" if what in SCRIPTS
+                                     else "", what)!r})
+            cli = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(cli)
+            """)
+    if what in ENTRY_POINTS:
+        argv = [a.format(tmp=tmp_path) for a in ENTRY_POINTS[what]]
+        load += textwrap.dedent(f"""
+            import sys
+            sys.argv = [{what!r}, *{argv!r}]
+            try:
+                cli.main()
+            except (OSError, RuntimeError) as e:  # no data root, no GPU
+                print(type(e).__name__, e, file=sys.stderr)
             """)
     code = load + textwrap.dedent("""
         import sys
