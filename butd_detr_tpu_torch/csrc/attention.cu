@@ -29,14 +29,20 @@
 // written once): at the serving shapes a few microseconds. A small call
 // is bound by its wrapper's host time instead (tens of microseconds).
 //
-// Default mode (bf16 operands), attention_fwd_mma_kernel<DP, DROPOUT>:
+// Default mode (bf16 operands), attention_fwd_mma_kernel<DP, DROPOUT, T>:
 // both products are exactly bf16 x bf16 products with f32 accumulation and
 // run on the tensor cores (mma.sync.m16n8k16 from ldmatrix, mma.cuh). Grid
 // (Lq / 64, B * H), 4 warps x 16 query rows. q' = bf16(scale q) is loaded
 // once and kept in registers as mma A fragments. K and V pass in tiles of
-// 64 keys, double-buffered through cp.async f32 staging rounded to bf16 in
-// shared memory (4-byte copies where a row is not 16-byte aligned); the
-// head dimension is zero-padded to DP = 16/32/48/64. Walk 1 reads K only:
+// 64 keys, double-buffered. The operands' element type T is f32 or bf16
+// (the bf16 model's projections): f32 rows pass through cp.async f32
+// staging rounded to bf16 in shared memory (4-byte copies where a row is
+// not 16-byte aligned), bf16 rows are copied by cp.async straight into
+// their bf16 tile (8-byte copies; plain loads where a row is not 8-byte
+// aligned), and q' is rounded from f32(q) * scale either way, so bf16
+// operands give the bits of f32 operands holding the same values
+// (mma.cuh:TileLoad). The head dimension is zero-padded to DP =
+// 16/32/48/64. Walk 1 reads K only:
 // S = q'K^T, and each thread keeps an online row max and sum over its
 // columns, merged over the 4 threads of a row once, in a fixed order (two
 // runs are bit-equal). Walk 2 recomputes S, forms P = e^(s - m) / l, drops
@@ -66,11 +72,11 @@ namespace {
 
 // ============================================ default mode: tensor cores
 
-template <int DP, bool DROPOUT>
+template <int DP, bool DROPOUT, typename T>
 __global__ void __launch_bounds__(kMmaThreads)
-attention_fwd_mma_kernel(const float* __restrict__ q, Strides qs,
-                         const float* __restrict__ k, Strides ks,
-                         const float* __restrict__ v, Strides vs,
+attention_fwd_mma_kernel(const T* __restrict__ q, Strides qs,
+                         const T* __restrict__ k, Strides ks,
+                         const T* __restrict__ v, Strides vs,
                          const unsigned char* __restrict__ pad,
                          float* __restrict__ out, Strides os, int heads,
                          int lq, int lk, int dh, float scale, Dropout dr,
@@ -78,12 +84,13 @@ attention_fwd_mma_kernel(const float* __restrict__ q, Strides qs,
   constexpr int S = DP + 8;
   constexpr int KD = DP / 16;  // k steps over the head dimension
   constexpr int ND = DP / 8;   // n tiles over the head dimension
+  using Load = TileLoad<DP, T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* stage_k = reinterpret_cast<float*>(smem);
+  float* stage_k = reinterpret_cast<float*>(smem);  // f32 operands only
   float* stage_v = stage_k + kTile * DP;
   __nv_bfloat16 (*kv_s)[2][kTile * S] =  // [buf][K, V]
       reinterpret_cast<__nv_bfloat16 (*)[2][kTile * S]>(
-          stage_k + MmaSmem<DP>::kStage);
+          stage_k + MmaSmem<DP, T>::kStage);
   unsigned int (*keep_s)[16][kTile / 32] =  // a bit a key
       reinterpret_cast<unsigned int (*)[16][kTile / 32]>(kv_s + 2);
   unsigned char (*pad_s)[kTile] =
@@ -98,31 +105,32 @@ attention_fwd_mma_kernel(const float* __restrict__ q, Strides qs,
   const int warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
 
-  const float* qp = q + b * qs.b + h * qs.h;
-  const float* kp = k + b * ks.b + h * ks.h;
-  const float* vp = v + b * vs.b + h * vs.h;
+  const T* qp = q + b * qs.b + h * qs.h;
+  const T* kp = k + b * ks.b + h * ks.h;
+  const T* vp = v + b * vs.b + h * vs.h;
   const unsigned char* padp = pad ? pad + static_cast<long long>(b) * lk
                                   : nullptr;
 
   // q' = bf16(scale q) of the block's rows, through buffer 1, kept as A
   // fragments
-  TileCopy<DP>::issue(stage_k, qp, qs.l, q0, lq, dh, vec);
+  Load::issue(stage_k, kv_s[1][0], qp, qs.l, q0, lq, dh, vec);
   cp_async_wait_all();
-  TileCopy<DP>::convert(stage_k, kv_s[1][0], scale);
+  Load::land(stage_k, kv_s[1][0], scale);
   unsigned char pad_r = 0;
-  // the first walk reads only K; the second K and V
-  auto issue_kv = [&](int t0, bool with_v) {
-    TileCopy<DP>::issue(stage_k, kp, ks.l, t0, lk, dh, vec);
-    if (with_v) TileCopy<DP>::issue(stage_v, vp, vs.l, t0, lk, dh, vec);
+  // the first walk reads only K; the second K and V. A tile is issued
+  // towards buffer `buf` and lands there.
+  auto issue_kv = [&](int t0, int buf, bool with_v) {
+    Load::issue(stage_k, kv_s[buf][0], kp, ks.l, t0, lk, dh, vec);
+    if (with_v) Load::issue(stage_v, kv_s[buf][1], vp, vs.l, t0, lk, dh, vec);
     if (tid < kTile) pad_r = (padp && t0 + tid < lk) ? padp[t0 + tid] : 0;
   };
   auto land_kv = [&](int buf, bool with_v) {
     cp_async_wait_all();
-    TileCopy<DP>::convert(stage_k, kv_s[buf][0], 1.f);
-    if (with_v) TileCopy<DP>::convert(stage_v, kv_s[buf][1], 1.f);
+    Load::land(stage_k, kv_s[buf][0], 1.f);
+    if (with_v) Load::land(stage_v, kv_s[buf][1], 1.f);
     if (tid < kTile) pad_s[buf][tid] = pad_r;
   };
-  issue_kv(0, false);
+  issue_kv(0, 0, false);
   land_kv(0, false);
   __syncthreads();
   uint32_t qa[KD][4];
@@ -173,7 +181,7 @@ attention_fwd_mma_kernel(const float* __restrict__ q, Strides qs,
   for (int s = 0; s < n_tiles; ++s) {
     const int buf = s & 1;
     const bool last = s + 1 == n_tiles;  // then walk 2's first tile, with V
-    issue_kv(last ? 0 : (s + 1) * kTile, last);
+    issue_kv(last ? 0 : (s + 1) * kTile, buf ^ 1, last);
 #pragma unroll
     for (int c = 0; c < kTile / 16; ++c) {
       float sc[2][4];
@@ -214,7 +222,7 @@ attention_fwd_mma_kernel(const float* __restrict__ q, Strides qs,
   for (int s = 0; s < n_tiles; ++s) {
     const int buf = (n_tiles + s) & 1;
     const int t0 = s * kTile;
-    if (s + 1 < n_tiles) issue_kv(t0 + kTile, true);
+    if (s + 1 < n_tiles) issue_kv(t0 + kTile, buf ^ 1, true);
     if (DROPOUT) {
       // the keep bits of the warp's 16 rows x the tile's 64 keys: lane
       // (r, half) draws word `half` (keys 32 half ..) of row r, 8 groups
@@ -467,15 +475,15 @@ __global__ void attention_dropout_mask_kernel(unsigned char* __restrict__ keep,
   }
 }
 
-// The default mode's kernel for one padded head dimension.
-template <int DP, bool DROPOUT>
+// The default mode's kernel for one padded head dimension and operand type.
+template <int DP, bool DROPOUT, typename T>
 cudaError_t launch_mma(int device, dim3 grid, cudaStream_t st,
-                       const float* q, Strides qs, const float* k, Strides ks,
-                       const float* v, Strides vs, const unsigned char* pad,
+                       const void* q, Strides qs, const void* k, Strides ks,
+                       const void* v, Strides vs, const unsigned char* pad,
                        float* out, Strides os, int heads, int lq, int lk,
                        int dh, float scale, Dropout dr, bool vec) {
-  constexpr size_t smem = MmaSmem<DP>::kBytes;  // over the 48 KB default
-  auto kernel = attention_fwd_mma_kernel<DP, DROPOUT>;
+  constexpr size_t smem = MmaSmem<DP, T>::kBytes;  // over the 48 KB default
+  auto kernel = attention_fwd_mma_kernel<DP, DROPOUT, T>;
   // The limit is a property of a kernel on a device: set it once for this
   // instantiation on each device (a driver call on every launch would cost
   // more than a small launch itself).
@@ -488,8 +496,10 @@ cudaError_t launch_mma(int device, dim3 grid, cudaStream_t st,
     if (err != cudaSuccess) return err;
     if (known) smem_set[device] = true;
   }
-  kernel<<<grid, kMmaThreads, smem, st>>>(q, qs, k, ks, v, vs, pad, out, os,
-                                          heads, lq, lk, dh, scale, dr, vec);
+  kernel<<<grid, kMmaThreads, smem, st>>>(
+      static_cast<const T*>(q), qs, static_cast<const T*>(k), ks,
+      static_cast<const T*>(v), vs, pad, out, os, heads, lq, lk, dh, scale,
+      dr, vec);
   return cudaGetLastError();
 }
 
@@ -510,21 +520,24 @@ extern "C" int attention_dropout_mask_launch(int device, unsigned char* keep,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q, k, v, out: f32 (B, H, L, Dh) views with the given (batch, head, row)
-// strides and a unit-stride head dimension; pad: (B, Lk) bytes or null.
+// q, k, v: (B, H, L, Dh) views with the given (batch, head, row) strides
+// and a unit-stride head dimension, f32, or bf16 where `bf16` (the default
+// mode only); out: such an f32 view; pad: (B, Lk) bytes or null.
 // drop_thresh == 0 runs without dropout (the serving path); otherwise an
 // entry of the normalized P is kept iff its Philox bits >= drop_thresh and
 // scaled by inv_keep. `precise` picks the f32 mode, else the bf16-operand
 // mode.
 extern "C" int attention_fwd_launch(
-    int device, const float* q, long long qsb, long long qsh, long long qsl,
-    const float* k, long long ksb, long long ksh, long long ksl,
-    const float* v, long long vsb, long long vsh, long long vsl,
+    int device, const void* q, long long qsb, long long qsh, long long qsl,
+    const void* k, long long ksb, long long ksh, long long ksl,
+    const void* v, long long vsb, long long vsh, long long vsl,
     const unsigned char* pad, float* out, long long osb, long long osh,
     long long osl, int batch, int heads, int lq, int lk, int dh, float scale,
-    int precise, unsigned int drop_thresh, float inv_keep,
+    int precise, int bf16, unsigned int drop_thresh, float inv_keep,
     unsigned long long seed, void* stream) {
-  if (dh > kMaxD || dh < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dh > kMaxD || dh < 1 || (precise && bf16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const DeviceScope on(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl},
@@ -532,21 +545,29 @@ extern "C" int attention_fwd_launch(
   const Dropout dr{drop_thresh, inv_keep, seed};
   if (precise) {
     const dim3 grid((lq + kBlockQ - 1) / kBlockQ, batch * heads);
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
     if (drop_thresh) {
       attention_fwd_f32_kernel<true><<<grid, kWarps * 32, 0, st>>>(
-          q, qs, k, ks, v, vs, pad, out, os, heads, lq, lk, dh, scale, dr);
+          qf, qs, kf, ks, vf, vs, pad, out, os, heads, lq, lk, dh, scale, dr);
     } else {
       attention_fwd_f32_kernel<false><<<grid, kWarps * 32, 0, st>>>(
-          q, qs, k, ks, v, vs, pad, out, os, heads, lq, lk, dh, scale, dr);
+          qf, qs, kf, ks, vf, vs, pad, out, os, heads, lq, lk, dh, scale, dr);
     }
     return static_cast<int>(cudaGetLastError());
   }
   const dim3 grid((lq + kBlockRows - 1) / kBlockRows, batch * heads);
-  const bool vec = dh % 4 == 0 && aligned16(q, qsb, qsh, qsl) &&
-                   aligned16(k, ksb, ksh, ksl) && aligned16(v, vsb, vsh, vsl);
-#define BUTD_MMA(DP, DROPOUT)                                               \
-  launch_mma<DP, DROPOUT>(device, grid, st, q, qs, k, ks, v, vs, pad, out, \
-                          os, heads, lq, lk, dh, scale, dr, vec)
+  const auto rows_aligned = bf16 ? aligned8_bf16 : aligned16;
+  const bool vec = dh % 4 == 0 && rows_aligned(q, qsb, qsh, qsl) &&
+                   rows_aligned(k, ksb, ksh, ksl) &&
+                   rows_aligned(v, vsb, vsh, vsl);
+#define BUTD_MMA_T(DP, DROPOUT, T)                                         \
+  launch_mma<DP, DROPOUT, T>(device, grid, st, q, qs, k, ks, v, vs, pad,  \
+                             out, os, heads, lq, lk, dh, scale, dr, vec)
+#define BUTD_MMA(DP, DROPOUT)                                   \
+  (bf16 ? BUTD_MMA_T(DP, DROPOUT, __nv_bfloat16)                \
+        : BUTD_MMA_T(DP, DROPOUT, float))
 #define BUTD_MMA_DP(DP) \
   (drop_thresh ? BUTD_MMA(DP, true) : BUTD_MMA(DP, false))
   cudaError_t err;
@@ -558,18 +579,15 @@ extern "C" int attention_fwd_launch(
   }
 #undef BUTD_MMA_DP
 #undef BUTD_MMA
+#undef BUTD_MMA_T
   return static_cast<int>(err);
 }
 
 // Dynamic shared memory a block of the default mode's kernel takes at head
-// dimension `dh` (ptxas reports only static shared memory).
-extern "C" int attention_fwd_smem_bytes(int dh) {
-  switch (mma_depth(dh)) {
-    case 16: return static_cast<int>(MmaSmem<16>::kBytes);
-    case 32: return static_cast<int>(MmaSmem<32>::kBytes);
-    case 48: return static_cast<int>(MmaSmem<48>::kBytes);
-    default: return static_cast<int>(MmaSmem<64>::kBytes);
-  }
+// dimension `dh`, with f32 or (`bf16`) bf16 operands (ptxas reports only
+// static shared memory).
+extern "C" int attention_fwd_smem_bytes(int dh, int bf16) {
+  return static_cast<int>(mma_smem_bytes(dh, bf16));
 }
 
 BUTD_PACKED(attention_dropout_mask_launch)

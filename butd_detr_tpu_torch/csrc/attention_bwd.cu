@@ -50,7 +50,11 @@
 //      dK += dS^T q' and dV += (D o P)^T dO (FlashAttention-2's reuse): no
 //      trip through shared memory.
 //   The head dimension is zero-padded in shared memory to the mma depth
-//   (Dh 36 -> 48; the kernels are instantiated for 16, 32, 48, 64). Dropout
+//   (Dh 36 -> 48; the kernels are instantiated for 16, 32, 48, 64). Both
+//   kernels take q, k, v and dO as f32 or as bf16 (the bf16 model's
+//   operands, T): bf16 rows are copied into their bf16 tiles as they are,
+//   with no f32 staging (mma.cuh:TileLoad), and give the bits of f32 rows
+//   holding the same values. Dropout
 //   bits: the counter's groups of 4 keys do not line up with a fragment,
 //   where a thread holds 2 adjacent keys of 2 rows, so each warp stages its
 //   own rows' keep bits for the tile in shared memory, one Philox call per
@@ -79,13 +83,13 @@ namespace {
 
 // ------------------------------------------------------------------ dQ
 
-template <int DP, bool DROPOUT>
+template <int DP, bool DROPOUT, typename T>
 __global__ void __launch_bounds__(kMmaThreads)
-attention_bwd_dq_mma_kernel(const float* __restrict__ q, Strides qs,
-                            const float* __restrict__ k, Strides ks,
-                            const float* __restrict__ v, Strides vs,
+attention_bwd_dq_mma_kernel(const T* __restrict__ q, Strides qs,
+                            const T* __restrict__ k, Strides ks,
+                            const T* __restrict__ v, Strides vs,
                             const unsigned char* __restrict__ pad,
-                            const float* __restrict__ dout, Strides dos,
+                            const T* __restrict__ dout, Strides dos,
                             float* __restrict__ dq, Strides dqs,
                             float* __restrict__ stats,
                             unsigned int* __restrict__ keep_bits, int heads,
@@ -94,12 +98,13 @@ attention_bwd_dq_mma_kernel(const float* __restrict__ q, Strides qs,
   constexpr int S = DP + 8;
   constexpr int KD = DP / 16;  // k steps over the head dimension
   constexpr int ND = DP / 8;   // n tiles over the head dimension
+  using Load = TileLoad<DP, T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* stage_k = reinterpret_cast<float*>(smem);
+  float* stage_k = reinterpret_cast<float*>(smem);  // f32 operands only
   float* stage_v = stage_k + kTile * DP;
   __nv_bfloat16 (*kv_s)[2][kTile * S] =  // [buf][K, V]
       reinterpret_cast<__nv_bfloat16 (*)[2][kTile * S]>(
-          stage_k + MmaSmem<DP>::kStage);
+          stage_k + MmaSmem<DP, T>::kStage);
   unsigned int (*keep_s)[16][kTile / 32] =  // a bit a key
       reinterpret_cast<unsigned int (*)[16][kTile / 32]>(kv_s + 2);
   unsigned char (*pad_s)[kTile] =
@@ -114,10 +119,10 @@ attention_bwd_dq_mma_kernel(const float* __restrict__ q, Strides qs,
   const int warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
 
-  const float* qp = q + b * qs.b + h * qs.h;
-  const float* kp = k + b * ks.b + h * ks.h;
-  const float* vp = v + b * vs.b + h * vs.h;
-  const float* dop = dout + b * dos.b + h * dos.h;
+  const T* qp = q + b * qs.b + h * qs.h;
+  const T* kp = k + b * ks.b + h * ks.h;
+  const T* vp = v + b * vs.b + h * vs.h;
+  const T* dop = dout + b * dos.b + h * dos.h;
   const unsigned char* padp = pad ? pad + static_cast<long long>(b) * lk
                                   : nullptr;
   // the keep bits of the warp's rows: (B * H, Lq, words) 32-bit words
@@ -128,24 +133,25 @@ attention_bwd_dq_mma_kernel(const float* __restrict__ q, Strides qs,
               : nullptr;
 
   // q' and dO of the block's rows, through buffer 1, kept as A fragments
-  TileCopy<DP>::issue(stage_k, qp, qs.l, q0, lq, dh, vec);
-  TileCopy<DP>::issue(stage_v, dop, dos.l, q0, lq, dh, vec);
+  Load::issue(stage_k, kv_s[1][0], qp, qs.l, q0, lq, dh, vec);
+  Load::issue(stage_v, kv_s[1][1], dop, dos.l, q0, lq, dh, vec);
   cp_async_wait_all();
-  TileCopy<DP>::convert(stage_k, kv_s[1][0], scale);
-  TileCopy<DP>::convert(stage_v, kv_s[1][1], 1.f);
+  Load::land(stage_k, kv_s[1][0], scale);
+  Load::land(stage_v, kv_s[1][1], 1.f);
   unsigned char pad_r = 0;
-  auto issue_kv = [&](int t0) {
-    TileCopy<DP>::issue(stage_k, kp, ks.l, t0, lk, dh, vec);
-    TileCopy<DP>::issue(stage_v, vp, vs.l, t0, lk, dh, vec);
+  // a tile is issued towards buffer `buf` and lands there
+  auto issue_kv = [&](int t0, int buf) {
+    Load::issue(stage_k, kv_s[buf][0], kp, ks.l, t0, lk, dh, vec);
+    Load::issue(stage_v, kv_s[buf][1], vp, vs.l, t0, lk, dh, vec);
     if (tid < kTile) pad_r = (padp && t0 + tid < lk) ? padp[t0 + tid] : 0;
   };
   auto land_kv = [&](int buf) {
     cp_async_wait_all();
-    TileCopy<DP>::convert(stage_k, kv_s[buf][0], 1.f);
-    TileCopy<DP>::convert(stage_v, kv_s[buf][1], 1.f);
+    Load::land(stage_k, kv_s[buf][0], 1.f);
+    Load::land(stage_v, kv_s[buf][1], 1.f);
     if (tid < kTile) pad_s[buf][tid] = pad_r;
   };
-  issue_kv(0);
+  issue_kv(0, 0);
   land_kv(0);
   __syncthreads();
   uint32_t qa[KD][4], da[KD][4];
@@ -170,7 +176,7 @@ attention_bwd_dq_mma_kernel(const float* __restrict__ q, Strides qs,
     const int buf = s & 1;
     const bool second = s >= n_tiles;
     const int t0 = (second ? s - n_tiles : s) * kTile;
-    if (s + 1 < steps) issue_kv(((s + 1) % n_tiles) * kTile);
+    if (s + 1 < steps) issue_kv(((s + 1) % n_tiles) * kTile, buf ^ 1);
     if (s == n_tiles) {
       // merge the 4 threads of each row: max, then the rescaled sums
 #pragma unroll
@@ -321,13 +327,13 @@ attention_bwd_dq_mma_kernel(const float* __restrict__ q, Strides qs,
 
 // --------------------------------------------------------------- dK, dV
 
-template <int DP, bool DROPOUT>
+template <int DP, bool DROPOUT, typename T>
 __global__ void __launch_bounds__(kMmaThreads)
-attention_bwd_dkv_mma_kernel(const float* __restrict__ q, Strides qs,
-                             const float* __restrict__ k, Strides ks,
-                             const float* __restrict__ v, Strides vs,
+attention_bwd_dkv_mma_kernel(const T* __restrict__ q, Strides qs,
+                             const T* __restrict__ k, Strides ks,
+                             const T* __restrict__ v, Strides vs,
                              const unsigned char* __restrict__ pad,
-                             const float* __restrict__ dout, Strides dos,
+                             const T* __restrict__ dout, Strides dos,
                              const float* __restrict__ stats,
                              const unsigned int* __restrict__ keep_bits,
                              float* __restrict__ dk, Strides dks,
@@ -337,12 +343,13 @@ attention_bwd_dkv_mma_kernel(const float* __restrict__ q, Strides qs,
   constexpr int S = DP + 8;
   constexpr int KD = DP / 16;
   constexpr int ND = DP / 8;
+  using Load = TileLoad<DP, T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* stage_q = reinterpret_cast<float*>(smem);
+  float* stage_q = reinterpret_cast<float*>(smem);  // f32 operands only
   float* stage_d = stage_q + kTile * DP;
   __nv_bfloat16 (*qd_s)[2][kTile * S] =  // [buf][q', dO]
       reinterpret_cast<__nv_bfloat16 (*)[2][kTile * S]>(
-          stage_q + MmaSmem<DP>::kStage);
+          stage_q + MmaSmem<DP, T>::kStage);
   float (*st_s)[kTile][3] =  // max, 1 / sum, delta of a row
       reinterpret_cast<float (*)[kTile][3]>(qd_s + 2);
   unsigned short (*keep_s)[kTile] =  // the warp's 16 keys
@@ -357,22 +364,23 @@ attention_bwd_dkv_mma_kernel(const float* __restrict__ q, Strides qs,
   const int warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
 
-  const float* qp = q + b * qs.b + h * qs.h;
-  const float* kp = k + b * ks.b + h * ks.h;
-  const float* vp = v + b * vs.b + h * vs.h;
-  const float* dop = dout + b * dos.b + h * dos.h;
+  const T* qp = q + b * qs.b + h * qs.h;
+  const T* kp = k + b * ks.b + h * ks.h;
+  const T* vp = v + b * vs.b + h * vs.h;
+  const T* dop = dout + b * dos.b + h * dos.h;
   const float* stp = stats + static_cast<long long>(bh) * lq * 3;
 
   // K and V of the block's keys, through buffer 1, kept as A fragments
-  TileCopy<DP>::issue(stage_q, kp, ks.l, k0, lk, dh, vec);
-  TileCopy<DP>::issue(stage_d, vp, vs.l, k0, lk, dh, vec);
+  Load::issue(stage_q, qd_s[1][0], kp, ks.l, k0, lk, dh, vec);
+  Load::issue(stage_d, qd_s[1][1], vp, vs.l, k0, lk, dh, vec);
   cp_async_wait_all();
-  TileCopy<DP>::convert(stage_q, qd_s[1][0], 1.f);
-  TileCopy<DP>::convert(stage_d, qd_s[1][1], 1.f);
+  Load::land(stage_q, qd_s[1][0], 1.f);
+  Load::land(stage_d, qd_s[1][1], 1.f);
   float st_r[3] = {0.f, 0.f, 0.f};
-  auto issue_qd = [&](int i0) {
-    TileCopy<DP>::issue(stage_q, qp, qs.l, i0, lq, dh, vec);
-    TileCopy<DP>::issue(stage_d, dop, dos.l, i0, lq, dh, vec);
+  // a tile of rows is issued towards buffer `buf` and lands there
+  auto issue_qd = [&](int i0, int buf) {
+    Load::issue(stage_q, qd_s[buf][0], qp, qs.l, i0, lq, dh, vec);
+    Load::issue(stage_d, qd_s[buf][1], dop, dos.l, i0, lq, dh, vec);
     if (tid < kTile) {
       const int row = i0 + tid;
       if (row < lq) {
@@ -386,15 +394,15 @@ attention_bwd_dkv_mma_kernel(const float* __restrict__ q, Strides qs,
   };
   auto land_qd = [&](int buf) {
     cp_async_wait_all();
-    TileCopy<DP>::convert(stage_q, qd_s[buf][0], scale);
-    TileCopy<DP>::convert(stage_d, qd_s[buf][1], 1.f);
+    Load::land(stage_q, qd_s[buf][0], scale);
+    Load::land(stage_d, qd_s[buf][1], 1.f);
     if (tid < kTile) {
       st_s[buf][tid][0] = st_r[0];
       st_s[buf][tid][1] = st_r[1];
       st_s[buf][tid][2] = st_r[2];
     }
   };
-  issue_qd(0);
+  issue_qd(0, 0);
   land_qd(0);
   __syncthreads();
   uint32_t ka[KD][4], va[KD][4];
@@ -430,7 +438,7 @@ attention_bwd_dkv_mma_kernel(const float* __restrict__ q, Strides qs,
   for (int s = 0; s < n_tiles; ++s) {
     const int buf = s & 1;
     const int i0 = s * kTile;
-    if (s + 1 < n_tiles) issue_qd(i0 + kTile);
+    if (s + 1 < n_tiles) issue_qd(i0 + kTile, buf ^ 1);
     if (DROPOUT) {
       // the dQ kernel's keep bits of rows lane and lane + 32 of the tile
 #pragma unroll
@@ -890,19 +898,24 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q, Strides qs,
   }
 }
 
-// The default mode's two kernels for one padded head dimension.
-template <int DP, bool DROPOUT>
+// The default mode's two kernels for one padded head dimension and operand
+// type.
+template <int DP, bool DROPOUT, typename T>
 cudaError_t launch_mma(int device, dim3 grid_q, dim3 grid_k, cudaStream_t st,
-                       const float* q, Strides qs, const float* k, Strides ks,
-                       const float* v, Strides vs, const unsigned char* pad,
-                       const float* dout, Strides dos, float* dq, Strides dqs,
-                       float* dk, Strides dks, float* dv, Strides dvs,
-                       float* stats, unsigned int* keep_bits, int heads,
-                       int lq, int lk, int dh, float scale, Dropout dr,
-                       bool vec) {
-  constexpr size_t smem = MmaSmem<DP>::kBytes;  // over the 48 KB default
-  auto dq_kernel = attention_bwd_dq_mma_kernel<DP, DROPOUT>;
-  auto dkv_kernel = attention_bwd_dkv_mma_kernel<DP, DROPOUT>;
+                       const void* qv, Strides qs, const void* kv,
+                       Strides ks, const void* vv, Strides vs,
+                       const unsigned char* pad, const void* doutv,
+                       Strides dos, float* dq, Strides dqs, float* dk,
+                       Strides dks, float* dv, Strides dvs, float* stats,
+                       unsigned int* keep_bits, int heads, int lq, int lk,
+                       int dh, float scale, Dropout dr, bool vec) {
+  constexpr size_t smem = MmaSmem<DP, T>::kBytes;  // over the 48 KB default
+  auto dq_kernel = attention_bwd_dq_mma_kernel<DP, DROPOUT, T>;
+  auto dkv_kernel = attention_bwd_dkv_mma_kernel<DP, DROPOUT, T>;
+  const T* q = static_cast<const T*>(qv);
+  const T* k = static_cast<const T*>(kv);
+  const T* v = static_cast<const T*>(vv);
+  const T* dout = static_cast<const T*>(doutv);
   cudaError_t err;
   // The limit is a property of a kernel on a device: set it once for this
   // instantiation's two kernels on each device (a driver call on every
@@ -952,26 +965,30 @@ cudaError_t launch_f32(dim3 grid_q, dim3 grid_k, cudaStream_t st,
 
 }  // namespace
 
-// q, k, v, dout, dq, dk, dv: f32 (B, H, L, Dh) views with the given
-// (batch, head, row) strides and a unit-stride head dimension; pad: (B, Lk)
-// bytes or null; stats: (B * H, Lq, 3) f32 scratch; keep_bits: with dropout
-// in the default mode, (B * H, Lq, ceil(Lk / 32)) 32-bit scratch for the
-// mask, else null. drop_thresh == 0 runs without dropout. `precise` picks
-// the f32 mode, else the bf16-operand mode.
+// q, k, v, dout, dq, dk, dv: (B, H, L, Dh) views with the given (batch,
+// head, row) strides and a unit-stride head dimension; q, k, v and dout
+// f32, or bf16 where `bf16` (the default mode only), the gradients f32;
+// pad: (B, Lk) bytes or null; stats: (B * H, Lq, 3) f32 scratch;
+// keep_bits: with dropout in the default mode, (B * H, Lq, ceil(Lk / 32))
+// 32-bit scratch for the mask, else null. drop_thresh == 0 runs without
+// dropout. `precise` picks the f32 mode, else the bf16-operand mode.
 extern "C" int attention_bwd_launch(
     int device,
-    const float* q, long long qsb, long long qsh, long long qsl,
-    const float* k, long long ksb, long long ksh, long long ksl,
-    const float* v, long long vsb, long long vsh, long long vsl,
+    const void* q, long long qsb, long long qsh, long long qsl,
+    const void* k, long long ksb, long long ksh, long long ksl,
+    const void* v, long long vsb, long long vsh, long long vsl,
     const unsigned char* pad,
-    const float* dout, long long dosb, long long dosh, long long dosl,
+    const void* dout, long long dosb, long long dosh, long long dosl,
     float* dq, long long dqsb, long long dqsh, long long dqsl,
     float* dk, long long dksb, long long dksh, long long dksl,
     float* dv, long long dvsb, long long dvsh, long long dvsl,
     float* stats, unsigned int* keep_bits, int batch, int heads, int lq,
-    int lk, int dh, float scale, int precise, unsigned int drop_thresh,
-    float inv_keep, unsigned long long seed, void* stream) {
-  if (dh > kMaxD || dh < 1) return static_cast<int>(cudaErrorInvalidValue);
+    int lk, int dh, float scale, int precise, int bf16,
+    unsigned int drop_thresh, float inv_keep, unsigned long long seed,
+    void* stream) {
+  if (dh > kMaxD || dh < 1 || (precise && bf16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (drop_thresh && !precise && keep_bits == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -985,8 +1002,12 @@ extern "C" int attention_bwd_launch(
   if (precise) {
     const dim3 grid_q((lq + kBlock - 1) / kBlock, batch * heads);
     const dim3 grid_k((lk + kBlock - 1) / kBlock, batch * heads);
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    const float* df = static_cast<const float*>(dout);
 #define BUTD_F32(DROPOUT)                                                    \
-  launch_f32<DROPOUT>(grid_q, grid_k, st, q, qs, k, ks, v, vs, pad, dout,    \
+  launch_f32<DROPOUT>(grid_q, grid_k, st, qf, qs, kf, ks, vf, vs, pad, df,   \
                       dos, dq, dqs, dk, dks, dv, dvs, stats, heads, lq, lk,  \
                       dh, scale, dr)
     err = drop_thresh ? BUTD_F32(true) : BUTD_F32(false);
@@ -995,14 +1016,19 @@ extern "C" int attention_bwd_launch(
   }
   const dim3 grid_q((lq + kBlockRows - 1) / kBlockRows, batch * heads);
   const dim3 grid_k((lk + kBlockRows - 1) / kBlockRows, batch * heads);
-  const bool vec = dh % 4 == 0 && aligned16(q, qsb, qsh, qsl) &&
-                   aligned16(k, ksb, ksh, ksl) &&
-                   aligned16(v, vsb, vsh, vsl) &&
-                   aligned16(dout, dosb, dosh, dosl);
-#define BUTD_MMA(DP, DROPOUT)                                                \
-  launch_mma<DP, DROPOUT>(device, grid_q, grid_k, st, q, qs, k, ks, v, vs,  \
-                          pad, dout, dos, dq, dqs, dk, dks, dv, dvs, stats,  \
-                          keep_bits, heads, lq, lk, dh, scale, dr, vec)
+  const auto rows_aligned = bf16 ? aligned8_bf16 : aligned16;
+  const bool vec = dh % 4 == 0 && rows_aligned(q, qsb, qsh, qsl) &&
+                   rows_aligned(k, ksb, ksh, ksl) &&
+                   rows_aligned(v, vsb, vsh, vsl) &&
+                   rows_aligned(dout, dosb, dosh, dosl);
+#define BUTD_MMA_T(DP, DROPOUT, T)                                           \
+  launch_mma<DP, DROPOUT, T>(device, grid_q, grid_k, st, q, qs, k, ks, v,   \
+                             vs, pad, dout, dos, dq, dqs, dk, dks, dv, dvs, \
+                             stats, keep_bits, heads, lq, lk, dh, scale, dr, \
+                             vec)
+#define BUTD_MMA(DP, DROPOUT)                                   \
+  (bf16 ? BUTD_MMA_T(DP, DROPOUT, __nv_bfloat16)                \
+        : BUTD_MMA_T(DP, DROPOUT, float))
 #define BUTD_MMA_DP(DP) \
   (drop_thresh ? BUTD_MMA(DP, true) : BUTD_MMA(DP, false))
   switch (mma_depth(dh)) {
@@ -1013,18 +1039,15 @@ extern "C" int attention_bwd_launch(
   }
 #undef BUTD_MMA_DP
 #undef BUTD_MMA
+#undef BUTD_MMA_T
   return static_cast<int>(err);
 }
 
 // Dynamic shared memory a block of the default mode's kernels takes at
-// head dimension `dh` (ptxas reports only static shared memory).
-extern "C" int attention_bwd_smem_bytes(int dh) {
-  switch (mma_depth(dh)) {
-    case 16: return static_cast<int>(MmaSmem<16>::kBytes);
-    case 32: return static_cast<int>(MmaSmem<32>::kBytes);
-    case 48: return static_cast<int>(MmaSmem<48>::kBytes);
-    default: return static_cast<int>(MmaSmem<64>::kBytes);
-  }
+// head dimension `dh`, with f32 or (`bf16`) bf16 operands (ptxas reports
+// only static shared memory).
+extern "C" int attention_bwd_smem_bytes(int dh, int bf16) {
+  return static_cast<int>(mma_smem_bytes(dh, bf16));
 }
 
 BUTD_PACKED(attention_bwd_launch)

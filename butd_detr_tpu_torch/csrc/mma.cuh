@@ -2,7 +2,8 @@
 // attention_bwd.cu, backward), in their default (bf16-operand) mode: a
 // product is mma.sync.m16n8k16 with bf16 operands read from shared memory
 // by ldmatrix and an f32 accumulator; tiles of f32 rows are staged by
-// cp.async and rounded to bf16 in shared memory, the head dimension
+// cp.async and rounded to bf16 in shared memory, tiles of bf16 rows are
+// copied by cp.async into their bf16 tile as they are, the head dimension
 // zero-padded to the mma depth DP (16, 32, 48 or 64).
 #pragma once
 
@@ -156,11 +157,88 @@ struct TileCopy {
   }
 };
 
-// Shared memory of a kernel of this family: a staging area for two f32
-// tiles, two buffers of two bf16 tiles, then the kernel's small arrays.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+// A tile of rows of element type T into its bf16 tile `s` (row stride
+// DP + 8), scaled by `mul` on the way: issue() starts the loads, land()
+// finishes them once the thread's copies have arrived (cp_async_wait_all).
+// f32 rows pass through the f32 staging area and are rounded in land()
+// (TileCopy). bf16 rows are copied into `s` as they are: 8 bytes (4
+// columns) a cp.async where `vec` (dh % 4 == 0 and every row 8-byte
+// aligned), else one plain load a column; land() rescales only where
+// mul != 1 (q' = bf16(f32(q) * scale): the f32 path's bits for the same
+// values). Rows >= len and columns >= dh arrive as zeros either way.
+template <int DP, typename T>
+struct TileLoad {
+  static __device__ __forceinline__ void issue(float* stage,
+                                               __nv_bfloat16* /*s*/,
+                                               const T* base, long long ld,
+                                               int r0, int len, int dh,
+                                               bool vec) {
+    TileCopy<DP>::issue(stage, base, ld, r0, len, dh, vec);
+  }
+  static __device__ __forceinline__ void land(const float* stage,
+                                              __nv_bfloat16* s, float mul) {
+    TileCopy<DP>::convert(stage, s, mul);
+  }
+};
+
 template <int DP>
+struct TileLoad<DP, __nv_bfloat16> {
+  using Copy = TileCopy<DP>;  // the same slots: 4 columns of one row
+
+  static __device__ __forceinline__ void issue(float* /*stage*/,
+                                               __nv_bfloat16* s,
+                                               const __nv_bfloat16* base,
+                                               long long ld, int r0, int len,
+                                               int dh, bool vec) {
+#pragma unroll
+    for (int i = 0; i < Copy::kSlots; ++i) {
+      const int r = Copy::row(i), c = Copy::col(i);
+      __nv_bfloat16* dst = s + r * (DP + 8) + c;
+      const __nv_bfloat16* src = base + (r0 + r) * ld + c;
+      const bool in = r0 + r < len;
+      if (vec) {
+        const bool ok = in && c < dh;
+        cp_async8(dst, ok ? src : base, ok ? 8 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dst[e] = in && c + e < dh ? src[e] : __float2bfloat16_rn(0.f);
+        }
+      }
+    }
+  }
+
+  static __device__ __forceinline__ void land(const float* /*stage*/,
+                                              __nv_bfloat16* s, float mul) {
+    if (mul == 1.f) return;
+#pragma unroll
+    for (int i = 0; i < Copy::kSlots; ++i) {
+      uint2* at = reinterpret_cast<uint2*>(s + Copy::row(i) * (DP + 8) +
+                                           Copy::col(i));
+      const uint2 w = *at;
+      uint2 o;
+      o.x = pack_bf16(__uint_as_float(w.x << 16) * mul,
+                      __uint_as_float(w.x & 0xffff0000u) * mul);
+      o.y = pack_bf16(__uint_as_float(w.y << 16) * mul,
+                      __uint_as_float(w.y & 0xffff0000u) * mul);
+      *at = o;
+    }
+  }
+};
+
+// Shared memory of a kernel of this family: a staging area for two f32
+// tiles (none for bf16 operands), two buffers of two bf16 tiles, then the
+// kernel's small arrays.
+template <int DP, typename T = float>
 struct MmaSmem {
-  static constexpr int kStage = 2 * kTile * DP;           // floats
+  static constexpr int kStage =  // floats
+      sizeof(T) == sizeof(float) ? 2 * kTile * DP : 0;
   static constexpr int kBf16 = 2 * 2 * kTile * (DP + 8);  // bf16 values
   static constexpr size_t kBytes =
       kStage * sizeof(float) + kBf16 * sizeof(__nv_bfloat16) + 2048;
@@ -185,12 +263,34 @@ __device__ __forceinline__ int bt_offset(int lane, int k0, int c0, int S) {
 }
 
 // Whether a view's rows all start on a 16-byte boundary (the 16-byte
-// cp.async path).
+// cp.async path of f32 rows).
 inline bool aligned16(const void* p, long long sb, long long sh,
                       long long sl) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 &&
          sh % 4 == 0 && sl % 4 == 0;
 }
 
+// Whether every 4 columns of a bf16 view start on an 8-byte boundary (the
+// 8-byte cp.async path of bf16 rows), given dh % 4 == 0.
+inline bool aligned8_bf16(const void* p, long long sb, long long sh,
+                          long long sl) {
+  return reinterpret_cast<uintptr_t>(p) % 8 == 0 && sb % 4 == 0 &&
+         sh % 4 == 0 && sl % 4 == 0;
+}
+
 // The padded head dimension of the mma kernels: Dh 36 -> 48.
 inline int mma_depth(int dh) { return (dh + 15) / 16 * 16; }
+
+// MmaSmem's bytes at head dimension `dh`, f32 or (`bf16`) bf16 operands.
+inline size_t mma_smem_bytes(int dh, int bf16) {
+  switch (mma_depth(dh)) {
+    case 16: return bf16 ? MmaSmem<16, __nv_bfloat16>::kBytes
+                         : MmaSmem<16>::kBytes;
+    case 32: return bf16 ? MmaSmem<32, __nv_bfloat16>::kBytes
+                         : MmaSmem<32>::kBytes;
+    case 48: return bf16 ? MmaSmem<48, __nv_bfloat16>::kBytes
+                         : MmaSmem<48>::kBytes;
+    default: return bf16 ? MmaSmem<64, __nv_bfloat16>::kBytes
+                         : MmaSmem<64>::kBytes;
+  }
+}

@@ -68,24 +68,30 @@ def span_scores(end_points, prefix: str, width: int) -> torch.Tensor:
     return _pad_scores(s, width)
 
 
-def contrast_logits(end_points, prefix: str,
-                    temperature: float = 0.07) -> torch.Tensor:
-    """(B, Q, T) query-token similarities over the temperature. The JAX
-    evaluators run `contrast_scores` inside `jax.jit`, where XLA turns the
-    division by the constant into a multiply by its f32 reciprocal; so
-    does the port."""
+def contrast_logits(end_points, prefix: str, temperature: float = 0.07,
+                    divide: bool = False) -> torch.Tensor:
+    """(B, Q, T) query-token similarities over the temperature, in f32.
+    The JAX evaluators run `contrast_scores` inside `jax.jit`, where XLA
+    turns the division by the constant into a multiply by its f32
+    reciprocal; so does the port, unless `divide`: the JAX predictor calls
+    `contrast_scores` eagerly (predict.py:223), which divides for real.
+    The divisor is then a tensor on the similarities' device (CUDA turns a
+    division by a Python number into a reciprocal multiply too)."""
     sim = torch.einsum("bqd,btd->bqt",
                        end_points[f"{prefix}proj_queries"].float(),
                        end_points["proj_tokens"].float())
+    if divide:
+        return sim / sim.new_full((), temperature)
     return sim * reciprocal_f32(temperature)
 
 
 def contrast_scores(end_points, prefix: str, width: int,
-                    temperature: float = 0.07) -> torch.Tensor:
-    """(B, Q, width) contrastive query-token scores (`bbf`)."""
-    return _pad_scores(
-        torch.softmax(contrast_logits(end_points, prefix, temperature), -1),
-        width)
+                    temperature: float = 0.07,
+                    divide: bool = False) -> torch.Tensor:
+    """(B, Q, width) contrastive query-token scores (`bbf`); `divide` as
+    `contrast_logits`'."""
+    return _pad_scores(torch.softmax(
+        contrast_logits(end_points, prefix, temperature, divide), -1), width)
 
 
 def pred_boxes(end_points, prefix: str) -> torch.Tensor:

@@ -96,10 +96,15 @@ def loss_boxes(pred_boxes, gt_boxes, assignment, box_label_mask, num_boxes):
 
 def contrastive_logits(proj_queries, proj_tokens, temperature=0.07):
     """(B, Q, L) query-token similarities over the temperature, in f32.
-    The JAX package divides by the constant inside its jitted train step,
-    where XLA multiplies by the f32 reciprocal instead; so does the port."""
-    return (torch.einsum("bqd,bld->bql", proj_queries, proj_tokens)
-            * reciprocal_f32(temperature)).float()
+    The JAX package divides by the constant inside its jitted train step.
+    In f32 XLA multiplies by the f32 reciprocal instead; so does the port.
+    In bf16 (`--use_bf16`) it divides for real, by bf16(temperature), and
+    rounds the quotient to bf16; the port divides by a bf16 tensor on the
+    device (a Python divisor would become a reciprocal multiply on CUDA)."""
+    sim = torch.einsum("bqd,bld->bql", proj_queries, proj_tokens)
+    if sim.dtype is torch.float32:
+        return sim * reciprocal_f32(temperature)
+    return (sim / sim.new_full((), temperature)).float()
 
 
 def loss_contrastive_align(proj_queries, proj_tokens, text_mask, positive_map,

@@ -12,6 +12,12 @@ trainer re-seeds once per step. The box estimates that feed the next
 decoder layer's position embedding are detached, and the text tower runs
 in eval mode under `no_grad` while `freeze_text` (the reference freezes
 it unconditionally, bdetr.py:76-77).
+
+`dtype` is the compute dtype of the whole model, as the JAX model's
+(`--use_bf16`: bf16): parameters stay f32, every dense layer computes in
+`dtype`, LayerNorms and BatchNorms in f32, and every float end point of
+the backbone (features and xyz) is cast to `dtype`, so that under bf16
+the queries' xyz and the predicted centres are bf16 too.
 """
 
 from typing import Dict
@@ -29,20 +35,23 @@ from butd_detr_tpu_torch.models.heads import (
 )
 from butd_detr_tpu_torch.nn.backbone import Pointnet2Backbone
 from butd_detr_tpu_torch.nn.dropout import Dropout, DropoutRng, bind_rng
-from butd_detr_tpu_torch.nn.mlp import PointwiseConv
+from butd_detr_tpu_torch.nn.mlp import Dense, LayerNorm, PointwiseConv
 from butd_detr_tpu_torch.nn.position import PositionEmbeddingLearned
 
 
 def l2_normalize(x, eps=1e-12):
-    return x / torch.clamp_min(torch.linalg.norm(x, dim=-1, keepdim=True),
-                               eps)
+    """x / max(|x|, eps) in x's dtype. The norm is jnp.linalg.norm's: the
+    squares summed in f32, the sum rounded to x's dtype, then its root."""
+    norm = x.float().square().sum(dim=-1, keepdim=True).to(x.dtype).sqrt()
+    return x / torch.clamp_min(norm, eps)
 
 
-def contrastive_projection(d_model: int, out_dim: int = 64) -> nn.Sequential:
+def contrastive_projection(d_model: int, out_dim: int = 64,
+                           dtype=torch.float32) -> nn.Sequential:
     """3-layer MLP to the 64-d contrastive space (keys 0, 2, 4)."""
-    return nn.Sequential(nn.Linear(d_model, d_model), nn.ReLU(),
-                         nn.Linear(d_model, d_model), nn.ReLU(),
-                         nn.Linear(d_model, out_dim))
+    return nn.Sequential(Dense(d_model, d_model, dtype=dtype), nn.ReLU(),
+                         Dense(d_model, d_model, dtype=dtype), nn.ReLU(),
+                         Dense(d_model, out_dim, dtype=dtype))
 
 
 def top_k_stable(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -60,7 +69,8 @@ def prediction_prefixes(num_decoder_layers: int):
 
 class BeaUTyDETR(nn.Module):
     """`input_feature_dim` counts the per-point channels after xyz (3 with
-    colour). `backbone_dtype` is the PointNet++ MLPs' compute dtype;
+    colour). `dtype` is the model's compute dtype; `backbone_dtype` the
+    PointNet++ MLPs' (None: `dtype`, as in the JAX model);
     `attn_precise` selects the attention kernel's f32 mode; `freeze_text`
     False lets gradients into the text tower."""
 
@@ -73,8 +83,8 @@ class BeaUTyDETR(nn.Module):
                  butd: bool = True, self_attend: bool = True,
                  text_hidden: int = 768, box_emb_dim: int = 128,
                  backbone_npoints=(2048, 1024, 512, 256),
-                 backbone_dtype=torch.float32, attn_precise: bool = False,
-                 freeze_text: bool = True):
+                 dtype=torch.float32, backbone_dtype=None,
+                 attn_precise: bool = False, freeze_text: bool = True):
         super().__init__()
         if num_queries > backbone_npoints[1]:
             raise ValueError(
@@ -87,39 +97,44 @@ class BeaUTyDETR(nn.Module):
         self.self_position_embedding = self_position_embedding
         self.contrastive_align_loss = contrastive_align_loss
         self.butd = butd
+        self.dtype = dtype
 
         self.backbone_net = Pointnet2Backbone(
             input_feature_dim=input_feature_dim, output_dim=d,
-            npoints=backbone_npoints, dtype=backbone_dtype)
-        self.text_encoder = RobertaModel(roberta, precise=attn_precise)
+            npoints=backbone_npoints, dtype=backbone_dtype or dtype,
+            out_dtype=dtype)
+        self.text_encoder = RobertaModel(roberta, precise=attn_precise,
+                                         dtype=dtype)
         if freeze_text:
             self.text_encoder.requires_grad_(False)
         self.text_projector = nn.Sequential(
-            nn.Linear(roberta.hidden_size, d), nn.LayerNorm(d, eps=1e-12),
-            Dropout(0.1))
+            Dense(roberta.hidden_size, d, dtype=dtype),
+            LayerNorm(d, eps=1e-12), Dropout(0.1))
         if butd:
             self.butd_class_embeddings = nn.Embedding(num_obj_class,
                                                       text_hidden)
-            self.box_embeddings = PositionEmbeddingLearned(6, box_emb_dim)
-            self.class_embeddings = nn.Linear(text_hidden, d - box_emb_dim)
-        self.pos_embed = PositionEmbeddingLearned(3, d)
+            self.box_embeddings = PositionEmbeddingLearned(6, box_emb_dim,
+                                                           dtype)
+            self.class_embeddings = Dense(text_hidden, d - box_emb_dim,
+                                          dtype=dtype)
+        self.pos_embed = PositionEmbeddingLearned(3, d, dtype)
         self.cross_encoder = BiEncoder(
             num_encoder_layers, d, 8, 256, 0.1, self_attend=self_attend,
-            use_butd_enc_attn=butd, precise=attn_precise)
+            use_butd_enc_attn=butd, precise=attn_precise, dtype=dtype)
         if contrastive_align_loss:
             self.contrastive_align_projection_image = \
-                contrastive_projection(d)
+                contrastive_projection(d, dtype=dtype)
             self.contrastive_align_projection_text = \
-                contrastive_projection(d)
-        self.points_obj_cls = PointsObjClsModule(d)
-        self.decoder_query_proj = PointwiseConv(d, d)
-        self.proposal_head = ClsAgnosticPredictHead(num_class, d)
+                contrastive_projection(d, dtype=dtype)
+        self.points_obj_cls = PointsObjClsModule(d, dtype)
+        self.decoder_query_proj = PointwiseConv(d, d, dtype=dtype)
+        self.proposal_head = ClsAgnosticPredictHead(num_class, d, dtype)
         self.decoder = nn.ModuleList(
             BiDecoderLayer(d, 8, 256, 0.1, self_position_embedding, butd,
-                           precise=attn_precise)
+                           precise=attn_precise, dtype=dtype)
             for _ in range(num_decoder_layers))
         self.prediction_heads = nn.ModuleList(
-            ClsAgnosticPredictHead(num_class, d)
+            ClsAgnosticPredictHead(num_class, d, dtype)
             for _ in range(num_decoder_layers))
         self.rng = bind_rng(self, DropoutRng())
 

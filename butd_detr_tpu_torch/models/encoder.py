@@ -4,12 +4,16 @@ language self-attention (+ residual + LN, no FFN), then language <- vision
 cross-attention + FFN, vision <- (pre-update) language, vision <- detected
 boxes, and the vision FFN. Batch-first (B, L, F); masks True == PAD.
 Dropout (0.1 on every residual branch, inside the FFNs and on the attention
-probabilities) is live in train mode and identity in eval."""
+probabilities) is live in train mode and identity in eval. The attention
+and FFN layers compute in `dtype`, the LayerNorms in f32; a residual sum
+of an f32 and a bf16 tensor is f32, in torch as in jnp."""
 
+import torch
 from torch import nn
 
 from butd_detr_tpu_torch.nn.attention import MultiheadAttention
 from butd_detr_tpu_torch.nn.dropout import Dropout
+from butd_detr_tpu_torch.nn.mlp import Dense, LayerNorm
 
 LN_EPS = 1e-5
 
@@ -18,21 +22,22 @@ class FFN(nn.Sequential):
     """Linear-ReLU-Dropout-Linear-Dropout (keys 0 and 3)."""
 
     def __init__(self, d_model: int, dim_feedforward: int,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype=torch.float32):
         super().__init__(
-            nn.Linear(d_model, dim_feedforward), nn.ReLU(),
-            Dropout(dropout), nn.Linear(dim_feedforward, d_model),
+            Dense(d_model, dim_feedforward, dtype=dtype), nn.ReLU(),
+            Dropout(dropout), Dense(dim_feedforward, d_model, dtype=dtype),
             Dropout(dropout))
 
 
 class SelfAttnNoFFN(nn.Module):
     """Self-attention + residual + LN; optional position added to q, k."""
 
-    def __init__(self, d_model, n_heads, dropout=0.1, precise=False):
+    def __init__(self, d_model, n_heads, dropout=0.1, precise=False,
+                 dtype=torch.float32):
         super().__init__()
         self.self_attn = MultiheadAttention(d_model, n_heads, dropout,
-                                            precise)
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+                                            precise, dtype)
+        self.norm1 = LayerNorm(d_model, eps=LN_EPS)
         self.dropout = Dropout(dropout)
 
     def forward(self, x, pos=None, key_padding_mask=None):
@@ -43,13 +48,15 @@ class SelfAttnNoFFN(nn.Module):
 
 class CrossAttentionLayer(nn.Module):
     def __init__(self, d_model=288, n_heads=8, dim_feedforward=256,
-                 dropout=0.1, use_butd_enc_attn=False, precise=False):
+                 dropout=0.1, use_butd_enc_attn=False, precise=False,
+                 dtype=torch.float32):
         super().__init__()
-        mha = lambda: MultiheadAttention(d_model, n_heads, dropout, precise)
-        ln = lambda: nn.LayerNorm(d_model, eps=LN_EPS)
+        mha = lambda: MultiheadAttention(d_model, n_heads, dropout, precise,
+                                         dtype)
+        ln = lambda: LayerNorm(d_model, eps=LN_EPS)
         self.cross_lv = mha()
         self.norm_lv = ln()
-        self.ffn_lv = FFN(d_model, dim_feedforward, dropout)
+        self.ffn_lv = FFN(d_model, dim_feedforward, dropout, dtype)
         self.norm_lv2 = ln()
         self.cross_vl = mha()
         self.norm_vl = ln()
@@ -57,7 +64,7 @@ class CrossAttentionLayer(nn.Module):
         if use_butd_enc_attn:
             self.cross_d = mha()
             self.norm_d = ln()
-        self.ffn_vl = FFN(d_model, dim_feedforward, dropout)
+        self.ffn_vl = FFN(d_model, dim_feedforward, dropout, dtype)
         self.norm_vl2 = ln()
         self.dropout = Dropout(dropout)
 
@@ -87,19 +94,20 @@ class CrossAttentionLayer(nn.Module):
 class BiEncoderLayer(nn.Module):
     def __init__(self, d_model=288, n_heads=8, dim_feedforward=256,
                  dropout=0.1, self_attend_lang=True, self_attend_vis=True,
-                 use_butd_enc_attn=False, precise=False):
+                 use_butd_enc_attn=False, precise=False,
+                 dtype=torch.float32):
         super().__init__()
         if self_attend_vis:
             self.self_attention_visual = SelfAttnNoFFN(
-                d_model, n_heads, dropout, precise)
+                d_model, n_heads, dropout, precise, dtype)
         if self_attend_lang:
             self.self_attention_lang = SelfAttnNoFFN(
-                d_model, n_heads, dropout, precise)
+                d_model, n_heads, dropout, precise, dtype)
         self.self_attend_vis = self_attend_vis
         self.self_attend_lang = self_attend_lang
         self.cross_layer = CrossAttentionLayer(
             d_model, n_heads, dim_feedforward, dropout, use_butd_enc_attn,
-            precise)
+            precise, dtype)
 
     def forward(self, vis_feats, pos_feats, padding_mask, text_feats,
                 text_padding_mask, detected_feats=None, detected_mask=None):
@@ -117,12 +125,13 @@ class BiEncoderLayer(nn.Module):
 class BiEncoder(nn.Module):
     def __init__(self, num_layers=3, d_model=288, n_heads=8,
                  dim_feedforward=256, dropout=0.1, self_attend=True,
-                 use_butd_enc_attn=False, precise=False):
+                 use_butd_enc_attn=False, precise=False,
+                 dtype=torch.float32):
         super().__init__()
         self.layers = nn.ModuleList(
             BiEncoderLayer(d_model, n_heads, dim_feedforward, dropout,
                            self_attend, self_attend, use_butd_enc_attn,
-                           precise)
+                           precise, dtype)
             for _ in range(num_layers))
 
     def forward(self, vis_feats, pos_feats, padding_mask, text_feats,

@@ -1,9 +1,11 @@
 """Prediction heads and query selection (reference models/modules.py;
 JAX counterpart butd_detr_tpu/models/heads.py), channels-last with the
-reference's Conv1d weight shapes."""
+reference's Conv1d weight shapes. The convs compute in `dtype`, the
+BatchNorms in f32 with f32 outputs (`dtype=jnp.float32` there)."""
 
 from typing import Dict
 
+import torch
 from torch import nn
 
 from butd_detr_tpu_torch.nn.dropout import Dropout
@@ -15,13 +17,13 @@ class PointsObjClsModule(nn.Module):
     """Per-seed objectness logits: (conv+BN+ReLU) x2 + conv(1); the convs
     keep their bias, as in the reference."""
 
-    def __init__(self, d_model: int = 288):
+    def __init__(self, d_model: int = 288, dtype=torch.float32):
         super().__init__()
-        self.conv1 = PointwiseConv(d_model, d_model)
-        self.bn1 = BatchNorm(d_model)
-        self.conv2 = PointwiseConv(d_model, d_model)
-        self.bn2 = BatchNorm(d_model)
-        self.conv3 = PointwiseConv(d_model, 1)
+        self.conv1 = PointwiseConv(d_model, d_model, dtype=dtype)
+        self.bn1 = BatchNorm(d_model, dtype=torch.float32)
+        self.conv2 = PointwiseConv(d_model, d_model, dtype=dtype)
+        self.bn2 = BatchNorm(d_model, dtype=torch.float32)
+        self.conv3 = PointwiseConv(d_model, 1, dtype=dtype)
 
     def forward(self, seed_features):
         """(B, K, F) -> (B, K)."""
@@ -39,14 +41,15 @@ def general_sampling(xyz, features, sample_inds):
 class ThreeLayerMLP(nn.Module):
     """conv(no bias)+BN+ReLU+Dropout x2 + conv(out); keys net.{0,1,4,5,8}."""
 
-    def __init__(self, dim: int, out_dim: int):
+    def __init__(self, dim: int, out_dim: int, dtype=torch.float32):
         super().__init__()
+        f32 = torch.float32
         self.net = nn.Sequential(
-            PointwiseConv(dim, dim, bias=False), BatchNorm(dim), nn.ReLU(),
-            Dropout(0.3),
-            PointwiseConv(dim, dim, bias=False), BatchNorm(dim), nn.ReLU(),
-            Dropout(0.3),
-            PointwiseConv(dim, out_dim),
+            PointwiseConv(dim, dim, bias=False, dtype=dtype),
+            BatchNorm(dim, dtype=f32), nn.ReLU(), Dropout(0.3),
+            PointwiseConv(dim, dim, bias=False, dtype=dtype),
+            BatchNorm(dim, dtype=f32), nn.ReLU(), Dropout(0.3),
+            PointwiseConv(dim, out_dim, dtype=dtype),
         )
 
     def forward(self, x):
@@ -57,11 +60,13 @@ class ClsAgnosticPredictHead(nn.Module):
     """Center residual (added to base_xyz), size and 256-way soft-token
     scores."""
 
-    def __init__(self, num_class: int = 256, seed_feat_dim: int = 288):
+    def __init__(self, num_class: int = 256, seed_feat_dim: int = 288,
+                 dtype=torch.float32):
         super().__init__()
-        self.center_residual_head = ThreeLayerMLP(seed_feat_dim, 3)
-        self.size_pred_head = ThreeLayerMLP(seed_feat_dim, 3)
-        self.sem_cls_scores_head = ThreeLayerMLP(seed_feat_dim, num_class)
+        self.center_residual_head = ThreeLayerMLP(seed_feat_dim, 3, dtype)
+        self.size_pred_head = ThreeLayerMLP(seed_feat_dim, 3, dtype)
+        self.sem_cls_scores_head = ThreeLayerMLP(seed_feat_dim, num_class,
+                                                 dtype)
 
     def forward(self, features, base_xyz) -> Dict:
         return {

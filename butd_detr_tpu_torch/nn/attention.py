@@ -7,13 +7,18 @@ projections (here slices of the packed in_proj), the attention core in
 True == PAD masked by FINFO_MIN. In train mode the attention probabilities
 are dropped inside the kernel, by the mask of a seed that the layer's
 `DropoutRng` hands out on the host.
+
+The projections compute in `dtype` (`nn.mlp.dense`): under bf16 the core
+gets bf16 q, k and v, which the kernels read as they are, and its f32
+output is cast to bf16 by the out projection, as the JAX module casts the
+Pallas kernel's f32 output before `out_proj`.
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from butd_detr_tpu_torch.nn.dropout import DropoutRng
+from butd_detr_tpu_torch.nn.mlp import Dense, dense
 from butd_detr_tpu_torch.ops import attention
 
 
@@ -39,7 +44,7 @@ def multi_head(q, k, v, num_heads, key_padding_mask, *, dropout_p,
 
 class MultiheadAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
-                 precise: bool = False):
+                 precise: bool = False, dtype=torch.float32):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"{d_model} is not divisible by {num_heads}")
@@ -50,15 +55,16 @@ class MultiheadAttention(nn.Module):
         self.rng = DropoutRng()
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Dense(d_model, d_model, dtype=dtype)
+        self.dtype = dtype
 
     def forward(self, query, key, value, key_padding_mask=None):
         """(B, Lq, F), (B, Lk, F), (B, Lk, F), (B, Lk) True == PAD."""
-        d = self.d_model
-        w, b = self.in_proj_weight, self.in_proj_bias
-        q = F.linear(query, w[:d], b[:d])
-        k = F.linear(key, w[d:2 * d], b[d:2 * d])
-        v = F.linear(value, w[2 * d:], b[2 * d:])
+        d, dt = self.d_model, self.dtype
+        w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
+        q = dense(query, w[:d], b[:d], dt)
+        k = dense(key, w[d:2 * d], b[d:2 * d], dt)
+        v = dense(value, w[2 * d:], b[2 * d:], dt)
         p = self.dropout if self.training else 0.0
         out = multi_head(q, k, v, self.num_heads, key_padding_mask,
                          dropout_p=p, precise=self.precise,

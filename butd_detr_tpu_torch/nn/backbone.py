@@ -18,13 +18,16 @@ from butd_detr_tpu_torch.nn.pointnet2 import (
 class Pointnet2Backbone(nn.Module):
     """`input_feature_dim` counts the per-point channels after xyz.
     `dtype` is the compute dtype of the MLP stacks (bf16 by default in the
-    serving config); geometry stays f32 and features leave as f32."""
+    serving config); geometry stays f32. Every float end point (features
+    and xyz) leaves in `out_dtype`: the model's compute dtype."""
 
     def __init__(self, input_feature_dim: int = 0, width: int = 1,
                  depth: int = 2, output_dim: int = 288,
                  npoints=(2048, 1024, 512, 256), radii=(0.2, 0.4, 0.8, 1.2),
-                 nsamples=(64, 32, 16, 16), dtype=torch.float32):
+                 nsamples=(64, 32, 16, 16), dtype=torch.float32,
+                 out_dtype=torch.float32):
         super().__init__()
+        self.out_dtype = out_dtype
         w, d = width, depth
         cfg = dict(use_xyz=True, normalize_xyz=True, dtype=dtype)
         self.sa1 = PointnetSAModuleVotes(
@@ -60,5 +63,5 @@ class Pointnet2Backbone(nn.Module):
         ep["fp2_features"] = self.fp2(xyz2, xyz3, feat2, feat3_up)
         ep["fp2_xyz"] = xyz2
         ep["fp2_inds"] = inds1[:, :xyz2.shape[1]]
-        return {k: (v.float() if v.is_floating_point() else v)
+        return {k: (v.to(self.out_dtype) if v.is_floating_point() else v)
                 for k, v in ep.items()}

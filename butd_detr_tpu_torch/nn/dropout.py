@@ -55,7 +55,13 @@ class Dropout(nn.Module):
             return x
         keep = torch.rand(x.shape, device=x.device, dtype=torch.float32,
                           generator=self.rng.generator(x.device)) >= self.p
-        return x * (keep.to(x.dtype) / (1.0 - self.p))
+        if x.dtype is torch.float32:
+            return x * (keep.to(x.dtype) / (1.0 - self.p))
+        # flax divides the kept entries by the keep rate in x's dtype:
+        # round(x / bf16(1 - p)) under bf16; a divisor on the device keeps
+        # it a division (a Python scalar's becomes a reciprocal multiply)
+        return torch.where(keep, x / x.new_full((), 1.0 - self.p),
+                           x.new_zeros(()))
 
     def extra_repr(self) -> str:
         return f"p={self.p}"

@@ -8,6 +8,12 @@ shape (out, in, 1[, 1]), so a reference state dict loads unchanged.
 BatchNorm runs on the last axis, in f32, with eps 1e-5: in eval with the
 running statistics, in train mode with the batch's, updating the running
 ones as the JAX package's flax BatchNorm does.
+
+`dense` is the port's flax `nn.Dense(dtype=...)`: the layers of the model
+hold f32 parameters and compute in a compute dtype (bf16 under
+`--use_bf16`); `Dense` is `nn.Linear` with one, and `LayerNorm` normalizes
+in f32 whatever its input's dtype, as the JAX package's LayerNorms
+(`dtype=jnp.float32`) do.
 """
 
 from typing import Sequence
@@ -20,12 +26,49 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention (flax's 0.9 decay)
 
 
+def dense(x: torch.Tensor, weight: torch.Tensor, bias=None,
+          dtype=None) -> torch.Tensor:
+    """x W^T + b in the compute dtype `dtype` (None: x's), the result in
+    that dtype: flax `nn.Dense(dtype=dtype)`. x, W and b are cast to it.
+    In f32 one `F.linear`; in a narrower dtype the product is rounded to
+    it and the bias is added after, in that dtype, as flax does (a bias
+    fused into the product would be added before the one rounding)."""
+    dtype = x.dtype if dtype is None else dtype
+    x, w = x.to(dtype), weight.to(dtype)
+    if bias is None:
+        return F.linear(x, w)
+    if dtype is torch.float32:
+        return F.linear(x, w, bias.to(dtype))
+    return F.linear(x, w) + bias.to(dtype)
+
+
+class Dense(nn.Linear):
+    """`nn.Linear` (f32 parameters `weight`, `bias`) computing in
+    `dtype` (`dense`)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype=torch.float32):
+        super().__init__(in_features, out_features, bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias, self.compute_dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` over an f32 copy of its input: f32 out of an f32 or
+    bf16 input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+
 class PointwiseConv(nn.Module):
-    """1x1 convolution as a dense layer over the last axis; computes in
-    the input's dtype."""
+    """1x1 convolution as a dense layer over the last axis, computing in
+    `dtype` (None: the input's; `dense`)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 bias: bool = True, kernel_dims: int = 1):
+                 bias: bool = True, kernel_dims: int = 1, dtype=None):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, *([1] * kernel_dims)))
@@ -33,16 +76,16 @@ class PointwiseConv(nn.Module):
             self.bias = nn.Parameter(torch.empty(out_channels))
         else:
             self.register_parameter("bias", None)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.flatten(1).to(x.dtype)
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, w, b)
+        return dense(x, self.weight.flatten(1), self.bias, self.dtype)
 
 
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over the last (channel) axis of a channels-last tensor,
-    computed in f32 and returned in the input's dtype.
+    computed in f32 and returned in `dtype` (None: the input's; flax's
+    `nn.BatchNorm(dtype=...)`).
 
     In train mode the batch is normalized with its biased variance, and
     the running average takes that same BIASED variance, as flax's
@@ -50,13 +93,15 @@ class BatchNorm(nn.BatchNorm1d):
     one (larger by n / (n - 1)). The port is held against the JAX package,
     so the buffers are updated by hand here."""
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, dtype=None):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.out_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype if self.out_dtype is None else self.out_dtype
         xf = x.reshape(-1, x.shape[-1]).float()
         if not self.training:
-            return super().forward(xf).reshape(x.shape).to(x.dtype)
+            return super().forward(xf).reshape(x.shape).to(dtype)
         with torch.no_grad():
             mean = xf.mean(dim=0)
             # E[x^2] - E[x]^2, clipped at 0: flax's variance
@@ -67,7 +112,7 @@ class BatchNorm(nn.BatchNorm1d):
             self.num_batches_tracked += 1
         y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
-        return y.reshape(x.shape).to(x.dtype)
+        return y.reshape(x.shape).to(dtype)
 
 
 class _BNWrap(nn.Module):

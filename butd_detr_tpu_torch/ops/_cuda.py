@@ -89,16 +89,17 @@ _SIGNATURES = {
     },
     "attention": {
         "attention_fwd_launch": [_I, *_STRIDED * 3, _VP, *_STRIDED,
-                                 _I, _I, _I, _I, _I, _F, _I, *_DROPOUT, _VP],
+                                 _I, _I, _I, _I, _I, _F, _I, _I, *_DROPOUT,
+                                 _VP],
         "attention_dropout_mask_launch": [_I, _VP, _I, _I, _I, _U, _ULL,
                                           _VP],
-        "attention_fwd_smem_bytes": [_I],
+        "attention_fwd_smem_bytes": [_I, _I],
     },
     "attention_bwd": {
         "attention_bwd_launch": [_I, *_STRIDED * 3, _VP, *_STRIDED * 4, _VP,
-                                 _VP, _I, _I, _I, _I, _I, _F, _I, *_DROPOUT,
-                                 _VP],
-        "attention_bwd_smem_bytes": [_I],
+                                 _VP, _I, _I, _I, _I, _I, _F, _I, _I,
+                                 *_DROPOUT, _VP],
+        "attention_bwd_smem_bytes": [_I, _I],
     },
     "scatter": {
         "scatter_launch": [_I, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I,

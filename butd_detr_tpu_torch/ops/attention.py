@@ -14,7 +14,11 @@ on the normalized probabilities. Two modes, as there:
 The kernels differ by mode: the default mode's products (two in the
 forward, five in the backward) run on the tensor cores (bf16 x bf16 -> f32
 mma, csrc/mma.cuh), the precise mode's on CUDA cores in f32. The mode is
-the caller's `precise`.
+the caller's `precise`. The default mode's kernels read bf16 q, k, v (and
+dO) as they are, as the bf16 model (`--use_bf16`) hands them over, and
+f32 operands otherwise: the same values give the same bits either way.
+The outputs are f32 in both, as the TPU kernel's; the precise mode widens
+bf16 operands to f32.
 
 Dropout keeps an entry iff its random uint32 >= min(int(p * 2^32),
 2^32 - 1) and scales the kept entries by 1 / (1 - p). The bits are
@@ -26,8 +30,9 @@ from it, bit for bit the mask of the kernels. The TPU's random bits are other
 bits; the two packages are compared at p = 0 or through an explicit mask.
 
 `attention` is one `torch.autograd.Function` over both kernels; it saves
-q, k, v, the padding mask and the seed, nothing else. A call with nothing
-to differentiate launches the forward without it.
+q, k, v, the padding mask and the seed, nothing else, and returns the
+gradients in the operands' dtype. A call with nothing to differentiate
+launches the forward without it.
 """
 
 from typing import Optional
@@ -173,6 +178,16 @@ def _unit_stride(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _kernel_operands(precise, *ts):
+    """(bf16, operands) as the kernels read them: bf16 operands pass as
+    they are to the default mode's kernels (the bf16 model's), any other
+    mix, and every operand of the precise mode, are widened to f32."""
+    bf16 = not precise and all(t.dtype is torch.bfloat16 for t in ts)
+    if not bf16:
+        return False, [_unit_stride(t) for t in ts]
+    return True, [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
+
+
 def _pad_bytes(key_padding_mask, device):
     """The padding mask as one byte a key, nonzero == padded: a contiguous
     bool mask on the device is that already (no cast kernel)."""
@@ -202,7 +217,7 @@ def _forward_cuda(q, k, v, key_padding_mask, sm_scale, dropout_p, seed,
                   precise):
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
-    q, k, v = _unit_stride(q), _unit_stride(k), _unit_stride(v)
+    bf16, (q, k, v) = _kernel_operands(precise, q, k, v)
     out = _heads_buffer(B, H, Lq, Dh, q.device)
     pad = _pad_bytes(key_padding_mask, q.device)
     _cuda.launch(
@@ -212,7 +227,7 @@ def _forward_cuda(q, k, v, key_padding_mask, sm_scale, dropout_p, seed,
         v.data_ptr(), *v.stride()[:3],
         0 if pad is None else pad.data_ptr(),
         out.data_ptr(), *out.stride()[:3],
-        B, H, Lq, Lk, Dh, float(sm_scale), int(bool(precise)),
+        B, H, Lq, Lk, Dh, float(sm_scale), int(bool(precise)), int(bf16),
         *_dropout_args(dropout_p, seed))
     return out
 
@@ -221,7 +236,12 @@ def _backward_cuda(q, k, v, dout, key_padding_mask, sm_scale, dropout_p,
                    seed, precise):
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
-    q, k, v, dout = (_unit_stride(t) for t in (q, k, v, dout))
+    if not precise and q.dtype is torch.bfloat16 \
+            and dout.dtype is not torch.bfloat16:
+        # the kernels round dO to bf16 on load: with bf16 operands it is
+        # read in their type, as the TPU wrapper casts it (_attend_bwd)
+        dout = dout.to(torch.bfloat16)
+    bf16, (q, k, v, dout) = _kernel_operands(precise, q, k, v, dout)
     dq = _heads_buffer(B, H, Lq, Dh, q.device)
     dk = _heads_buffer(B, H, Lk, Dh, q.device)
     dv = _heads_buffer(B, H, Lk, Dh, q.device)
@@ -247,7 +267,7 @@ def _backward_cuda(q, k, v, dout, key_padding_mask, sm_scale, dropout_p,
         dv.data_ptr(), *dv.stride()[:3],
         stats.data_ptr(), 0 if keep_bits is None else keep_bits.data_ptr(),
         B, H, Lq, Lk, Dh, float(sm_scale),
-        int(bool(precise)), *_dropout_args(dropout_p, seed))
+        int(bool(precise)), int(bf16), *_dropout_args(dropout_p, seed))
     return dq, dk, dv
 
 
@@ -333,10 +353,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               sm_scale: float = 1.0, dropout_p: float = 0.0,
               seed: Optional[int] = None,
               precise: bool = False) -> torch.Tensor:
-    """softmax(sm_scale * Q K^T) V over (B, H, L, Dh) views of any strides
-    (the head dim must be unit-stride on CUDA). Returns (B, H, Lq, Dh)
-    float32 (a view of a (B, Lq, H, Dh) buffer on CUDA). Differentiable in
-    q, k and v.
+    """softmax(sm_scale * Q K^T) V over (B, H, L, Dh) views of any strides,
+    f32 or bf16. Returns (B, H, Lq, Dh) float32 (a view of a (B, Lq, H, Dh)
+    buffer on CUDA). Differentiable in q, k and v.
 
     `dropout_p` > 0 drops normalized probabilities by the mask of the 64-bit
     `seed` (`dropout_keep_mask` returns that mask). A CPU tensor takes the

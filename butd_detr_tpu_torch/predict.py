@@ -77,24 +77,15 @@ def prepare_point_cloud(pc: np.ndarray, num_points: int, use_color: bool,
     return np.concatenate(feats, axis=1).astype(np.float32)
 
 
-def refuse_use_bf16(cfg: Config) -> None:
-    """`--use_bf16` runs the JAX package's whole transformer stack in bf16;
-    the port builds it in f32 only, so the flag raises rather than give an
-    f32 model under a bf16 name. (`backbone_bf16` is honoured.)"""
-    if cfg.use_bf16:
-        raise NotImplementedError(
-            "--use_bf16 (the bf16 transformer stack) is not ported yet "
-            "(ROADMAP queue 1, 'Precision')")
-
-
 def build_model(cfg: Config, roberta_config: RobertaConfig,
                 backbone_npoints=(2048, 1024, 512, 256)) -> BeaUTyDETR:
-    """The model of `cfg`, on the CPU, parameters not yet filled.
+    """The model of `cfg`, on the CPU, parameters not yet filled (f32).
 
     Every entry point (`GroundingPredictor`, `Trainer`, `TrainTester`)
-    builds its model here, so what the port cannot build yet is refused
-    here for all of them."""
-    refuse_use_bf16(cfg)
+    builds its model here. `--use_bf16` makes bf16 the compute dtype of
+    the whole model and `--backbone_bf16` that of the backbone's MLPs;
+    without it the backbone computes in the model's dtype, as the JAX
+    package's `build_model` has it (train/step.py)."""
     return BeaUTyDETR(
         roberta_config,
         num_class=256,
@@ -109,8 +100,8 @@ def build_model(cfg: Config, roberta_config: RobertaConfig,
         butd=cfg.use_butd,
         self_attend=cfg.self_attend,
         backbone_npoints=tuple(backbone_npoints),
-        backbone_dtype=torch.bfloat16 if cfg.backbone_bf16
-        else torch.float32,
+        dtype=torch.bfloat16 if cfg.use_bf16 else torch.float32,
+        backbone_dtype=torch.bfloat16 if cfg.backbone_bf16 else None,
         attn_precise=cfg.attn_precise,
         freeze_text=cfg.freeze_text_encoder,
     )
@@ -226,8 +217,10 @@ class GroundingPredictor:
         pmap = self._span_map(utterance, phrase or utterance.rstrip(". "))
         ep = self.model(self.make_inputs(point_cloud, utterance, det_boxes,
                                          det_class_ids))
-        scorer = contrast_scores if mode == "bbf" else span_scores
-        s = scorer(ep, "last_", NUM_BINS)  # (1, Q, 256)
+        # (1, Q, 256); `bbf` divides by the temperature, as the JAX
+        # predictor's eager call does
+        s = (contrast_scores(ep, "last_", NUM_BINS, divide=True)
+             if mode == "bbf" else span_scores(ep, "last_", NUM_BINS))
         q_scores = torch.einsum(
             "bqt,kt->bkq", s, torch.from_numpy(pmap).to(s.device)
         )[0, 0].cpu().numpy()

@@ -19,9 +19,10 @@ With `--test_dataset scannet` the evaluation is detection mAP and AR at
 `evaluate_one_epoch_det`: contrastive scores projected onto the classes,
 NMS and VOC AP on the host (`eval/detection.py`, numpy).
 
-What waits for its slice raises `NotImplementedError` naming the ROADMAP
-queue: `--mp` and `--dp` above 1 ("Distribution"), `--use_bf16`
-("Precision"), `--use_multiview` ("Data: multiview") and the profiler
+`--use_bf16` builds the model in the bf16 compute dtype
+(`predict.build_model`). What waits for its slice raises
+`NotImplementedError` naming the ROADMAP queue: `--mp` and `--dp` above 1
+("Distribution"), `--use_multiview` ("Data: multiview") and the profiler
 window ("The rest of the surface").
 """
 
@@ -190,8 +191,6 @@ def _refuse_unported(cfg: Config) -> None:
     waits = {
         "--mp > 1 (tensor parallelism)": (cfg.mp > 1, "Distribution"),
         "--dp > 1 (data parallelism)": ((cfg.dp or 1) > 1, "Distribution"),
-        "--use_bf16 (the bf16 transformer stack)": (cfg.use_bf16,
-                                                    "Precision"),
         "--use_multiview (ENet multiview features)": (cfg.use_multiview,
                                                       "Data: multiview"),
         "--profile_dir (the profiler window)": (
@@ -310,7 +309,9 @@ class TrainTester:
                          f"test {len(test_loader.dataset)}")
         t0 = time.time()
         trainer = self.get_trainer(len(train_loader))
-        self.logger.info(f"trainer built: {time.time() - t0:.1f}s")
+        self.logger.info(f"trainer built: {time.time() - t0:.1f}s; compute "
+                         f"dtype {trainer.model.dtype}, backbone "
+                         f"{trainer.model.backbone_net.sa1.mlp_module.dtype}")
         self.init_pretrained(trainer)
 
         start_epoch = cfg.start_epoch

@@ -294,6 +294,10 @@ def study_arg_parser() -> argparse.ArgumentParser:
                     "(scripts/train_test_cls.sh)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--rng_seed", type=int, default=0,
+                    help="Config.rng_seed: the seed of the initial weights, "
+                    "the loader's shuffle and augmentation and the dropout "
+                    "masks (the scenes do not depend on it)")
     return ap
 
 
@@ -314,7 +318,7 @@ def study_config(args, root: str) -> Config:
                     else args.num_points or 50000),
         max_num_obj=16, max_det_boxes=16, max_text_len=32,
         max_epoch=args.epochs, val_freq=args.val_freq, print_freq=10,
-        num_workers=0 if args.tiny else 2, dp=1,
+        num_workers=0 if args.tiny else 2, dp=1, rng_seed=args.rng_seed,
         log_dir=osp.join(args.out, "log"))
     if args.butd_cls:  # scripts/train_test_cls.sh's rates
         kw.update(lr=1e-4, lr_backbone=1e-3, weight_decay=5e-4)

@@ -82,7 +82,9 @@ the last line is printed:
    near-tie protocol: backbone indices equal, every prefix's boxes
    (centres, sizes) and scores (class scores, contrastive projections)
    within 1e-2 + 2^-8 * max|CPU|, the largest error of each end-point
-   group printed;
+   group printed; and once more with `--use_bf16` (the whole model in
+   bf16, K3 reading bf16 operands), every float end point within 5e-2 +
+   2^-6 * max|CPU| (`bf16_mode_bound`), its centres bf16;
 5. gradients, card vs CPU: the loss and every parameter's gradient of a
    small model (2 encoder + 2 decoder layers, 4096 points, 2 scenes; f32,
    precise attention, eval mode so that no dropout mask differs) computed
@@ -130,6 +132,8 @@ the last line is printed:
    (the launch counts, a request's kernels, read around that call; the
    child's answer), both equal to an in-process
    `GroundingPredictor.from_checkpoint(...).predict` on the same scan,
+   then once more in this process with `--use_bf16` (the f32 checkpoint
+   into the bf16-compute model: a request's launches, a finite answer),
    and `train_torch.py --eval --test_dataset scannet --checkpoint_path`
    runs the detection evaluation on the 18-class prompt over the 8 val
    scenes (mAP and AR in [0, 1] at 0.25 and 0.5, an evaluation batch's
@@ -153,11 +157,24 @@ the last line is printed:
    both exit 0, the history has rows at epochs 1 and 2 with the step
    count continuing, every accuracy lies in [0, 1], every logged loss is
    finite and every step and evaluation batch launched the counts of
-   phase 9 (the text at 128 tokens).
+   phase 9 (the text at 128 tokens);
+11. `--use_bf16` beside the default mode, in one process (run after
+   phase 7): for each mode 3 warm requests and 2 training steps at
+   `--train-batch` at full width, with the same weights: the medians, the
+   device-busy ms of a request and a step by group (matrix products,
+   attention kernels, the rest; torch.profiler) and the peak memory,
+   printed beside the card's name and power limit. The bf16 requests and
+   steps must launch the counts of phases 3 and 6, their losses be
+   finite, the parameters f32, and the bf16 loss must not synchronise.
 Phase 2 also holds K1, K2, K6 and K7 bit-equal, and K3 and K4 within
 their bounds (p = 0 and 0.1, both modes), at the shapes of phases 9 and
 10: B = 12 at 5,000 points and B = 24 at 20,000, the small text tower's
-4 heads of Dh 32 at L 32 and 128 with key padding, 32 queries.
+4 heads of Dh 32 at L 32 and 128 with key padding, 32 queries. For
+`--use_bf16` it holds K3 and K4 with bf16 operands bit-equal to the same
+kernels fed f32 operands of the same values, at every shape of a request
+and of a B = 8 step, p = 0 and 0.1, timed beside them, and K6 and K5 at
+the bf16 model's rows (xyz C 3, boxes C 6, features C 288) bit-equal to
+their plain versions.
 
 Prints the whole run's wall time, the `kernels` JSON line, the card's
 name and power limit, and last
@@ -278,13 +295,18 @@ def _cuobjdump():
 
 
 def _short_name(mangled):
-    """attention_bwd_dq_mma_kernel<48, 1> from its mangled name."""
+    """attention_bwd_dq_mma_kernel<48, 1, bf16> from its mangled name (the
+    operand type of the mma kernels last: f32 or bf16)."""
     import re
 
     m = re.search(r"\d+(attention_\w+?_kernel)I(\w*?)EEv", mangled)
     if not m:
         return mangled
     args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
+    if "bfloat16" in m.group(2):
+        args.append("bf16")
+    elif m.group(2).endswith("Ef"):
+        args.append("f32")
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
@@ -339,8 +361,8 @@ def attention_resources(lib_name):
         name = _short_name(mangled)
         out[name] = res
         if "_mma_kernel<" in name:  # dynamic shared memory, by head dim
-            res["smem_bytes"] = smem_bytes(
-                int(name.split("<")[1].split(",")[0]))
+            res["smem_bytes"] = smem_bytes(               # and operand type
+                int(name.split("<")[1].split(",")[0]), int("bf16" in name))
         if lib_name == "attention" and "_mma_kernel" in name:
             check(res.get("spill_stores", 0) == 0
                   and res.get("spill_loads", 0) == 0,
@@ -935,6 +957,156 @@ def check_attention_backward(shapes, gen, seed, batch):
     row["bound_by"] = "operations" if all(
         s["bound_by"] == "operations" for s in row["shapes"]) else "bytes"
     return row
+
+
+def check_attention_bf16_operands(shapes, gen, seed, batch):
+    """K3 and K4 with bf16 operands (the `--use_bf16` model's projections,
+    read as they are) against the same kernels with f32 operands holding
+    the same values: the outputs and gradients must be equal bit for bit,
+    at every shape of a request (B = 1) and of a training step (B =
+    `batch`), at p = 0 and p = 0.1. Times both operand types at the
+    request's (p = 0) and the step's (p = 0.1 but RoBERTa's) shapes, each
+    summed over its launches: K3 over 51 calls, K4 over the 39 of a step.
+    Returns (the K3 fields, the K4 fields)."""
+    import torch
+
+    from butd_detr_tpu_torch.ops import attention, attention_backward
+
+    fwd = dict(ms_bf16_operands=0.0, ms_f32_operands=0.0,
+               training_ms_bf16_operands=0.0, training_ms_f32_operands=0.0,
+               bit_equal_bf16_f32_operands=True, shapes_bf16=[])
+    bwd = dict(ms_bf16_operands=0.0, ms_f32_operands=0.0,
+               bit_equal_bf16_f32_operands=True, shapes_bf16=[])
+
+    def operands(B, H, Lq, Lk, Dh, pad_kind):
+        # (B, L, H, Dh) bf16 projections viewed as (B, H, L, Dh), as the
+        # bf16 model's MHA hands them over, and f32 copies of their values
+        qkvd = [torch.randn(B, L, H, Dh, device="cuda", generator=gen)
+                .to(torch.bfloat16).transpose(1, 2)
+                for L in (Lq, Lk, Lk, Lq)]
+        pad = torch.zeros(B, Lk, dtype=torch.bool, device="cuda")
+        if pad_kind == "text":
+            pad[:, 14:] = True
+        elif pad_kind == "boxes":
+            pad[:, 12:] = True
+        return qkvd, [t.float() for t in qkvd], pad
+
+    for name, H, Lq, Lk, Dh, pad_kind, per_req in shapes:
+        scale = Dh ** -0.5
+        entry = dict(name=name, H=H, Lq=Lq, Lk=Lk, Dh=Dh)
+        for B in (1, batch):
+            (qb, kb, vb, db), (qf, kf, vf, df), pad = operands(
+                B, H, Lq, Lk, Dh, pad_kind)
+            for p in (0.0, 0.1):
+                kw = dict(sm_scale=scale, dropout_p=p, seed=seed)
+                ob = attention(qb, kb, vb, pad, **kw)
+                of = attention(qf, kf, vf, pad, **kw)
+                check(ob.dtype == torch.float32
+                      and torch.equal(_bits(ob), _bits(of)),
+                      f"K3 {name} B={B} p={p}: bf16 operands differ from "
+                      "f32 operands of the same values")
+                if name == "roberta_self":
+                    continue  # frozen: never differentiated
+                gb = attention_backward(qb, kb, vb, db, pad, **kw)
+                gf = attention_backward(qf, kf, vf, df, pad, **kw)
+                for what, a, b in zip("qkv", gb, gf):
+                    check(a.dtype == torch.float32
+                          and torch.equal(_bits(a), _bits(b)),
+                          f"K4 {name} B={B} p={p} d{what}: bf16 operands "
+                          "differ from f32 operands of the same values")
+            if B == 1:
+                kw = dict(sm_scale=scale)
+                entry["ms_bf16"] = time_ms(
+                    lambda: attention(qb, kb, vb, pad, **kw), 10)
+                entry["ms_f32"] = time_ms(
+                    lambda: attention(qf, kf, vf, pad, **kw), 10)
+                fwd["ms_bf16_operands"] += per_req * entry["ms_bf16"]
+                fwd["ms_f32_operands"] += per_req * entry["ms_f32"]
+                continue
+            p_train = 0.0 if name == "roberta_self" else 0.1
+            kw = dict(sm_scale=scale, dropout_p=p_train, seed=seed)
+            entry["training_ms_bf16"] = time_ms(
+                lambda: attention(qb, kb, vb, pad, **kw), 10)
+            entry["training_ms_f32"] = time_ms(
+                lambda: attention(qf, kf, vf, pad, **kw), 10)
+            fwd["training_ms_bf16_operands"] += per_req * entry[
+                "training_ms_bf16"]
+            fwd["training_ms_f32_operands"] += per_req * entry[
+                "training_ms_f32"]
+            if name != "roberta_self":
+                entry["bwd_ms_bf16"] = time_ms(lambda: attention_backward(
+                    qb, kb, vb, db, pad, **kw), 10)
+                entry["bwd_ms_f32"] = time_ms(lambda: attention_backward(
+                    qf, kf, vf, df, pad, **kw), 10)
+                bwd["ms_bf16_operands"] += per_req * entry["bwd_ms_bf16"]
+                bwd["ms_f32_operands"] += per_req * entry["bwd_ms_f32"]
+        fwd["shapes_bf16"].append(entry)
+        log(f"  bf16 operands {name:20s}: bit-equal to f32 operands (K3"
+            f"{'' if name == 'roberta_self' else ', K4'}; B = 1 and "
+            f"{batch}, p = 0 and 0.1); K3 request {entry['ms_bf16']:.4f} "
+            f"ms (f32 operands {entry['ms_f32']:.4f}), step "
+            f"{entry['training_ms_bf16']:.4f} ({entry['training_ms_f32']:.4f})"
+            + ("" if name == "roberta_self" else
+               f"; K4 {entry['bwd_ms_bf16']:.4f} ({entry['bwd_ms_f32']:.4f})")
+            + f" x{per_req}")
+    log(f"  bf16 operands: K3 {fwd['ms_bf16_operands']:.3f} ms a request "
+        f"(f32 operands {fwd['ms_f32_operands']:.3f}), "
+        f"{fwd['training_ms_bf16_operands']:.3f} a step "
+        f"({fwd['training_ms_f32_operands']:.3f}); K4 "
+        f"{bwd['ms_bf16_operands']:.3f} a step "
+        f"({bwd['ms_f32_operands']:.3f})")
+    return fwd, bwd
+
+
+def check_bf16_rows(gen, batch):
+    """K6 and K5 at the rows the `--use_bf16` model adds: bf16 xyz (C 3,
+    6-byte rows: the queries' xyz), bf16 boxes (C 6: the loss's matched
+    boxes) and bf16 features (C 288), at a request's (B = 1) and a step's
+    (B = `batch`) shapes. K6 bit-equal to gather_rows_plain (-0.0, inf, a
+    denormal and NaN planted), K5 bit-equal to scatter_rows_add_plain run
+    on the CPU (both sum in ascending m). Returns (K6 rows, K5 rows)."""
+    import torch
+
+    from butd_detr_tpu_torch.ops import (
+        gather_rows,
+        gather_rows_plain,
+        scatter_rows_add,
+        scatter_rows_add_plain,
+    )
+
+    gathers, scatters = [], []
+    # (name, source rows n, gathered rows M, channels)
+    for name, n, M, C in (("query_xyz", 1024, 256, 3),
+                          ("matched_boxes", 256, 132, 6),
+                          ("features", 1024, 256, 288)):
+        for B in (1, batch):
+            src = _special_rows(torch.randn(
+                B, n, C, device="cuda", generator=gen).to(torch.bfloat16))
+            idx = torch.randint(0, n, (B, M), device="cuda", generator=gen,
+                                dtype=torch.int32)
+            got = gather_rows(src, idx)
+            check(got.dtype == torch.bfloat16 and torch.equal(
+                _bits(got), _bits(gather_rows_plain(src, idx))),
+                f"K6 bf16 {name} B={B}: differs from its plain version")
+            ms = time_ms(lambda: gather_rows(src, idx), 20)
+            pms = time_ms(lambda: gather_rows_plain(src, idx), 20)
+            gathers.append(dict(name=name, B=B, n=n, M=M, C=C, ms=ms,
+                                plain_ms=pms))
+            g = torch.randn(B, M, C, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            out = scatter_rows_add(g, idx, n)
+            check(out.dtype == torch.float32 and torch.equal(
+                out.cpu(), scatter_rows_add_plain(g.cpu(), idx.cpu(), n)),
+                f"K5 bf16 {name} B={B}: differs from its plain version on "
+                "the CPU")
+            ms5 = time_ms(lambda: scatter_rows_add(g, idx, n), 20)
+            pms5 = time_ms(lambda: scatter_rows_add_plain(g, idx, n), 20)
+            scatters.append(dict(name=name, B=B, n=n, M=M, C=C, ms=ms5,
+                                 plain_ms=pms5))
+            log(f"  bf16 rows {name:13s} B={B} C={C:3d}: K6 {ms:.4f} ms "
+                f"(plain {pms:.4f}), K5 {ms5:.4f} ms (plain {pms5:.4f}); "
+                "both bit-equal to their plain versions")
+    return gathers, scatters
 
 
 def training_gathers(tiers, npoints, cfg, gen):
@@ -2264,7 +2436,7 @@ def train_and_evaluate_from_a_data_root(args, cfg, roberta, card):
                     for t, m in detection["metrics"].items())
         + f"; card {card}")
     launches = {k: train["launches"][k] + det["launches"][k]
-                + grounding["launches"][k]
+                + grounding["launches"][k] + grounding["launches_bf16"][k]
                 + sum(e["launches"][k] for e in evals)
                 for k in train["launches"]}
     return dict(seconds=seconds, prepare_seconds=prepared, steps=steps,
@@ -2344,6 +2516,29 @@ def ground_from_the_checkpoint(args, cfg, roberta, root, ckpt):
           f"child process: {printed.getvalue()[-300:]}")
     torch.cuda.empty_cache()
 
+    # the same command line with --use_bf16: the f32 checkpoint loads
+    # into the bf16-compute model, which launches a request's kernels
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with contextlib.redirect_stdout(printed):
+        predict_torch.main([*argv, "--use_bf16"])
+    torch.cuda.synchronize()
+    launches_bf16 = dict(_cuda.LAUNCHES)
+    for name, n in expect.items():
+        check(launches_bf16[name] == n, f"predict_torch.main --use_bf16: "
+              f"{launches_bf16[name]} {name} launches, expected {n}")
+    answer_bf16 = json.loads(printed.getvalue().splitlines()[-1])
+    boxes_bf16 = np.asarray(answer_bf16["boxes_cxcyczwhd"], np.float64)
+    check(boxes_bf16.shape == (10, 6) and np.isfinite(boxes_bf16).all()
+          and np.isfinite(answer_bf16["scores"]).all(),
+          f"predict_torch.py --use_bf16 answered {printed.getvalue()[-300:]}")
+    log(f"  predict_torch.main --use_bf16 in process: launches "
+        f"{ {k: v for k, v in launches_bf16.items() if v} }; top box "
+        f"{np.round(boxes_bf16[0], 3).tolist()} (f32 "
+        f"{np.round(boxes[0], 3).tolist()})")
+    torch.cuda.empty_cache()
+
 
     pred = GroundingPredictor.from_checkpoint(
         pcfg, ckpt, get_tokenizer(max_len=pcfg.max_text_len),
@@ -2368,7 +2563,8 @@ def ground_from_the_checkpoint(args, cfg, roberta, root, ckpt):
     torch.cuda.empty_cache()
     return dict(scan_id=scan_id, cli_seconds=cli_seconds,
                 request_ms=request_ms, scores=scores.tolist(),
-                launches=launches)
+                launches=launches, launches_bf16=launches_bf16,
+                scores_bf16=answer_bf16["scores"])
 
 
 def detection_epoch_from_the_checkpoint(args, cfg, roberta, root, ckpt,
@@ -2610,6 +2806,20 @@ def default_mode_bound(want):
     return 1e-2 + 2.0 ** -8 * float(np.abs(want).max())
 
 
+# `--use_bf16` (the whole model in bf16, K3 and K4 reading bf16 operands)
+# against the same f32 CPU run: every float end point within 5e-2 + 2^-6 *
+# max|CPU| (four bf16 roundings of the end point's largest value, plus 5
+# cm / 0.05 of a score). A CPU rehearsal (8,192 points, 128 queries, the
+# plain versions in bf16) gave at most 6.3e-2 (`text_feats`, max|CPU|
+# 3.1: 0.64 of this bound), boxes 4.0e-2 (max 6.0), scores 2.9e-2 (max
+# 2.5), the xyz end points one bf16 rounding (1.6e-2 at 6 m); 127 of 128
+# kps ranks differed, all near-ties.
+def bf16_mode_bound(want):
+    import numpy as np
+
+    return 5e-2 + 2.0 ** -6 * float(np.abs(want).max())
+
+
 def _group(key):
     """The end-point group of `key`, for the default mode's log."""
     for name, suffixes in DEFAULT_MODE_GROUPS.items():
@@ -2661,7 +2871,9 @@ def compare_card_cpu(args, roberta, npoints, scene, utterance):
     tolerance): the integer end points of the backbone equal, every float
     end point (backbone, encoder, queries, every prefix's boxes and
     scores) within 1e-2 + 2^-8 * max|CPU| (`default_mode_bound`); the
-    largest error of every end-point group is logged."""
+    largest error of every end-point group is logged. And so, once more,
+    with `--use_bf16` (the whole model in bf16, K3 reading bf16
+    operands), within `bf16_mode_bound`."""
     import numpy as np
     import torch
 
@@ -2671,17 +2883,20 @@ def compare_card_cpu(args, roberta, npoints, scene, utterance):
 
     cfg32 = butd_cls_config(backbone_bf16=False, attn_precise=True)
     cfg_default = butd_cls_config()
+    cfg_bf16 = butd_cls_config(use_bf16=True)
     cloud, boxes, cids = scene
     preds = {}
     for name, cfg, dev in (("cuda", cfg32, "cuda"), ("cpu", cfg32, "cpu"),
-                           ("default", cfg_default, "cuda")):
+                           ("default", cfg_default, "cuda"),
+                           ("bf16", cfg_bf16, "cuda")):
         preds[name] = GroundingPredictor(cfg, roberta_config=roberta,
                                          backbone_npoints=npoints,
                                          device=dev, seed=args.seed)
     weights = preds["cuda"].model.state_dict()
-    check(all(torch.equal(v, weights[k]) for k, v in
-              preds["default"].model.state_dict().items()),
-          "the default-mode model's weights differ from the f32 model's")
+    for mode in ("default", "bf16"):
+        check(all(torch.equal(v, weights[k]) for k, v in
+                  preds[mode].model.state_dict().items()),
+              f"the {mode}-mode model's weights differ from the f32 model's")
     with torch.inference_mode():
         t = time.perf_counter()
         pc = preds["cuda"]
@@ -2697,17 +2912,21 @@ def compare_card_cpu(args, roberta, npoints, scene, utterance):
               f"{_cuda.LAUNCHES['group_gather']} grouped gathers, expected "
               f"{FORWARD_LAUNCHES['gather'] + 3} and 1")
         log(f"  card forward {time.perf_counter() - t:.1f} s")
-        pd = preds["default"]
-        _cuda.reset_launches()
-        default = pd.model(pd.make_inputs(cloud, utterance, boxes, cids))
-        default = {k: v.float().cpu() if v.is_floating_point() else v.cpu()
-                   for k, v in default.items()}
-        expect = dict(FORWARD_LAUNCHES,
-                      attention=attention_calls(cfg_default, roberta))
-        for name, n in expect.items():
-            check(_cuda.LAUNCHES[name] == n,
-                  f"default-mode request: {_cuda.LAUNCHES[name]} {name} "
-                  f"launches, expected {n}")
+        modes = {}
+        for mode, cfg in (("default", cfg_default), ("bf16", cfg_bf16)):
+            pd = preds[mode]
+            _cuda.reset_launches()
+            out = pd.model(pd.make_inputs(cloud, utterance, boxes, cids))
+            modes[mode] = {k: v.float().cpu() if v.is_floating_point()
+                           else v.cpu() for k, v in out.items()}
+            expect = dict(FORWARD_LAUNCHES,
+                          attention=attention_calls(cfg, roberta))
+            for name, n in expect.items():
+                check(_cuda.LAUNCHES[name] == n,
+                      f"{mode}-mode request: {_cuda.LAUNCHES[name]} {name} "
+                      f"launches, expected {n}")
+        check(out["last_center"].dtype == torch.bfloat16,
+              f"--use_bf16 request: centres in {out['last_center'].dtype}")
         t = time.perf_counter()
         pp = preds["cpu"]
         encoded, detected = pp.model.encode(
@@ -2717,18 +2936,24 @@ def compare_card_cpu(args, roberta, npoints, scene, utterance):
         check(n_diff == 0 or gap <= 2 * logit_err,
               f"kps selection: {n_diff} ranks differ by up to {gap} in "
               f"logit, more than twice the logits' error {logit_err}")
-        inds_d, d_diff, d_gap, d_logit_err = _near_tie_selection(
-            default, logits_p)
-        check(d_logit_err <= default_mode_bound(logits_p.numpy()),
-              f"default mode: seeds_obj_cls_logits err {d_logit_err} > "
-              f"{default_mode_bound(logits_p.numpy())}")
-        check(d_diff == 0 or d_gap <= 2 * d_logit_err,
-              f"default mode, kps selection: {d_diff} ranks differ by up to "
-              f"{d_gap} in logit, more than twice the logits' error "
-              f"{d_logit_err}")
+        selections = {}
+        for mode, bound in (("default", default_mode_bound),
+                            ("bf16", bf16_mode_bound)):
+            inds_d, d_diff, d_gap, d_logit_err = _near_tie_selection(
+                modes[mode], logits_p)
+            check(d_logit_err <= bound(logits_p.numpy()),
+                  f"{mode} mode: seeds_obj_cls_logits err {d_logit_err} > "
+                  f"{bound(logits_p.numpy())}")
+            check(d_diff == 0 or d_gap <= 2 * d_logit_err,
+                  f"{mode} mode, kps selection: {d_diff} ranks differ by up "
+                  f"to {d_gap} in logit, more than twice the logits' error "
+                  f"{d_logit_err}")
+            selections[mode] = (inds_d, d_diff, d_gap, d_logit_err)
         cpu = pp.model.decode({k: v.clone() for k, v in encoded.items()},
                               detected, inds_c.to(torch.int32))
-        cpu_d = pp.model.decode(encoded, detected, inds_d.to(torch.int32))
+        cpu_modes = {mode: pp.model.decode(
+            {k: v.clone() for k, v in encoded.items()}, detected,
+            sel[0].to(torch.int32)) for mode, sel in selections.items()}
         log(f"  cpu forward {time.perf_counter() - t:.1f} s")
     del preds
     log(f"  kps selection: {n_diff} of {inds_c.numel()} ranks differ "
@@ -2754,35 +2979,184 @@ def compare_card_cpu(args, roberta, npoints, scene, utterance):
         f"within bound, worst {worst[0][1]} {worst[0][2]:.3g} <= "
         f"{worst[0][3]:.3g}")
 
-    # the default mode against the f32 CPU run, on its own selection
-    groups = {}
-    for key, want in cpu_d.items():
-        want = want.numpy()
-        got = default[key].numpy()
-        if want.dtype.kind in "iub":
-            if key.startswith(("sa", "fp2", "seed_inds")):
-                check(np.array_equal(got, want),
-                      f"default mode vs CPU: {key} differs")
+    # the default and bf16 modes against the f32 CPU run, each on its own
+    # selection
+    report = dict(kps_ranks_differing=n_diff, kps_gap=gap,
+                  logit_err=logit_err, equal_ints=ints,
+                  worst=[dict(key=k, err=e, lim=lm)
+                         for _, k, e, lm in worst[:5]])
+    for mode, bound in (("default", default_mode_bound),
+                        ("bf16", bf16_mode_bound)):
+        inds_d, d_diff, d_gap, d_logit_err = selections[mode]
+        groups = {}
+        for key, want in cpu_modes[mode].items():
+            want = want.numpy()
+            got = modes[mode][key].numpy()
+            if want.dtype.kind in "iub":
+                if key.startswith(("sa", "fp2", "seed_inds")):
+                    check(np.array_equal(got, want),
+                          f"{mode} mode vs CPU: {key} differs")
+                continue
+            check(np.isfinite(got).all(), f"{mode} mode: {key} not finite")
+            err = float(np.abs(got.astype(np.float64) - want).max())
+            lim = bound(want)
+            name = _group(key)
+            check(err <= lim, f"{mode} mode vs CPU: {key} err {err} > {lim}")
+            if err / lim > groups.get(name, {}).get("ratio", -1.0):
+                groups[name] = dict(key=key, err=err, lim=lim,
+                                    ratio=err / lim,
+                                    max_abs=float(np.abs(want).max()))
+        log(f"  {mode} mode: kps selection {d_diff} of {inds_d.numel()} "
+            f"ranks differ (largest CPU-logit gap {d_gap:.3g}; logits' "
+            f"error {d_logit_err:.3g}); largest error by group: "
+            + "; ".join(f"{name} {g['key']} {g['err']:.3g} (bound "
+                        f"{g['lim']:.3g}, max|CPU| {g['max_abs']:.3g})"
+                        for name, g in groups.items()))
+        report[f"{mode}_mode"] = dict(
+            kps_ranks_differing=d_diff, kps_gap=d_gap,
+            logit_err=d_logit_err, groups=groups)
+    return report
+
+
+# ------------------------------------------------------------- phase 11
+
+# device-busy groups of the --use_bf16 phase
+BUSY_GROUPS = (("attention", ("attention_",)),
+               ("matmul", ("gemm", "sgemm", "cutlass", "gemv", "xmma",
+                           "nvjet")))
+
+
+def device_busy_ms(fn, reps=2):
+    """fn() under torch.profiler: (device-busy ms a call, by group:
+    matrix products, the attention kernels, the rest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    groups = {"matmul": 0.0, "attention": 0.0, "other": 0.0}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        check(np.isfinite(got).all(), f"default mode: {key} not finite")
-        err = float(np.abs(got.astype(np.float64) - want).max())
-        lim = default_mode_bound(want)
-        name = _group(key)
-        check(err <= lim, f"default mode vs CPU: {key} err {err} > {lim}")
-        if err / lim > groups.get(name, {}).get("ratio", -1.0):
-            groups[name] = dict(key=key, err=err, lim=lim, ratio=err / lim,
-                                max_abs=float(np.abs(want).max()))
-    log(f"  default mode: kps selection {d_diff} of {inds_d.numel()} ranks "
-        f"differ (largest CPU-logit gap {d_gap:.3g}; logits' error "
-        f"{d_logit_err:.3g}); largest error by group: " + "; ".join(
-            f"{name} {g['key']} {g['err']:.3g} (bound {g['lim']:.3g}, "
-            f"max|CPU| {g['max_abs']:.3g})" for name, g in groups.items()))
-    return dict(kps_ranks_differing=n_diff, kps_gap=gap,
-                logit_err=logit_err, equal_ints=ints,
-                worst=[dict(key=k, err=e, lim=lm)
-                       for _, k, e, lm in worst[:5]],
-                default_mode=dict(kps_ranks_differing=d_diff, kps_gap=d_gap,
-                                  logit_err=d_logit_err, groups=groups))
+        name = evt.key.lower()
+        group = next((g for g, keys in BUSY_GROUPS
+                      if any(k in name for k in keys)), "other")
+        groups[group] += dev_us / 1e3 / reps
+    return sum(groups.values()), groups
+
+
+def bf16_mode(args, cfg, roberta, npoints, scenes, batches, card):
+    """`--use_bf16` beside the default mode, in one process: for each
+    mode a predictor and a trainer at full width (the same seed, so the
+    same weights), one warm request and step, then the timed requests and
+    steps (launches counted, peak memory), and one request and one step
+    under torch.profiler for the device-busy ms by group. The bf16 steps
+    must be finite and launch each step's kernels as the default's
+    (section 4 of PERF.md), and the bf16 loss must not synchronise."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from butd_detr_tpu_torch.config import butd_cls_config
+    from butd_detr_tpu_torch.ops import _cuda
+    from butd_detr_tpu_torch.predict import GroundingPredictor
+    from butd_detr_tpu_torch.train import Trainer
+
+    out = {"card": card}
+    cloud, boxes, cids = scenes[0]
+    utt, phrase = REQUESTS[0]
+    for mode, mcfg in (("default", cfg),
+                       ("bf16", butd_cls_config(use_bf16=True))):
+        pred = GroundingPredictor(mcfg, roberta_config=roberta,
+                                  backbone_npoints=npoints, device="cuda",
+                                  seed=args.seed)
+
+        def request():
+            return pred.predict(cloud, utt, phrase=phrase, det_boxes=boxes,
+                                det_class_ids=cids, top_k=10)
+
+        request()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        lat = []
+        for _ in range(3):
+            t = time.perf_counter()
+            ans = request()
+            lat.append((time.perf_counter() - t) * 1e3)
+        req_launches = dict(_cuda.LAUNCHES)
+        req_peak = torch.cuda.max_memory_allocated()
+        check(np.isfinite(ans["boxes"]).all()
+              and np.isfinite(ans["scores"]).all(),
+              f"{mode} request: non-finite answer")
+        for name, n in dict(FORWARD_LAUNCHES,
+                            attention=attention_calls(mcfg, roberta)).items():
+            check(req_launches[name] == 3 * n,
+                  f"{mode} requests: {req_launches[name]} {name} launches, "
+                  f"expected {n} each")
+        req_busy, req_groups = device_busy_ms(request)
+        del pred
+        torch.cuda.empty_cache()
+
+        trainer = Trainer(mcfg, steps_per_epoch=1000, roberta_config=roberta,
+                          backbone_npoints=npoints, device="cuda",
+                          seed=args.seed)
+        trainer.train_step(batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        step_ms, metrics = [], []
+        for batch in batches[1:3]:
+            t = time.perf_counter()
+            metrics.append(trainer.train_step(batch))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        step_launches = dict(_cuda.LAUNCHES)
+        step_peak = torch.cuda.max_memory_allocated()
+        for name, n in training_step_launches(mcfg, roberta).items():
+            check(step_launches[name] == n * len(step_ms),
+                  f"{mode} steps: {step_launches[name]} {name} launches in "
+                  f"{len(step_ms)} steps, expected {n} each")
+        for m in metrics:
+            check(all(math.isfinite(v) for v in m.values())
+                  and m["grad_norm"] > 0, f"{mode} step: metrics {m}")
+        if mode == "bf16":
+            check(trainer.model.dtype == torch.bfloat16,
+                  "--use_bf16 trainer: the model is not bf16")
+            check({p.dtype for p in trainer.model.parameters()}
+                  == {torch.float32}, "--use_bf16: parameters not f32")
+            out["loss_without_sync"] = loss_without_sync(trainer,
+                                                         batches[-1])
+        step_busy, step_groups = device_busy_ms(
+            lambda: trainer.train_step(batches[1]), reps=1)
+        del trainer
+        torch.cuda.empty_cache()
+        med = lambda x: sorted(x)[len(x) // 2]
+        out[mode] = dict(
+            request_ms=lat, request_ms_median=med(lat),
+            request_busy_ms=req_busy, request_busy_by_group=req_groups,
+            request_peak_memory_bytes=req_peak, request_launches=req_launches,
+            step_ms=step_ms, step_ms_median=med(step_ms),
+            step_busy_ms=step_busy, step_busy_by_group=step_groups,
+            step_peak_memory_bytes=step_peak, step_launches=step_launches,
+            losses=[m["loss"] for m in metrics])
+        groups = lambda g: ", ".join(f"{k} {v:.2f}" for k, v in g.items())
+        log(f"  {mode:7s}: request {med(lat):.1f} ms ({', '.join(f'{x:.1f}' for x in lat)}), "
+            f"device-busy {req_busy:.2f} ms ({groups(req_groups)}), peak "
+            f"{req_peak / 2 ** 30:.2f} GiB; step B={args.train_batch} "
+            f"{med(step_ms):.1f} ms ({', '.join(f'{x:.1f}' for x in step_ms)}), "
+            f"device-busy {step_busy:.2f} ms ({groups(step_groups)}), peak "
+            f"{step_peak / 2 ** 30:.2f} GiB; losses "
+            f"{', '.join(f'{x:.3f}' for x in out[mode]['losses'])} "
+            f"[{card}]")
+    return out
 
 
 # ------------------------------------------------------------- main
@@ -2839,6 +3213,11 @@ def run(args):
     report["dropout"] = check_dropout(gen, 0x5EED0000 + args.seed)
     bwd_row = check_attention_backward(shapes, gen, 0x5EED0000 + args.seed,
                                        args.train_batch)
+    log("  K3 and K4 with bf16 operands (--use_bf16), against f32 operands")
+    fwd_bf16, bwd_bf16 = check_attention_bf16_operands(
+        shapes, gen, 0x5EED0000 + args.seed, args.train_batch)
+    att_row.update(fwd_bf16)
+    bwd_row.update(bwd_bf16)
     from butd_detr_tpu_torch.data import synthetic_batch
 
     def train_batch(i):
@@ -2862,6 +3241,9 @@ def run(args):
         row["request_ms"] = one["ms"]
         row["request_shapes"] = one["shapes"]
     del train_tiers
+    log("  K6 and K5 at the rows of the --use_bf16 model")
+    g_row["bf16_rows"], sc_row["bf16_rows"] = check_bf16_rows(
+        gen, args.train_batch)
     log("  the accuracy study's shapes (phases 9 and 10)")
     report["study_shapes"] = check_study_shapes(gen, args.seed)
     log("  the assignment of the loss's matching, at every path's shape")
@@ -2922,7 +3304,7 @@ def run(args):
 
     # 4. card vs CPU, f32 + precise, same weights; then the default mode
     log("== phase 4: one request on the card and on the CPU (f32, precise), "
-        "and on the card in the default mode")
+        "and on the card in the default and --use_bf16 modes")
     report["card_vs_cpu"] = compare_card_cpu(args, roberta, npoints,
                                              scenes[0], REQUESTS[0][0])
     torch.cuda.empty_cache()
@@ -2951,8 +3333,21 @@ def run(args):
     del trainer
     torch.cuda.empty_cache()
 
-    # 8. train and evaluate from a data root through the CLI
+    # 11 (run here, while the phase-6 batches are at hand). --use_bf16
+    # beside the default mode: requests and training steps
     card = card_name_and_limit()
+    log("== phase 11: --use_bf16 beside the default mode: 3 requests and "
+        f"2 training steps at B={args.train_batch} each, device-busy ms "
+        "by group, peak memory")
+    report["bf16_mode"] = bf16_mode(args, cfg, roberta, npoints, scenes,
+                                    batches, card)
+    bf16_launches = {
+        k: report["bf16_mode"]["bf16"]["request_launches"][k]
+        + report["bf16_mode"]["bf16"]["step_launches"][k]
+        for k in report["bf16_mode"]["bf16"]["step_launches"]}
+    torch.cuda.empty_cache()
+
+    # 8. train and evaluate from a data root through the CLI
     log("== phase 8: prepare_data_torch.py, train_torch.py, predict_torch.py "
         "and the detection evaluation on a "
         f"ScanNet-format root ({CLI_SCENES['points_per_scan']} points a "
@@ -3009,19 +3404,23 @@ def run(args):
               f"{name}: not launched by train_torch.py")
         check(probe_launches[name] > 0 and study_launches[name] > 0,
               f"{name}: not launched by the overfit probe or the study")
+        check(bf16_launches[name] > 0,
+              f"{name}: not launched by the --use_bf16 requests and steps")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"butd_detr_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": (launches[name] + train_launches[name]
                          + eval_launches[name] + cli_launches[name]
-                         + probe_launches[name] + study_launches[name]),
+                         + probe_launches[name] + study_launches[name]
+                         + bf16_launches[name]),
             "launches_serving": launches[name],
             "launches_training": train_launches[name],
             "launches_evaluation": eval_launches[name],
             "launches_cli": cli_launches[name],
             "launches_probe": probe_launches[name],
             "launches_study": study_launches[name],
+            "launches_bf16": bf16_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -3040,7 +3439,10 @@ def run(args):
                       "plain_ms_cli", "library_ms_cli", "bound_ms_cli",
                       "ms_probe", "plain_ms_probe", "library_ms_probe",
                       "bound_ms_probe", "ms_study", "plain_ms_study",
-                      "library_ms_study", "bound_ms_study"):
+                      "library_ms_study", "bound_ms_study",
+                      "ms_bf16_operands", "ms_f32_operands",
+                      "training_ms_bf16_operands",
+                      "training_ms_f32_operands", "bf16_rows"):
             if extra in row:
                 kernels[-1][extra] = row[extra]
     report["kernels"] = kernels

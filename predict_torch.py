@@ -69,6 +69,8 @@ def main(argv=None):
     pred = GroundingPredictor.from_checkpoint(
         cfg, cfg.checkpoint_path, tokenizer, roberta_config=roberta,
         backbone_npoints=tuple(args.backbone_npoints), device=args.device)
+    print(f"predict_torch: compute dtype {pred.model.dtype} "
+          f"(--use_bf16 {cfg.use_bf16})", file=sys.stderr)
     out = pred.predict(cloud, args.utterance, phrase=args.phrase,
                        mode=args.mode, top_k=args.top_k)
     print(json.dumps({

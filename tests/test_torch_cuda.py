@@ -12,7 +12,8 @@ scatter-add within the bounds of chip_smoke.py; the launch path's rules
 (the index in its own type, no cast kernel, the caller's current stream)
 through torch.profiler. The ball query's hashed-grid kernel (sa1) on clouds
 made to break a grid; the scatter-add bit-equal to its plain version on
-the CPU and from run to run. The grouped gather's MLP-input kernel
+the CPU and from run to run. K3 and K4 with bf16 operands bit-equal to
+f32 operands of the same values. The grouped gather's MLP-input kernel
 bit-equal to its plain version at the four set-abstraction tiers (B = 1
 and 8, int32 and int64 indices, special values, indices out of range) and
 at shapes whose tiles are not multiples of 16 bytes. The assignment
@@ -365,6 +366,54 @@ def test_attention_mma_kernel_unaligned_rows(gpu, p):
     kw = dict(sm_scale=dh ** -0.5, dropout_p=p, seed=seed)
     assert torch.equal(attention(shifted, k, v, pad, **kw),
                        attention(q, k, v, pad, **kw))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("lq,lk", [(65, 127), (132, 1024)])
+@pytest.mark.parametrize("dh", [1, 18, 33, 36, 64])
+def test_attention_bf16_operands_equal_f32_operands(gpu, dh, lq, lk, p):
+    """K3 and K4 read bf16 q, k, v and dO as they are (the `--use_bf16`
+    model's): their outputs and gradients are the bits of the same
+    kernels fed f32 operands of the same values, at ragged lengths, head
+    dims whose rows take the 8-byte copies (dh % 4 == 0) or the plain
+    loads (odd and even dh), a fully masked row, with and without
+    dropout; gradients come back f32, and through autograd in bf16."""
+    B, H, seed = 2, 3, 5 + dh
+    q, k, v, do, pad = (t.to(torch.bfloat16) if t.is_floating_point() else t
+                        for t in _qkv(gpu, dh + lq, B, H, lq, lk, dh))
+    f32 = [t.float() for t in (q, k, v, do)]
+    kw = dict(sm_scale=dh ** -0.5, dropout_p=p, seed=seed)
+    got = attention(q, k, v, pad, **kw)
+    assert got.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(attention(*f32[:3], pad, **kw)))
+    grads = attention_backward(q, k, v, do, pad, **kw)
+    for g, w in zip(grads, attention_backward(*f32, pad, **kw)):
+        assert g.dtype == torch.float32
+        assert torch.equal(_bits(g), _bits(w))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    attention(*leaves, pad, **kw).backward(do.float())
+    for leaf, w in zip(leaves, grads):
+        assert leaf.grad.dtype == torch.bfloat16
+        assert torch.equal(leaf.grad, w.to(torch.bfloat16))
+
+
+def test_attention_bf16_operands_unaligned_rows(gpu):
+    """bf16 rows that start 2 bytes off an 8-byte boundary take the plain
+    loads; the result is the aligned input's."""
+    B, H, lq, lk, dh, seed = 2, 3, 70, 90, 36, 3
+    q, k, v, do, pad = _qkv(gpu, 22, B, H, lq, lk, dh)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    flat = torch.empty(B * lq * H * dh + 1, device=gpu,
+                       dtype=torch.bfloat16)
+    shifted = flat[1:].view(B, lq, H, dh).transpose(1, 2)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 8 == 2
+    kw = dict(sm_scale=dh ** -0.5, dropout_p=0.1, seed=seed)
+    assert torch.equal(attention(shifted, k, v, pad, **kw),
+                       attention(q, k, v, pad, **kw))
+    for a, b in zip(attention_backward(shifted, k, v, do, pad, **kw),
+                    attention_backward(q, k, v, do, pad, **kw)):
+        assert torch.equal(a, b)
 
 
 def _cuda_kernels(fn):

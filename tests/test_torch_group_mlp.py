@@ -2,8 +2,10 @@
 
 The JAX package runs its model, loss and evaluators under `jax.jit`, where
 XLA turns a tensor divided by a Python constant into a multiply by the f32
-reciprocal. The JAX side here therefore always runs jitted: eager `jnp`
-divides for real and would hide a port that divides.
+reciprocal. The JAX side here therefore runs jitted: eager `jnp` divides
+for real and would hide a port that divides. The one eager site is the
+JAX predictor's `contrast_scores`, held against the port's predictor's
+true division.
 
 * `QueryAndGroup` (f32 and bf16 MLP, with and without features) bit-equal
   to the JAX module under jit; the temperature sites (`contrast_scores`
@@ -36,6 +38,8 @@ from butd_detr_tpu.losses.criterion import (
     loss_contrastive_align as j_loss_contrastive_align,
 )
 from butd_detr_tpu.nn.pointnet2 import QueryAndGroup as JQueryAndGroup
+from butd_detr_tpu_torch import predict as predict_module
+from butd_detr_tpu_torch.config import Config
 from butd_detr_tpu_torch.eval.grounding import contrast_logits
 from butd_detr_tpu_torch.losses.criterion import contrastive_logits
 from butd_detr_tpu_torch.nn import Pointnet2Backbone, QueryAndGroup
@@ -106,9 +110,10 @@ def test_query_and_group_f32_bit_equal_to_jitted_jax(radius, ns, c,
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
-def _upto_first_div(fn, args):
-    """`fn(*args)` under jax.jit, stopped at the output of its first
-    division: the jaxpr of `fn` cut after that equation, then jitted."""
+def _upto_first_div(fn, args, jit=True):
+    """`fn(*args)` under jax.jit (or eagerly, op by op), stopped at the
+    output of its first division: the jaxpr of `fn` cut after that
+    equation, then run."""
     closed = jax.make_jaxpr(fn)(*args)
     jaxpr = closed.jaxpr
     i = next(i for i, e in enumerate(jaxpr.eqns)
@@ -116,6 +121,9 @@ def _upto_first_div(fn, args):
     cut = jaxpr.replace(eqns=jaxpr.eqns[:i + 1],
                         outvars=list(jaxpr.eqns[i].outvars))
     run = jcore.jaxpr_as_fun(jcore.ClosedJaxpr(cut, closed.consts))
+    if not jit:
+        with jax.disable_jit():
+            return np.asarray(run(*args)[0])
     return np.asarray(jax.jit(run)(*args)[0])
 
 
@@ -155,6 +163,41 @@ def test_temperature_sites_bit_equal_to_jitted_jax(site):
     sim = torch.einsum("bqd,btd->bqt", torch.from_numpy(q),
                        torch.from_numpy(t))
     assert (_bits(sim / 0.07) != want.view(np.int32)).any()
+
+
+def test_predictor_divides_as_the_eager_jax_predictor(monkeypatch):
+    """The JAX predictor calls `contrast_scores` eagerly (predict.py:223),
+    outside its jitted forward: a true division by 0.07, which the port's
+    predictor repeats (`divide=True`), bit for bit; the evaluators' form
+    stays the jitted multiply (the test above)."""
+    q, t = _exact_projections(4, 1, 256, 24)
+    want = _upto_first_div(
+        lambda a, b: j_contrast_scores(
+            {"last_proj_queries": a, "proj_tokens": b}, "last_", 256),
+        (q, t), jit=False)
+    ep = {"last_proj_queries": torch.from_numpy(q),
+          "proj_tokens": torch.from_numpy(t)}
+    got = contrast_logits(ep, "last_", divide=True)
+    np.testing.assert_array_equal(_bits(got), want.view(np.int32))
+    jitted = contrast_logits(ep, "last_")
+    assert (_bits(jitted) != want.view(np.int32)).any()
+    # GroundingPredictor.predict scores `bbf` with the dividing form
+    seen = []
+    scores = predict_module.contrast_scores
+    monkeypatch.setattr(predict_module, "contrast_scores",
+                        lambda *a, **kw: seen.append(kw) or scores(*a, **kw))
+    from test_torch_model import NPOINTS, ROBERTA
+
+    pred = predict_module.GroundingPredictor(
+        Config(use_color=True, butd_cls=True, use_contrastive_align=True,
+               num_target=8, num_encoder_layers=1, num_decoder_layers=1,
+               max_text_len=16, num_points=512),
+        predict_module.SimpleTokenizer(128, 16),
+        roberta_config=predict_module.RobertaConfig(**ROBERTA),
+        backbone_npoints=NPOINTS, device="cpu")
+    cloud = np.random.RandomState(0).rand(600, 6).astype(np.float32)
+    pred.predict(cloud, "the chair by the table", phrase="chair", top_k=3)
+    assert seen == [{"divide": True}]
 
 
 def test_reciprocal_f32_is_the_f32_division():

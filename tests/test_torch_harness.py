@@ -497,7 +497,6 @@ def test_what_waits_for_its_slice_says_so(tmp_path):
     cfg = Config(**dict(CFG, log_dir=str(tmp_path / "log")))
     for kw, queue in ((dict(mp=2), "Distribution"),
                       (dict(profile_dir="p"), "rest of the surface"),
-                      (dict(use_bf16=True), "Precision"),
                       (dict(use_multiview=True), "Data: multiview")):
         with pytest.raises(NotImplementedError, match=queue):
             TrainTester(dataclasses.replace(cfg, **kw), device="cpu")

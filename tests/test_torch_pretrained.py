@@ -1,4 +1,5 @@
-"""Pretrained initialisation and the `--use_bf16` refusal, on the CPU.
+"""Pretrained initialisation, and `--use_bf16` at every entry point, on
+the CPU.
 
 The port's `train/pretrained.py:apply_pretrained_init` against the JAX
 package's on one set of weights (moved across by
@@ -14,7 +15,6 @@ HF-named RoBERTa file; and a RoBERTa source that does not exist (the
 "skipped" path keeps the random init).
 """
 
-import dataclasses
 import os
 import sys
 
@@ -227,23 +227,31 @@ def test_train_tester_loads_the_default_table_before_a_restore(tmp_path):
 
 @pytest.mark.parametrize("entry", ["build_model", "Trainer",
                                    "GroundingPredictor", "TrainTester"])
-def test_use_bf16_is_refused_by_every_entry_point(tmp_path, entry):
-    """The port builds the transformer stack in f32 only; `--use_bf16`
-    raises, naming the ROADMAP queue, instead of giving an f32 model."""
-    cfg = Config(**dict(CFG, use_bf16=True, log_dir=str(tmp_path / "log")))
+def test_use_bf16_is_honoured_by_every_entry_point(tmp_path, entry):
+    """`--use_bf16` builds the bf16-compute model at every entry point: f32
+    parameters, bf16 out of its heads (tests/test_torch_bf16*.py hold it
+    against the JAX model); the same config without the flag, f32 out."""
     roberta = RobertaConfig(**ROBERTA)
-    make = {
-        "build_model": lambda: build_model(cfg, roberta, NPOINTS),
-        "Trainer": lambda: Trainer(cfg, roberta_config=roberta,
-                                   backbone_npoints=NPOINTS, device="cpu"),
-        "GroundingPredictor": lambda: GroundingPredictor(
-            cfg, roberta_config=roberta, backbone_npoints=NPOINTS,
-            device="cpu"),
-        "TrainTester": lambda: _Tester(cfg, device="cpu"),
-    }[entry]
-    with pytest.raises(NotImplementedError,
-                       match=r"--use_bf16.*ROADMAP queue 1, 'Precision'"):
-        make()
-    # the flag is the only difference: the same config builds without it
-    assert build_model(dataclasses.replace(cfg, use_bf16=False), roberta,
-                       NPOINTS) is not None
+    feats = torch.randn(1, 5, 288)
+    base = torch.rand(1, 5, 3)
+    for use_bf16, dtype in ((True, torch.bfloat16), (False, torch.float32)):
+        cfg = Config(**dict(CFG, use_bf16=use_bf16,
+                            log_dir=str(tmp_path / f"log{use_bf16}")))
+        model = {
+            "build_model": lambda: build_model(cfg, roberta, NPOINTS),
+            "Trainer": lambda: Trainer(
+                cfg, roberta_config=roberta, backbone_npoints=NPOINTS,
+                device="cpu").model,
+            "GroundingPredictor": lambda: GroundingPredictor(
+                cfg, roberta_config=roberta, backbone_npoints=NPOINTS,
+                device="cpu").model,
+            "TrainTester": lambda: _Tester(cfg, device="cpu").get_trainer(
+                1).model,
+        }[entry]().eval()
+        assert model.dtype is dtype
+        assert {p.dtype for p in model.parameters()} == {torch.float32}
+        with torch.no_grad():
+            heads = model.prediction_heads[-1](feats, base.to(dtype))
+            logits = model.points_obj_cls(feats)
+        assert {v.dtype for v in heads.values()} == {dtype}, entry
+        assert logits.dtype is dtype
