@@ -134,13 +134,16 @@ _SCALAR_TYPES = {int: int, float: float, str: str, Optional[str]: str,
                  Optional[int]: int}
 
 
-def parse_config(argv: Optional[List[str]] = None) -> Config:
+def parse_config(argv: Optional[List[str]] = None,
+                 description: Optional[str] = None) -> Config:
     """Parse CLI flags with the reference's names (`--lr_backbone` or
     `--lr-backbone`); unknown flags are ignored. Booleans take the
     reference's positive flag (`--butd_cls`) and `--no-<flag>`, so the
     True-by-default options can be turned off. `--eval_train` implies
-    `--eval`."""
-    parser = argparse.ArgumentParser()
+    `--eval`. `description` heads `--help`."""
+    parser = argparse.ArgumentParser(
+        description=description,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     for f in dataclasses.fields(Config):
         name = "--" + f.name
         alt = "--" + f.name.replace("_", "-")

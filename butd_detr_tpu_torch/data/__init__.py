@@ -46,6 +46,7 @@ from butd_detr_tpu_torch.data.scannet_config import (
 )
 from butd_detr_tpu_torch.data.synthetic import (
     SyntheticGroundingDataset,
+    make_fake_multiview,
     make_fake_scannet,
     make_rich_scannet,
     make_trainval_root,
@@ -73,6 +74,7 @@ __all__ = [
     "is_view_dep",
     "load_scan_cache",
     "load_scans_parallel",
+    "make_fake_multiview",
     "make_fake_scannet",
     "make_rich_scannet",
     "make_trainval_root",

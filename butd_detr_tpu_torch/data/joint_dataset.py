@@ -15,8 +15,11 @@ dtypes and values:
   * tokenization happens here, on the host: samples carry `text_ids` /
     `text_mask` and the utterance for the evaluator.
 
-Multiview features (`use_multiview`, ENet features in an HDF5 file) are not
-ported: the flag raises.
+With `use_multiview` each point also carries its 128 ENet features
+(`scanrefer_2d_feats/enet_feats_maxpool.hdf5`, one dataset a scan, rows
+aligned with the loaded cloud), read through `h5py` with one open handle
+a process and appended after the colour and height channels, unaugmented,
+as the JAX package does.
 """
 
 import csv
@@ -101,11 +104,6 @@ class JointGroundingDataset:
         max_det_boxes: Optional[int] = None,
         spatial_sort: bool = True,
     ):
-        if use_multiview:
-            raise NotImplementedError(
-                "use_multiview (per-point ENet features from the ScanRefer "
-                "HDF5 file) is not ported yet (ROADMAP queue 1, 'Data: "
-                "multiview')")
         if dataset_dict is None:
             dataset_dict = {"sr3d": 1, "scannet": 10}
         self.dataset_dict = dataset_dict
@@ -115,6 +113,8 @@ class JointGroundingDataset:
         self.data_path = data_path
         self.use_color = use_color
         self.use_height = use_height
+        self.use_multiview = use_multiview
+        self._multiview_files: Dict[int, object] = {}
         self.detect_intermediate = detect_intermediate
         self.butd = butd
         self.butd_gt = butd_gt
@@ -453,6 +453,9 @@ class JointGroundingDataset:
         if self.use_height:
             floor = np.percentile(pc[:, 2], 0.99)
             height = (pc[:, 2] - floor)[:, None]
+        multiview = None
+        if self.use_multiview:
+            multiview = self._load_multiview(anno["scan_id"])
 
         augmentations: Dict = {}
         if self.augment:
@@ -476,8 +479,28 @@ class JointGroundingDataset:
             feats.append(color)
         if height is not None:
             feats.append(height)
+        if multiview is not None:
+            feats.append(multiview)
         point_cloud = np.concatenate(feats, axis=1)
         return point_cloud, pc, augmentations, rel_name
+
+    def _load_multiview(self, scan_id: str) -> np.ndarray:
+        """Per-point 2D ENet features from the ScanRefer HDF5 file
+        (reference joint_det_dataset.py:84-88, 350-356), opened lazily
+        once a process."""
+        import h5py
+
+        pid = os.getpid()
+        if pid not in self._multiview_files:
+            self._multiview_files[pid] = h5py.File(
+                osp.join(self.data_path, "scanrefer_2d_feats",
+                         "enet_feats_maxpool.hdf5"), "r", libver="latest")
+        return np.asarray(self._multiview_files[pid][scan_id])
+
+    def __getstate__(self):
+        # a loader worker opens its own handle: an HDF5 handle does not
+        # pickle
+        return dict(self.__dict__, _multiview_files={})
 
     @staticmethod
     def _object_bbox(scan, object_id: int, pc: np.ndarray) -> np.ndarray:

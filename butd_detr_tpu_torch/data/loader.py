@@ -5,6 +5,12 @@ reference's torch DataLoader + DistributedSampler, main_utils.py:197-233):
 
   * fixed-shape numpy batches (every sample is already padded);
   * a contiguous shard of the (shuffled) index order per process;
+  * the rows of one dp shard (`dp_index`, `dp_size`): `batch_size` is the
+    batch of one step across the dp shards, as the JAX loader's batch is
+    the one that its process's dp devices split. Shard i makes rows
+    [i·B/dp, (i+1)·B/dp) of every batch of the one-shard loader, with the
+    same order and the same per-index seeds, so its samples are that
+    loader's; `"__valid__"` still counts the whole batch's real rows;
   * deterministic seeding: shuffle = f(seed, epoch), sample rng =
     f(seed, epoch, index), the same functions as the JAX package's, so the
     same seed gives the same order and the same samples, in the calling
@@ -66,9 +72,15 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, num_workers: int = 0,
                  prefetch: int = 2, process_index: int = 0,
-                 process_count: int = 1):
+                 process_count: int = 1, dp_index: int = 0,
+                 dp_size: int = 1):
+        if batch_size % dp_size:
+            raise ValueError(f"--batch_size {batch_size} does not split "
+                             f"over --dp {dp_size}")
         self.dataset = dataset
-        self.batch_size = batch_size  # per-process batch
+        self.batch_size = batch_size  # per-process batch, all dp shards
+        self.dp_index = dp_index
+        self.dp_size = dp_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
@@ -103,18 +115,25 @@ class DataLoader:
         return int((self.seed * 2_000_003 + self.epoch * 1_000_003 + index)
                    % (2**31))
 
+    @property
+    def shard_size(self) -> int:
+        """The rows of a batch that this dp shard makes."""
+        return self.batch_size // self.dp_size
+
     def batch_indices(self):
-        """[(indices (batch_size,), valid)] of this epoch: a short tail is
+        """[(indices (shard_size,), valid)] of this epoch: a short tail is
         padded by cyclic repetition (torch's DistributedSampler pads the
-        same way) and `valid` counts its real leading rows."""
+        same way) and `valid` counts the whole batch's real leading rows
+        (the dp shards' rows concatenated)."""
         idx = self._indices()
+        per, lo = self.shard_size, self.dp_index * self.shard_size
         out = []
         for i in range(len(self)):
             b = idx[i * self.batch_size:(i + 1) * self.batch_size]
             valid = len(b)
             if valid < self.batch_size:
                 b = np.resize(b, self.batch_size)
-            out.append((b, valid))
+            out.append((b[lo:lo + per], valid))
         return out
 
     def _get_pool(self) -> ProcessPoolExecutor:

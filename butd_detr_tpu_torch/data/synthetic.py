@@ -490,3 +490,24 @@ def make_trainval_root(root: str) -> str:
     if osp.exists(stale) and not osp.islink(stale):
         os.remove(stale)
     return alt
+
+
+def make_fake_multiview(root: str, scans: Dict, dim: int = 32,
+                        seed: int = 0) -> str:
+    """Write `scanrefer_2d_feats/enet_feats_maxpool.hdf5` with per-point 2D
+    features aligned to each LOADED scan's point count (the real file is
+    built from the preprocessed clouds; reference joint_det_dataset.py:84-88
+    reads it raw and concatenates per point, :448-450). Returns the path.
+    The model's recipes read 128 features a point (`dim=128`)."""
+    import h5py
+
+    rng = np.random.RandomState(seed)
+    d = osp.join(root, "scanrefer_2d_feats")
+    os.makedirs(d, exist_ok=True)
+    path = osp.join(d, "enet_feats_maxpool.hdf5")
+    with h5py.File(path, "w") as f:
+        for sid, scan in scans.items():
+            f.create_dataset(
+                sid, data=rng.rand(len(scan.orig_pc), dim).astype(np.float32)
+            )
+    return path

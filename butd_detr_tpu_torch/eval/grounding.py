@@ -284,9 +284,10 @@ class GroundingEvaluator:
             self.dets[inverse[field]] += float((found * neg).sum())
             self.gts[inverse[field]] += float(neg.sum())
 
-    def synchronize_between_processes(self):
-        self.dets = allreduce_dict(self.dets)
-        self.gts = allreduce_dict(self.gts)
+    def synchronize_between_processes(self, group=None):
+        """Sum the counters over `group`'s processes (None: all)."""
+        self.dets = allreduce_dict(self.dets, group)
+        self.gts = allreduce_dict(self.gts, group)
 
     def accuracy(self, prefix: str, t: float, k: int, mode: str = "bbf"):
         return self.dets[(prefix, t, k, mode)] / max(

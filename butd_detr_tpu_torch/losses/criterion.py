@@ -4,7 +4,12 @@ the keypoint-objectness focal loss, fixed-shape and mask-driven.
 Counterpart of `butd_detr_tpu/losses/criterion.py` (reference
 models/losses.py:94-617): every loss is a masked tensor op over padded
 (B, G_max) targets. `num_boxes` is the one global count of valid targets
-of the batch. The matched predictions are gathered with the port's
+of the batch: across processes (`group`, the dp group) it is summed over
+every rank's rows, and each rank divides by its share of it, so that the
+mean of the ranks' losses is the global batch's loss, as under the JAX
+package's dp-sharded step. Every other denominator is a per-sample mean
+(the objectness loss's `/ B`) or a constant, which equal shards average
+correctly. The matched predictions are gathered with the port's
 `gather_points`, so their gradient is the row scatter-add.
 
 Nothing crosses between host and device, so the loss never makes the host
@@ -16,6 +21,7 @@ copied from the host, a synchronisation).
 from typing import Dict, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from butd_detr_tpu_torch.losses.boxes import (
     box_cxcyczwhd_to_xyzxyz,
@@ -24,6 +30,7 @@ from butd_detr_tpu_torch.losses.boxes import (
 from butd_detr_tpu_torch.losses.matcher import hungarian_match
 from butd_detr_tpu_torch.models.bdetr import prediction_prefixes
 from butd_detr_tpu_torch.ops import gather_points
+from butd_detr_tpu_torch.parallel.collectives import reduce_from_group
 from butd_detr_tpu_torch.utils.numerics import reciprocal_f32
 
 
@@ -246,12 +253,13 @@ def set_criterion_losses(outputs: Dict[str, torch.Tensor],
 def compute_hungarian_loss(end_points: Dict[str, torch.Tensor],
                            num_decoder_layers: int = 6,
                            cfg: CriterionConfig = CriterionConfig(),
-                           query_points_obj_topk: int = 4):
+                           query_points_obj_topk: int = 4, group=None):
     """Total loss over the proposal and decoder-layer prefixes (reference
     compute_hungarian_loss): 8 * kps + (ce + 5 * bbox + giou + contrastive)
     / (layers + 1). Adds the per-prefix and summed losses to `end_points`
     and returns (loss, end_points). All prefixes' cost matrices are matched
-    in one call, on the device."""
+    in one call, on the device. `group`: the process group whose rows
+    share one box count (None: this batch alone)."""
     prefixes = prediction_prefixes(num_decoder_layers)
     targets = {
         "boxes": torch.cat([end_points["center_label"][:, :, :3],
@@ -262,7 +270,10 @@ def compute_hungarian_loss(end_points: Dict[str, torch.Tensor],
     }
     if "sem_cls_label" in end_points:
         targets["labels"] = end_points["sem_cls_label"]
-    num_boxes = targets["box_label_mask"].float().sum().clamp_min(1.0)
+    num_boxes = reduce_from_group(
+        targets["box_label_mask"].float().sum(), group).clamp_min(1.0)
+    if group is not None:
+        num_boxes = num_boxes / dist.get_world_size(group)
 
     P = len(prefixes)
     B = targets["box_label_mask"].shape[0]

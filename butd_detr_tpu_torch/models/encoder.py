@@ -13,13 +13,19 @@ from torch import nn
 
 from butd_detr_tpu_torch.nn.attention import MultiheadAttention
 from butd_detr_tpu_torch.nn.dropout import Dropout
-from butd_detr_tpu_torch.nn.mlp import Dense, LayerNorm
+from butd_detr_tpu_torch.nn.mlp import Dense, LayerNorm, row_parallel_dense
+from butd_detr_tpu_torch.parallel.collectives import copy_to_group
 
 LN_EPS = 1e-5
 
 
 class FFN(nn.Sequential):
-    """Linear-ReLU-Dropout-Linear-Dropout (keys 0 and 3)."""
+    """Linear-ReLU-Dropout-Linear-Dropout (keys 0 and 3).
+
+    Under tensor parallelism (`parallel/tp.py`) `mp_group` is set: the
+    first Linear holds its rank's output columns (column-parallel), the
+    second the matching input columns (row-parallel, all-reduced before
+    its bias and the last dropout, whose mask every rank draws alike)."""
 
     def __init__(self, d_model: int, dim_feedforward: int,
                  dropout: float = 0.1, dtype=torch.float32):
@@ -27,6 +33,16 @@ class FFN(nn.Sequential):
             Dense(d_model, dim_feedforward, dtype=dtype), nn.ReLU(),
             Dropout(dropout), Dense(dim_feedforward, d_model, dtype=dtype),
             Dropout(dropout))
+        self.mp_group = None
+
+    def forward(self, x):
+        if self.mp_group is None:
+            return super().forward(x)
+        first, relu, drop, second, drop_out = self
+        h = drop(relu(first(copy_to_group(x, self.mp_group))))
+        return drop_out(row_parallel_dense(
+            h, second.weight, second.bias, second.compute_dtype,
+            self.mp_group))
 
 
 class SelfAttnNoFFN(nn.Module):

@@ -12,14 +12,21 @@ The projections compute in `dtype` (`nn.mlp.dense`): under bf16 the core
 gets bf16 q, k and v, which the kernels read as they are, and its f32
 output is cast to bf16 by the out projection, as the JAX module casts the
 Pallas kernel's f32 output before `out_proj`.
+
+Under tensor parallelism (`parallel/tp.py`) `mp_group` is set and the
+layer holds its rank's shard: q/k/v rows of its H/mp heads (column-
+parallel; the inputs' gradients are all-reduced over the group) and the
+matching input columns of `out_proj` (row-parallel: the partial products
+are all-reduced in f32, the bias added after, in the compute dtype).
 """
 
 import torch
 from torch import nn
 
 from butd_detr_tpu_torch.nn.dropout import DropoutRng
-from butd_detr_tpu_torch.nn.mlp import Dense, dense
+from butd_detr_tpu_torch.nn.mlp import Dense, dense, row_parallel_dense
 from butd_detr_tpu_torch.ops import attention
+from butd_detr_tpu_torch.parallel.collectives import copy_to_group
 
 
 def multi_head(q, k, v, num_heads, key_padding_mask, *, dropout_p,
@@ -57,16 +64,21 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = Dense(d_model, d_model, dtype=dtype)
         self.dtype = dtype
+        self.mp_group = None
 
     def forward(self, query, key, value, key_padding_mask=None):
         """(B, Lq, F), (B, Lk, F), (B, Lk, F), (B, Lk) True == PAD."""
-        d, dt = self.d_model, self.dtype
+        g, dt = self.mp_group, self.dtype
+        d = self.in_proj_weight.shape[0] // 3  # d_model / mp under mp
         w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
-        q = dense(query, w[:d], b[:d], dt)
-        k = dense(key, w[d:2 * d], b[d:2 * d], dt)
-        v = dense(value, w[2 * d:], b[2 * d:], dt)
+        q = dense(copy_to_group(query, g), w[:d], b[:d], dt)
+        k = dense(copy_to_group(key, g), w[d:2 * d], b[d:2 * d], dt)
+        v = dense(copy_to_group(value, g), w[2 * d:], b[2 * d:], dt)
         p = self.dropout if self.training else 0.0
-        out = multi_head(q, k, v, self.num_heads, key_padding_mask,
-                         dropout_p=p, precise=self.precise,
+        out = multi_head(q, k, v, self.num_heads * d // self.d_model,
+                         key_padding_mask, dropout_p=p, precise=self.precise,
                          seed=self.rng.next_seed() if p > 0.0 else None)
-        return self.out_proj(out)
+        if g is None:
+            return self.out_proj(out)
+        return row_parallel_dense(out, self.out_proj.weight,
+                                  self.out_proj.bias, dt, g)

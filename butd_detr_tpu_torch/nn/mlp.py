@@ -14,6 +14,10 @@ hold f32 parameters and compute in a compute dtype (bf16 under
 `--use_bf16`); `Dense` is `nn.Linear` with one, and `LayerNorm` normalizes
 in f32 whatever its input's dtype, as the JAX package's LayerNorms
 (`dtype=jnp.float32`) do.
+
+Across processes (`parallel/`): a `BatchNorm` whose `group` is set
+normalises with the statistics of every rank's rows, and
+`row_parallel_dense` is the tensor-parallel half of a split product.
 """
 
 from typing import Sequence
@@ -21,6 +25,11 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from butd_detr_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    reduce_from_group,
+)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention (flax's 0.9 decay)
@@ -40,6 +49,18 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias=None,
     if dtype is torch.float32:
         return F.linear(x, w, bias.to(dtype))
     return F.linear(x, w) + bias.to(dtype)
+
+
+def row_parallel_dense(x: torch.Tensor, weight: torch.Tensor, bias,
+                       dtype, group) -> torch.Tensor:
+    """`dense` of a product split along its inputs over `group`: x and
+    `weight` are this rank's columns; the partial products (rounded to
+    `dtype`, as the one product would be) are summed over the group in f32
+    and the bias is added after, in `dtype`. The backward passes the
+    output's gradient to every rank unchanged."""
+    partial = dense(x, weight, None, dtype).float()
+    y = reduce_from_group(partial, group).to(dtype)
+    return y if bias is None else y + bias.to(dtype)
 
 
 class Dense(nn.Linear):
@@ -91,25 +112,52 @@ class BatchNorm(nn.BatchNorm1d):
     the running average takes that same BIASED variance, as flax's
     `nn.BatchNorm` does; `torch.nn.BatchNorm1d` would store the unbiased
     one (larger by n / (n - 1)). The port is held against the JAX package,
-    so the buffers are updated by hand here."""
+    so the buffers are updated by hand here. The variance is the mean
+    squared deviation from the mean (two passes), as `F.batch_norm`
+    normalizes with; flax's E[x^2] - E[x]^2 loses digits where the mean is
+    large against the spread.
+
+    With a process `group` (the dp group, `parallel.bind_batchnorm`) the
+    train-mode statistics are the group's: the mean and then the variance
+    from sums over every rank's rows, each all-reduced with a backward
+    that sums the gradients too, so each rank's rows get the gradient of
+    the global normalisation, as under the JAX package's dp-sharded step."""
 
     def __init__(self, num_features: int, dtype=None):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.out_dtype = dtype
+        self.group = None
+
+    def _update_running(self, mean, var) -> None:
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked += 1
+
+    def _global_forward(self, xf: torch.Tensor) -> torch.Tensor:
+        C = xf.shape[-1]
+        sums = all_reduce_sum(
+            torch.cat([xf.sum(dim=0), xf.new_full((1,), xf.shape[0])]),
+            self.group)
+        rows = sums[C]
+        mean = sums[:C] / rows
+        d = xf - mean
+        var = all_reduce_sum((d * d).sum(dim=0), self.group) / rows
+        self._update_running(mean.detach(), var.detach())
+        return d * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype if self.out_dtype is None else self.out_dtype
         xf = x.reshape(-1, x.shape[-1]).float()
         if not self.training:
             return super().forward(xf).reshape(x.shape).to(dtype)
+        if self.group is not None:
+            return self._global_forward(xf).reshape(x.shape).to(dtype)
         with torch.no_grad():
             mean = xf.mean(dim=0)
-            # E[x^2] - E[x]^2, clipped at 0: flax's variance
-            var = ((xf * xf).mean(dim=0) - mean * mean).clamp_min(0.0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked += 1
+            var = (xf - mean).square_().mean(dim=0)
+        self._update_running(mean, var)
         y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         return y.reshape(x.shape).to(dtype)

@@ -10,6 +10,12 @@ leaves optimizer, step and generator as they are. The frozen text tower is
 saved like the rest. `generator_state` is the trainer's host generator, from
 which every step draws its dropout seed, so a resumed run repeats the
 uninterrupted one.
+
+A checkpoint holds the one-process weights whatever the mesh: under `--mp`
+every rank gathers its shards (`Trainer.checkpoint_state`) and the first
+process writes; on load each rank takes its shard, so a checkpoint of a
+W-rank run loads into one process and into `predict_torch.py` unchanged,
+and the reverse.
 """
 
 import os
@@ -17,6 +23,8 @@ import re
 from typing import Optional
 
 import torch
+
+from butd_detr_tpu_torch.utils.dist import is_main_process
 
 _NAME = re.compile(r"ckpt_epoch_(\d+)\.pth$")
 
@@ -27,16 +35,15 @@ def _ckpt_path(log_dir: str, epoch: int) -> str:
 
 def save_checkpoint(log_dir: str, epoch: int, trainer) -> str:
     """Write `log_dir/ckpt_epoch_{E}.pth` (reference save_checkpoint,
-    main_utils.py:144-160); returns the path."""
+    main_utils.py:144-160); returns the path. Every rank calls this; the
+    first process writes."""
     path = _ckpt_path(log_dir, epoch)
+    payload = dict(trainer.checkpoint_state(), step=int(trainer.step),
+                   generator_state=trainer.generator.get_state(),
+                   epoch=int(epoch))
+    if not is_main_process():
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    payload = {
-        "model": trainer.model.state_dict(),
-        "optimizer": trainer.optimizer.state_dict(),
-        "step": int(trainer.step),
-        "generator_state": trainer.generator.get_state(),
-        "epoch": int(epoch),
-    }
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)  # a reader sees the whole file or none
@@ -49,9 +56,9 @@ def load_checkpoint(path: str, trainer, reduce_lr: bool = False) -> int:
     With `reduce_lr` only the parameters and buffers are restored
     (main_utils.py:122-141: optimizer and scheduler skipped)."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    trainer.model.load_state_dict(payload["model"])
+    trainer.load_checkpoint_state(
+        payload["model"], None if reduce_lr else payload["optimizer"])
     if not reduce_lr:
-        trainer.optimizer.load_state_dict(payload["optimizer"])
         trainer.step = int(payload["step"])
         trainer.generator.set_state(payload["generator_state"])
     return int(payload["epoch"]) + 1

@@ -20,10 +20,24 @@ With `--test_dataset scannet` the evaluation is detection mAP and AR at
 NMS and VOC AP on the host (`eval/detection.py`, numpy).
 
 `--use_bf16` builds the model in the bf16 compute dtype
-(`predict.build_model`). What waits for its slice raises
-`NotImplementedError` naming the ROADMAP queue: `--mp` and `--dp` above 1
-("Distribution"), `--use_multiview` ("Data: multiview") and the profiler
-window ("The rest of the surface").
+(`predict.build_model`); `--use_multiview` adds the ENet features to each
+point (`data/joint_dataset.py`).
+
+Across processes (`torchrun`, or ranks that a caller spawns) the caller
+starts the process group (`utils/dist.py:init_distributed`) before
+building the `TrainTester`, which lays the `(dp, mp)` mesh over it
+(`parallel/mesh.py`) with the JAX harness's meaning: `--batch_size` is
+the step's batch across the dp shards, each rank loads and steps on its
+rows, BatchNorm statistics are always global (`--syncbn` is logged and
+changes nothing), `--mp` shards the transformer (`parallel/tp.py`). The
+grounding evaluators' counters are summed over the dp group; detection
+gathers every shard's boxes onto the first process, which computes the AP
+of one process. Checkpoints hold the one-process weights.
+
+`--profile_dir` traces `--profile_steps` training steps with
+`torch.profiler` once a run, from the second batch of the first epoch
+(the first if the epoch has one), as the JAX harness's window, and writes
+one Chrome trace a rank into the directory.
 """
 
 import json
@@ -33,6 +47,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from butd_detr_tpu_torch.config import Config
 from butd_detr_tpu_torch.data.joint_dataset import JointGroundingDataset
@@ -53,6 +68,7 @@ from butd_detr_tpu_torch.eval.grounding import (
 from butd_detr_tpu_torch.lang.roberta import RobertaConfig, \
     roberta_base_config
 from butd_detr_tpu_torch.ops import _cuda
+from butd_detr_tpu_torch.parallel.mesh import make_mesh
 from butd_detr_tpu_torch.predict import build_model, resolve_device
 from butd_detr_tpu_torch.train.checkpoint import (
     latest_checkpoint,
@@ -187,34 +203,33 @@ class EpochMeter:
                                if cuda else None))
 
 
-def _refuse_unported(cfg: Config) -> None:
-    waits = {
-        "--mp > 1 (tensor parallelism)": (cfg.mp > 1, "Distribution"),
-        "--dp > 1 (data parallelism)": ((cfg.dp or 1) > 1, "Distribution"),
-        "--use_multiview (ENet multiview features)": (cfg.use_multiview,
-                                                      "Data: multiview"),
-        "--profile_dir (the profiler window)": (
-            bool(cfg.profile_dir), "The rest of the surface"),
-    }
-    for what, (asked, queue) in waits.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1, '{queue}')")
-
-
 class TrainTester:
     """End-to-end harness. `main()` mirrors BaseTrainTester.main
     (main_utils.py:286-359)."""
 
     def __init__(self, cfg: Config, device=None):
-        _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        # every rank makes the mesh's groups, before anything else does
+        self.mesh = make_mesh(dp=cfg.dp, mp=cfg.mp)
         os.makedirs(cfg.log_dir, exist_ok=True)
         self.logger = setup_logger(output=cfg.log_dir,
                                    distributed_rank=process_index())
-        with open(os.path.join(cfg.log_dir, "config.json"), "w") as f:
-            f.write(cfg.to_json())
+        if is_main_process():
+            with open(os.path.join(cfg.log_dir, "config.json"), "w") as f:
+                f.write(cfg.to_json())
+        backend = (dist.get_backend() if dist.is_initialized()
+                   else "none (one process)")
+        self.logger.info(
+            f"process group: backend {backend}, world size "
+            f"{process_count()}, dp {self.mesh.dp}, mp {self.mesh.mp}; "
+            f"rank {process_index()} on {self.device}")
+        if cfg.syncbn:
+            self.logger.info(
+                "--syncbn: BatchNorm statistics are global over the dp "
+                "group in every train step; cross-replica sync is "
+                "inherent")
+        self._profiled = False
 
     # ---------------- datasets / loaders ----------------
 
@@ -252,9 +267,8 @@ class TrainTester:
         cfg = self.cfg
         train_dataset, test_dataset = self.get_datasets()
         kw = dict(batch_size=cfg.batch_size, seed=cfg.rng_seed,
-                  num_workers=cfg.num_workers,
-                  process_index=process_index(),
-                  process_count=process_count())
+                  num_workers=cfg.num_workers, dp_index=self.mesh.dp_index,
+                  dp_size=self.mesh.dp)
         train_loader = DataLoader(train_dataset, shuffle=True, **kw)
         test_loader = DataLoader(test_dataset, shuffle=False,
                                  drop_last=False, **kw)
@@ -273,7 +287,7 @@ class TrainTester:
         optimizer and schedules, on the harness's device."""
         return Trainer(self.cfg, steps_per_epoch=max(steps_per_epoch, 1),
                        model=self.get_model(), device=self.device,
-                       seed=self.cfg.rng_seed)
+                       seed=self.cfg.rng_seed, mesh=self.mesh)
 
     def init_pretrained(self, trainer: Trainer) -> Dict[str, str]:
         """From-scratch initialization from pretrained sources, matching
@@ -333,13 +347,11 @@ class TrainTester:
             self.logger.info(
                 f"epoch {epoch}, total time {time.time() - tic:.2f}")
             if epoch % cfg.val_freq == 0:
-                if is_main_process():
-                    save_checkpoint(cfg.log_dir, epoch, trainer)
+                save_checkpoint(cfg.log_dir, epoch, trainer)
                 self.evaluate_one_epoch(epoch, test_loader, trainer)
 
-        if is_main_process():
-            path = save_checkpoint(cfg.log_dir, cfg.max_epoch, trainer)
-            self.logger.info(f"saved {path}")
+        path = save_checkpoint(cfg.log_dir, cfg.max_epoch, trainer)
+        self.logger.info(f"saved {path}")
         self.evaluate_one_epoch(cfg.max_epoch, test_loader, trainer)
         return trainer
 
@@ -355,38 +367,82 @@ class TrainTester:
         the JAX harness logs)."""
         cfg = self.cfg
         n = len(train_loader)
+        # the profiler window: `profile_steps` steps from the second batch
+        # (the first also warms the allocator and the kernels' builds),
+        # once a run
+        profile_at = (min(1, n - 1) if cfg.profile_dir and not self._profiled
+                      else None)
+        profiler = None
         meter = EpochMeter(train_loader, self.device)
         for batch_idx, batch in enumerate(meter):
+            if batch_idx == profile_at:
+                profiler = self._start_profiler()
             metrics = trainer.train_step_on_device(
                 {k: batch[k] for k in (*INPUT_KEYS, *TARGET_KEYS)})
+            if profiler is not None and \
+                    batch_idx >= profile_at + cfg.profile_steps - 1:
+                self._stop_profiler(profiler)
+                profiler = None
+                self.logger.info(
+                    f"profiler trace ({cfg.profile_steps} steps) written "
+                    f"to {cfg.profile_dir}")
             if (batch_idx + 1) % cfg.print_freq == 0:
                 stat = metrics_to_host(metrics)
                 self.logger.info(
                     f"Train: [{epoch}][{batch_idx + 1}/{n}] " + " ".join(
                         f"{k} {v:.4f}" for k, v in sorted(stat.items())))
+        if profiler is not None:  # an epoch shorter than the window
+            self._stop_profiler(profiler)
         self._log_epoch_stats("train", epoch,
                               meter.stats(scenes=n * cfg.batch_size))
 
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> str:
+        """Stop the window once the device has finished its steps; write
+        the rank's Chrome trace into `--profile_dir`."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        self._profiled = True
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir,
+                            f"trace_rank{process_index()}.json")
+        profiler.export_chrome_trace(path)
+        return path
+
     def _eval_batches(self, test_loader, trainer: Trainer):
-        """Yield (batch, end_points) for every eval batch, accumulating and
-        logging running-mean loss stats per print_freq window as the
+        """Yield (batch index, end_points) for every eval batch that holds
+        real rows of this dp shard, accumulating and logging running-mean
+        loss stats (the dp group's) per print_freq window as the
         reference's `_main_eval_branch` does (main_utils.py:458-494)."""
         stat: Dict[str, float] = {}
         wsum = 0.0
         n = len(test_loader)
         B = self.cfg.batch_size
+        rows = self.mesh.rows(B)  # this dp shard's rows of every batch
+        b = rows.stop - rows.start
         with_loss = not self.cfg.butd_cls
         for batch_idx, batch in enumerate(test_loader):
             # drop_last=False tail batches are padded to the fixed shape
             # by cyclic repetition (data/loader.py); only the first
-            # `valid` rows are real samples
+            # `valid` rows of the whole batch are real samples, and
+            # `mine` of this shard's
             valid = batch.pop("__valid__", B)
+            mine = min(max(valid - rows.start, 0), b)
             end_points = trainer.eval_step(
                 {k: batch[k] for k in (*INPUT_KEYS, *TARGET_KEYS)
                  if k in batch}, with_loss=with_loss)
             loss_keys = [k for k in METRIC_KEYS if k in end_points]
             if loss_keys:
-                vals = metrics_to_host({k: end_points[k] for k in loss_keys})
+                vals = metrics_to_host(trainer.dp_mean(
+                    {k: end_points[k] for k in loss_keys}))
                 # a padded tail's loss scalars are means over the FULL
                 # padded batch: weight by valid / B to keep the running
                 # mean per real sample
@@ -404,17 +460,19 @@ class TrainTester:
             for k in EVALUATOR_KEYS:
                 if k in batch:
                     end_points.setdefault(k, batch[k])
-            if valid < B:
+            if mine == 0:  # this shard holds only padding
+                continue
+            if mine < b:
                 # cut the padded duplicate rows so that the evaluator
                 # counts each real sample exactly once
                 end_points = {
-                    k: v[:valid]
+                    k: v[:mine]
                     if (hasattr(v, "ndim") and v.ndim >= 1
-                        and v.shape[0] == B)
-                    or (isinstance(v, list) and len(v) == B)
+                        and v.shape[0] == b)
+                    or (isinstance(v, list) and len(v) == b)
                     else v
                     for k, v in end_points.items()}
-            yield batch, end_points
+            yield batch_idx, end_points
 
     def evaluate_one_epoch(self, epoch: int, test_loader, trainer: Trainer):
         """Grounding evaluation (train_dist_mod.py:112-159), or detection
@@ -436,9 +494,10 @@ class TrainTester:
         meter = EpochMeter(test_loader, self.device)
         for _, end_points in self._eval_batches(meter, trainer):
             evaluator.evaluate(end_points)
-        evaluator.synchronize_between_processes()
+        if self.mesh.dp_group is not None:  # each dp shard's rows once
+            evaluator.synchronize_between_processes(self.mesh.dp_group)
         self._log_epoch_stats("eval", epoch, meter.stats(
-            scenes=len(test_loader.dataset) // process_count()))
+            scenes=len(test_loader.dataset)))
         if is_main_process():
             evaluator.print_stats()
         return evaluator
@@ -451,7 +510,11 @@ class TrainTester:
         `epoch stats` line adds `detection_seconds`, the host seconds of
         the projection, NMS and AP, and `detection_copy_seconds`, those of
         the end points' copy to the host, which waits for the batch's
-        forward pass."""
+        forward pass.
+
+        Across dp shards every rank parses its rows and the first process
+        steps the AP calculators through every shard's boxes in the order
+        of one process's batches; the others return None."""
         cfg = self.cfg
         dc18 = ScannetDatasetConfig(18)
         parse_cfg = default_parse_config(dataset_num_class=dc18.num_class)
@@ -461,7 +524,8 @@ class TrainTester:
                        for t in cfg.ap_iou_thresholds]
         meter = EpochMeter(test_loader, self.device)
         seconds = copy_seconds = 0.0
-        for _, end_points in self._eval_batches(meter, trainer):
+        parsed = []  # (batch index, dp index, predictions, ground truths)
+        for batch_idx, end_points in self._eval_batches(meter, trainer):
             t0 = time.perf_counter()
             ep = detection_inputs_to_host(end_points)
             t1 = time.perf_counter()
@@ -480,21 +544,29 @@ class TrainTester:
                 cls = 18 if w == 0 else w - 1
                 sem[..., cls] += scores[..., t]
             ep["last_sem_cls_scores"] = sem
-            preds = parse_predictions(ep, parse_cfg, "last_")
-            gts = parse_groundtruths(ep)
-            for calc in calculators:
-                calc.step(preds, gts)
+            parsed.append((batch_idx, self.mesh.dp_index,
+                           parse_predictions(ep, parse_cfg, "last_"),
+                           parse_groundtruths(ep)))
             seconds += time.perf_counter() - t1
         t0 = time.perf_counter()
-        results = {t: calc.compute_metrics()
-                   for t, calc in zip(cfg.ap_iou_thresholds, calculators)}
+        if self.mesh.dp_group is not None:
+            shards = [None] * self.mesh.dp
+            dist.all_gather_object(shards, parsed, group=self.mesh.dp_group)
+            parsed = sorted((p for shard in shards for p in shard),
+                            key=lambda p: p[:2])
+        results = None
+        if is_main_process():
+            for _, _, preds, gts in parsed:
+                for calc in calculators:
+                    calc.step(preds, gts)
+            results = {t: calc.compute_metrics() for t, calc in
+                       zip(cfg.ap_iou_thresholds, calculators)}
         seconds += time.perf_counter() - t0
-        stats = meter.stats(
-            scenes=len(test_loader.dataset) // process_count())
+        stats = meter.stats(scenes=len(test_loader.dataset))
         self._log_epoch_stats("eval", epoch, dict(
             stats, detection_seconds=seconds,
             detection_copy_seconds=copy_seconds))
-        for t, metrics in results.items():
+        for t, metrics in (results or {}).items():
             self.logger.info(f"=====> last_ IOU THRESH: {t} <=====")
             self.logger.info(
                 f"mAP {metrics['mAP']:.4f} AR {metrics['AR']:.4f}")

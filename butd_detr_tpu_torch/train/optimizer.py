@@ -18,11 +18,12 @@ main_utils.get_optimizer and utils/lr_scheduler.py):
 """
 
 import math
-from typing import Callable, Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
 from butd_detr_tpu_torch.config import Config
+from butd_detr_tpu_torch.parallel.collectives import reduce_from_group
 
 GROUPS = ("main", "backbone", "text")
 
@@ -95,13 +96,29 @@ def make_optimizer(cfg: Config, named_parameters: Iterable
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Optional[torch.Tensor] = None,
+                         group=None) -> torch.Tensor:
     """Scale `grads` in place so that their global L2 norm is at most
     `max_norm`; returns the norm before clipping (a 0-d tensor on the
-    gradients' device, no host synchronisation)."""
-    norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(grads)))
+    gradients' device, no host synchronisation).
+
+    Under tensor parallelism `sharded` (a bool tensor on the gradients'
+    device, one entry a gradient) marks the gradients that are this
+    rank's shard of a parameter split over the mp `group`: their
+    squares are summed over the group, the replicated ones' counted
+    once, so every rank clips by the one-process norm."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if group is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        mask = sharded
+        squares = norms * norms
+        split = reduce_from_group(
+            torch.where(mask, squares, torch.zeros_like(squares)).sum(),
+            group)
+        norm = torch.sqrt(split + torch.where(
+            mask, torch.zeros_like(squares), squares).sum())
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(grads, scale)

@@ -4,14 +4,24 @@ Counterpart of `butd_detr_tpu/train/step.py`. `Trainer.train_step` runs
 forward in train mode -> 7-prefix Hungarian loss (matching on the host, one
 copy) -> backward -> global-norm clip -> 3-group AdamW step, on `cuda`
 unless the caller passes `device="cpu"`. The JAX package compiles this
-into one program over a device mesh; here it is eager PyTorch on one
-device, with the TPU kernels' counterparts (FPS, ball query, attention
-forward and backward, row scatter-add) as CUDA kernels.
+into one program over a device mesh; here it is eager PyTorch, with the
+TPU kernels' counterparts (FPS, ball query, attention forward and
+backward, row scatter-add) as CUDA kernels.
+
+Across processes (`mesh`, `parallel/mesh.py`) each rank steps on its rows
+of the batch: BatchNorm statistics and the loss's box count are the dp
+group's, gradients are averaged over it before the clip (one flat
+all-reduce), the logged losses are its mean, and under `--mp` the
+transformer's projections hold the rank's shard (`parallel/tp.py`) and
+the clip counts each shard once. Checkpoints carry the one-process
+weights (`checkpoint_state`, `load_checkpoint_state`).
 """
 
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from butd_detr_tpu_torch.config import Config
 from butd_detr_tpu_torch.init import init_weights_
@@ -19,6 +29,14 @@ from butd_detr_tpu_torch.lang.roberta import RobertaConfig, \
     roberta_base_config
 from butd_detr_tpu_torch.losses import CriterionConfig, \
     compute_hungarian_loss
+from butd_detr_tpu_torch.parallel.collectives import reduce_from_group
+from butd_detr_tpu_torch.parallel.mesh import Mesh, bind_batchnorm
+from butd_detr_tpu_torch.parallel.tp import (
+    gather_full_state_dict,
+    shard_model_,
+    shard_state_dict,
+    shard_tensor,
+)
 from butd_detr_tpu_torch.predict import (
     build_model,
     load_state_dict,
@@ -85,15 +103,22 @@ class Trainer:
         building one from `roberta_config` and `backbone_npoints`.
     device: `cuda` unless given.
     seed: also seeds the trainer's `torch.Generator` (on the host), from
-        which each step draws the seed of its dropout masks.
+        which each step draws the seed of its dropout masks (the same on
+        every rank; the dp index is mixed in, so that the dp shards draw
+        different masks and the mp ranks of one shard equal ones).
+    mesh: the process groups of this rank (`parallel.make_mesh`); None is
+        one process. `state_dict` and `model` hold the full weights: the
+        trainer takes its rank's shard.
     """
 
     def __init__(self, cfg: Config, steps_per_epoch: int = 1, *,
                  roberta_config: Optional[RobertaConfig] = None,
                  backbone_npoints=(2048, 1024, 512, 256), state_dict=None,
-                 model=None, device=None, seed: int = 0):
+                 model=None, device=None, seed: int = 0,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh or Mesh()
         if model is None:
             model = build_model(cfg, roberta_config or roberta_base_config(),
                                 backbone_npoints)
@@ -101,9 +126,19 @@ class Trainer:
             init_weights_(model, seed)
         else:
             load_state_dict(model, state_dict)
+        # {name: spec} of the parameters this rank holds a shard of
+        self.sharded = shard_model_(model, self.mesh)
+        bind_batchnorm(model, self.mesh.dp_group)
         self.model = model.to(self.device)
         self.criterion = criterion_config(cfg)
         self.optimizer = make_optimizer(cfg, self.model.named_parameters())
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        # optimizer order: the parameters' names, and which are shards
+        self._order = [names[id(p)] for g in self.optimizer.param_groups
+                       for p in g["params"]]
+        self._sharded_mask = torch.tensor(
+            [n in self.sharded for n in self._order], dtype=torch.bool,
+            device=self.device)
         self.schedules = {
             g["name"]: make_schedule(g["base_lr"], steps_per_epoch, cfg)
             for g in self.optimizer.param_groups}
@@ -127,52 +162,120 @@ class Trainer:
         return end_points
 
     def loss(self, end_points: Dict[str, torch.Tensor]):
-        """(loss, end_points with the losses added)."""
+        """(loss, end_points with the losses added); the box count is the
+        dp group's."""
         return compute_hungarian_loss(
             end_points, self.cfg.num_decoder_layers, self.criterion,
-            self.cfg.query_points_obj_topk)
+            self.cfg.query_points_obj_topk, group=self.mesh.dp_group)
 
     def begin_step(self) -> None:
         """Train mode, this step's dropout seed and learning rates, and
         cleared gradients."""
         self.model.train()
-        self.model.rng.seed(int(torch.randint(
-            0, 2 ** 62, (1,), generator=self.generator)))
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.generator))
+        self.model.rng.seed((seed + self.mesh.dp_index * 1_000_003)
+                            % 2 ** 62)
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedules[group["name"]](self.step)
         self.optimizer.zero_grad(set_to_none=True)
 
-    def apply_gradients(self) -> torch.Tensor:
-        """Clip the gradients' global norm, take the optimizer step;
-        returns the norm before clipping (on the device)."""
-        params = [p for g in self.optimizer.param_groups
-                  for p in g["params"]]
+    def _params(self):
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def sync_gradients(self) -> None:
+        """Give every trainable parameter a gradient (zeros where it was
+        unused: it still decays, as under optax) and average the gradients
+        over the dp group, in one flat all-reduce."""
+        params = self._params()
         for p in params:
-            if p.grad is None:  # unused this step: still decays, as optax
+            if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grad_norm = clip_by_global_norm_([p.grad for p in params],
-                                         self.cfg.clip_norm)
+        group = self.mesh.dp_group
+        if group is None:
+            return
+        grads = [p.grad for p in params]
+        flat = _flatten_dense_tensors(grads)
+        dist.all_reduce(flat, group=group)
+        flat.div_(self.mesh.dp)
+        for g, avg in zip(grads, _unflatten_dense_tensors(flat, grads)):
+            g.copy_(avg)
+
+    def apply_gradients(self) -> torch.Tensor:
+        """Average the gradients over the dp group, clip their global norm
+        (each shard counted once under mp), take the optimizer step;
+        returns the norm before clipping (on the device)."""
+        self.sync_gradients()
+        grad_norm = clip_by_global_norm_(
+            [p.grad for p in self._params()], self.cfg.clip_norm,
+            sharded=self._sharded_mask, group=self.mesh.mp_group)
         self.optimizer.step()
         self.step += 1
         return grad_norm
 
+    def dp_mean(self, named: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """0-d tensors averaged over the dp group (one all-reduce)."""
+        if self.mesh.dp_group is None or not named:
+            return named
+        values = reduce_from_group(
+            torch.stack([v.float() for v in named.values()]),
+            self.mesh.dp_group) / self.mesh.dp
+        return dict(zip(named, values.unbind()))
+
+    # ---------------- checkpoints: the one-process weights ----------------
+
+    def checkpoint_state(self) -> Dict:
+        """{"model", "optimizer"} state dicts with the full (one-process)
+        tensors; every mp rank must call this (the shards are gathered)."""
+        model = gather_full_state_dict(self.model.state_dict(), self.sharded,
+                                       self.mesh)
+        optimizer = self.optimizer.state_dict()
+        for i, state in optimizer["state"].items():
+            spec = self.sharded.get(self._order[i])
+            if spec is None:
+                continue
+            optimizer["state"][i] = dict(state, **gather_full_state_dict(
+                {k: v for k, v in state.items() if v.ndim},
+                {k: spec for k, v in state.items() if v.ndim}, self.mesh))
+        return {"model": model, "optimizer": optimizer}
+
+    def load_checkpoint_state(self, model_state: Dict,
+                              optimizer_state: Optional[Dict] = None) -> None:
+        """Load full (one-process) state dicts, taking this rank's shard."""
+        mesh = self.mesh
+        self.model.load_state_dict(
+            shard_state_dict(model_state, mesh.mp, mesh.mp_index))
+        if optimizer_state is None:
+            return
+        optimizer_state = dict(optimizer_state,
+                               state=dict(optimizer_state["state"]))
+        for i, state in optimizer_state["state"].items():
+            spec = self.sharded.get(self._order[i])
+            if spec is not None:
+                optimizer_state["state"][i] = {
+                    k: shard_tensor(v, spec, mesh.mp, mesh.mp_index)
+                    if v.ndim else v for k, v in state.items()}
+        self.optimizer.load_state_dict(optimizer_state)
+
     def train_step_on_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """One optimizer step on `batch`; returns the losses under
-        METRIC_KEYS and the gradients' global norm before clipping
+        """One optimizer step on `batch` (this rank's rows); returns the
+        losses under METRIC_KEYS (their mean over the dp group) and the gradients' global norm before clipping
         (`grad_norm`) as 0-d tensors on the device, not read back."""
         batch = self.to_device(batch)
         self.begin_step()
         loss, end_points = self.loss(self.forward(batch))
         loss.backward()
         grad_norm = self.apply_gradients()
-        named = {k: torch.as_tensor(end_points[k], dtype=torch.float32,
-                                    device=grad_norm.device).detach()
-                 for k in METRIC_KEYS if k in end_points}
+        named = self.dp_mean({
+            k: torch.as_tensor(end_points[k], dtype=torch.float32,
+                               device=grad_norm.device).detach()
+            for k in METRIC_KEYS if k in end_points})
         named["grad_norm"] = grad_norm
         return named
 
     def train_step(self, batch: Dict) -> Dict[str, float]:
-        """`train_step_on_device`, its metrics read back in one copy."""
+        """`train_step_on_device`, its metrics read back in one copy (the
+        losses the dp group's mean)."""
         return metrics_to_host(self.train_step_on_device(batch))
 
     @torch.no_grad()

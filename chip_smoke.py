@@ -117,7 +117,8 @@ the last line is printed:
    ScanNet-format root (8 train and 8 val scenes, 5 objects each, 60,000
    points a scan), `prepare_data_torch.py --num_workers 2` builds its scan
    caches (50,000 points a scan, subsampled without replacement), and
-   `train_torch.py` with the flags of scripts/train_test_cls.sh (B = 24)
+   `train_torch.py` under torchrun's launcher (one process over NCCL,
+   `--dp 1`) with the flags of scripts/train_test_cls.sh (B = 24)
    and `--max_epoch 1 --val_freq 1 --num_workers 4` trains one epoch (40
    sr3d rows and 80 detection prompts: 5 steps), saves a checkpoint and
    evaluates the 40 val rows twice (after the epoch and at the end). Both
@@ -166,6 +167,30 @@ the last line is printed:
    printed beside the card's name and power limit. The bf16 requests and
    steps must launch the counts of phases 3 and 6, their losses be
    finite, the parameters f32, and the bf16 loss must not synchronise.
+12. training across processes (run last):
+   (a) `--dp 2`: two ranks spawned on the one card and joined over gloo
+   (NCCL refuses two ranks on one device), half the batch each, beside one
+   process at the whole batch: phase 5's small model's eval-mode
+   gradients, averaged over the ranks, within 5e-3 * max|g| + 1e-6 of the
+   one process's; then two full-width steps in strict f32 without dropout:
+   each rank launches the one process's step counts, finite losses, and
+   the BatchNorm buffers after one step within 1e-4 * max(|buffer|, 1) of
+   the one process's (all of them where the kps selections agree, else
+   those before the selection, phase 4's near-tie protocol); each rank's
+   step ms and peak memory beside the one process's. (b) `--mp 2`: two
+   ranks' forward of one request (f32, precise) against the one process's
+   with phase 4's bound and near-tie protocol, K3 on 4 of the 8 heads in
+   the encoder and decoder and on RoBERTa's 12 (one spawned world of two
+   for both meshes). (c) phase 8's `train_torch.py` run starts under
+   torchrun (`python -m torch.distributed.run --standalone
+   --nproc_per_node 1 ... --dp 1`) over NCCL, world size 1: its log must
+   name the backend. (d) one `--use_multiview` training step at
+   `--train-batch` (128 features a point from an array, so that the step
+   needs no `h5py`): a step's launches, and K7's MLP input at sa1's 131 channels
+   bit-equal to its plain version, timed beside its bound and the
+   `torch.gather` chain. (e) `--profile_dir` on a short training epoch
+   (3 steps at `--train-batch`, 2 traced): the window's log line, a
+   step's launches, and every port kernel named in the trace.
 Phase 2 also holds K1, K2, K6 and K7 bit-equal, and K3 and K4 within
 their bounds (p = 0 and 0.1, both modes), at the shapes of phases 9 and
 10: B = 12 at 5,000 points and B = 24 at 20,000, the small text tower's
@@ -207,7 +232,12 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    if a and str(a[0]).startswith("== phase"):  # the run's clock, by phase
+        a = (f"[{time.perf_counter() - _T0:.0f} s]", *a)
     print(*a, flush=True)
 
 
@@ -2315,48 +2345,54 @@ def _accuracies(text):
     return out
 
 
-def train_and_evaluate_from_a_data_root(args, cfg, roberta, card):
-    """Write a ScanNet-format root (`make_rich_scannet`), build its scan
-    caches with `prepare_data_torch.py`, then train one epoch and evaluate
-    through `train_torch.py` with the flags of scripts/train_test_cls.sh,
-    4 loader workers: two processes started as a user starts them. The
-    numbers come from the `epoch stats` lines of the run's log."""
+def train_and_evaluate_from_a_data_root(args, cfg, roberta, card, tmp):
+    """Write a ScanNet-format root (`make_rich_scannet`) under `tmp/data`,
+    build its scan caches with `prepare_data_torch.py`, then train one
+    epoch and evaluate through `train_torch.py` with the flags of
+    scripts/train_test_cls.sh, 4 loader workers: two processes started as
+    a user starts them. The numbers come from the `epoch stats` lines of
+    the run's log. The training run starts under torchrun's launcher,
+    one process over NCCL (phase 12 (c))."""
     import math
-    import tempfile
 
     from butd_detr_tpu_torch.data import make_rich_scannet
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        make_rich_scannet(root, seed=args.seed, **CLI_SCENES)
-        written = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        run_child([sys.executable, "prepare_data_torch.py", "--data_root",
-                   root, "--num_workers", "2"], 300, "prepare_data_torch.py")
-        prepared = time.perf_counter() - t0
-        log(f"  wrote {CLI_SCENES['n_train']} + {CLI_SCENES['n_val']} scenes "
-            f"of {CLI_SCENES['points_per_scan']} points in {written:.1f} s; "
-            f"prepare_data_torch.py built their caches in {prepared:.1f} s")
-        log_dir = os.path.join(tmp, "log")
-        cmd = [sys.executable, "train_torch.py", *CLS_FLAGS,
-               "--max_epoch", "1", "--val_freq", "1", "--num_workers", "4",
-               "--print_freq", "1", "--rng_seed", str(args.seed),
-               "--data_root", root, "--log_dir", log_dir]
-        t0 = time.perf_counter()
-        run_child(cmd, 600, "train_torch.py")
-        seconds = time.perf_counter() - t0
-        with open(os.path.join(log_dir, "log.txt")) as f:
-            text = f.read()
-        checkpoints = sorted(n for n in os.listdir(log_dir)
-                             if n.startswith("ckpt_epoch_"))
-        check(checkpoints == ["ckpt_epoch_1.pth"],
-              f"checkpoints written: {checkpoints}")
-        ckpt = os.path.join(log_dir, checkpoints[0])
-        grounding = ground_from_the_checkpoint(args, cfg, roberta, root,
-                                               ckpt)
-        detection = detection_epoch_from_the_checkpoint(
-            args, cfg, roberta, root, ckpt, os.path.join(tmp, "det_log"))
+    root = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    make_rich_scannet(root, seed=args.seed, **CLI_SCENES)
+    written = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_child([sys.executable, "prepare_data_torch.py", "--data_root",
+               root, "--num_workers", "2"], 300, "prepare_data_torch.py")
+    prepared = time.perf_counter() - t0
+    log(f"  wrote {CLI_SCENES['n_train']} + {CLI_SCENES['n_val']} scenes "
+        f"of {CLI_SCENES['points_per_scan']} points in {written:.1f} s; "
+        f"prepare_data_torch.py built their caches in {prepared:.1f} s")
+    log_dir = os.path.join(tmp, "log")
+    # under torchrun's launcher (its module), one process over NCCL: this
+    # run is also phase 12 (c); the detection evaluation below starts
+    # train_torch.py without it
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "train_torch.py", *CLS_FLAGS,
+           "--max_epoch", "1", "--val_freq", "1", "--num_workers", "4",
+           "--print_freq", "1", "--rng_seed", str(args.seed),
+           "--data_root", root, "--log_dir", log_dir, "--dp", "1"]
+    t0 = time.perf_counter()
+    run_child(cmd, 600, "torchrun train_torch.py")
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        text = f.read()
+    nccl = "process group: backend nccl, world size 1, dp 1, mp 1" in text
+    check(nccl, "torchrun train_torch.py: the log names no NCCL world of 1")
+    checkpoints = sorted(n for n in os.listdir(log_dir)
+                         if n.startswith("ckpt_epoch_"))
+    check(checkpoints == ["ckpt_epoch_1.pth"],
+          f"checkpoints written: {checkpoints}")
+    ckpt = os.path.join(log_dir, checkpoints[0])
+    grounding = ground_from_the_checkpoint(args, cfg, roberta, root,
+                                           ckpt)
+    detection = detection_epoch_from_the_checkpoint(
+        args, cfg, roberta, root, ckpt, os.path.join(tmp, "det_log"))
 
     stats = [json.loads(line.split("epoch stats ", 1)[1])
              for line in text.splitlines() if "epoch stats " in line]
@@ -2403,7 +2439,8 @@ def train_and_evaluate_from_a_data_root(args, cfg, roberta, card):
     def ms(xs):
         return ", ".join(f"{x * 1e3:.0f}" for x in xs)
 
-    log(f"  train_torch.py ran {seconds:.1f} s: {steps} steps at B = 24 "
+    log(f"  torchrun train_torch.py (NCCL, world size 1) ran {seconds:.1f} "
+        f"s: {steps} steps at B = 24 "
         f"({train['scenes']} scenes), {train['scenes_per_second']:.2f} "
         f"scenes/s over the epoch ({train['seconds']:.2f} s), loader wait "
         f"{train['loader_wait_share']:.1%} of it (the first batch "
@@ -2440,7 +2477,7 @@ def train_and_evaluate_from_a_data_root(args, cfg, roberta, card):
                 + sum(e["launches"][k] for e in evals)
                 for k in train["launches"]}
     return dict(seconds=seconds, prepare_seconds=prepared, steps=steps,
-                losses=losses, train=train, evaluations=evals,
+                nccl=nccl, losses=losses, train=train, evaluations=evals,
                 per_step=per_step, per_batch=per_batch,
                 accuracies=accuracies, card=card, grounding=grounding,
                 detection=detection, launches=launches)
@@ -3161,6 +3198,527 @@ def bf16_mode(args, cfg, roberta, npoints, scenes, batches, card):
 
 # ------------------------------------------------------------- main
 
+
+# ------------------------------------------------------------- phase 12
+#
+# Training across processes. Two ranks share the one card: NCCL refuses
+# two ranks on one device, so they join over gloo (asked for through
+# `init_distributed`), which reduces CUDA tensors through the host. The
+# ranks are spawned processes that import the port, and each builds its
+# model from the seed that the one-process run uses.
+
+FULL_NPOINTS = (2048, 1024, 512, 256)
+
+
+def _rank_main(rank, world, port, out_dir, task, task_args):
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from butd_detr_tpu_torch.utils.dist import init_distributed
+
+    torch.cuda.set_device(0)
+    init_distributed("gloo", rank=rank, world_size=world,
+                     init_method=f"tcp://localhost:{port}")
+    try:
+        result = task(rank, *task_args)
+    except BaseException:
+        with open(os.path.join(out_dir, f"error{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_ranks(task, world, *task_args, timeout=600):
+    """[task(rank, *task_args) for each rank], each rank a spawned process
+    on the card, the ranks joined over gloo. A rank that raises, or a
+    world that outlives `timeout`, fails the phase (every rank stopped)."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.start_processes(
+            _rank_main, args=(world, port, out, task, task_args),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.perf_counter() + timeout
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    raise SmokeFailure(f"{task.__name__}: the ranks did not "
+                                       f"finish in {timeout} s")
+        except ProcessException as e:
+            errors = "\n".join(
+                open(os.path.join(out, f)).read()
+                for f in sorted(os.listdir(out)) if f.startswith("error"))
+            raise SmokeFailure(f"{task.__name__}: a rank failed:\n"
+                               f"{errors or e}") from None
+        return [torch.load(os.path.join(out, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+
+def _no_dropout(model):
+    from butd_detr_tpu_torch.nn.attention import MultiheadAttention
+    from butd_detr_tpu_torch.nn.dropout import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+        elif isinstance(m, MultiheadAttention):
+            m.dropout = 0.0
+
+
+def small_gradient_model(seed):
+    """Phase 5's small model (f32, precise attention) and its batch of 2."""
+    from butd_detr_tpu_torch.config import butd_cls_config
+    from butd_detr_tpu_torch.data import synthetic_batch
+    from butd_detr_tpu_torch.lang import tiny_roberta_config
+
+    cfg = butd_cls_config(num_target=64, num_encoder_layers=2,
+                          num_decoder_layers=2, num_points=4096,
+                          max_num_obj=16, max_det_boxes=16,
+                          backbone_bf16=False, attn_precise=True)
+    roberta = tiny_roberta_config()
+    batch = synthetic_batch(
+        batch_size=2, num_points=cfg.num_points,
+        max_text_len=cfg.max_text_len, max_num_obj=cfg.max_num_obj,
+        max_det_boxes=cfg.max_det_boxes, n_true_det=8, seed=seed,
+        vocab_size=roberta.vocab_size, spatial_sort=cfg.spatial_sort)
+    return cfg, roberta, (512, 256, 128, 64), batch
+
+
+def full_width_batches(seed, batch_size, n, **cfg_kw):
+    from butd_detr_tpu_torch.config import butd_cls_config
+    from butd_detr_tpu_torch.data import synthetic_batch
+    from butd_detr_tpu_torch.lang import roberta_base_config
+
+    cfg = butd_cls_config(**cfg_kw)
+    roberta = roberta_base_config()
+    return cfg, roberta, [synthetic_batch(
+        batch_size=batch_size, num_points=cfg.num_points,
+        max_text_len=cfg.max_text_len, max_num_obj=cfg.max_num_obj,
+        max_det_boxes=cfg.max_det_boxes, seed=seed + i,
+        vocab_size=roberta.vocab_size, spatial_sort=cfg.spatial_sort)
+        for i in range(n)]
+
+
+def dp_steps(seed, batch_size, mesh=None):
+    """The `--dp` comparison of one process or rank: phase 5's small
+    model's eval-mode gradients of its rows, then two full-width training
+    steps in strict f32 without dropout: the first returns what decides
+    the queries (the kps logits and selection) and the BatchNorm buffers
+    it leaves, the second is timed and counted."""
+    import torch
+
+    from butd_detr_tpu_torch.ops import _cuda
+    from butd_detr_tpu_torch.parallel import Mesh
+    from butd_detr_tpu_torch.train import Trainer
+
+    mesh = mesh or Mesh()
+    cfg, roberta, npoints, batch = small_gradient_model(seed)
+    trainer = Trainer(cfg, roberta_config=roberta, backbone_npoints=npoints,
+                      device="cuda", seed=seed, mesh=mesh)
+    trainer.model.eval()
+    loss, _ = trainer.loss(trainer.forward(trainer.to_device(
+        mesh.shard_batch(batch))))
+    loss.backward()
+    trainer.sync_gradients()
+    small = (float(trainer.dp_mean({"loss": loss.detach()})["loss"]),
+             {n: p.grad.cpu() for n, p in trainer.model.named_parameters()
+              if p.grad is not None})
+    del trainer
+
+    cfg, roberta, batches = full_width_batches(
+        seed, batch_size, 2, backbone_bf16=False, attn_precise=True)
+    trainer = Trainer(cfg, steps_per_epoch=1000, roberta_config=roberta,
+                      backbone_npoints=FULL_NPOINTS, device="cuda",
+                      seed=seed, mesh=mesh)
+    _no_dropout(trainer.model)
+    trainer.begin_step()
+    loss, ep = trainer.loss(trainer.forward(trainer.to_device(
+        mesh.shard_batch(batches[0]))))
+    loss.backward()
+    trainer.apply_gradients()
+    metrics = [{"loss": float(trainer.dp_mean({"loss": loss.detach()})[
+        "loss"])}]
+    selection = (ep["seeds_obj_cls_logits"].detach().cpu(),
+                 ep["query_points_sample_inds"].cpu())
+    buffers = {n: b.to("cpu", copy=True)
+               for n, b in trainer.model.named_buffers()
+               if n.endswith(("running_mean", "running_var"))}
+    del loss, ep
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    metrics.append(trainer.train_step(mesh.shard_batch(batches[1])))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return dict(small=small, metrics=metrics, selection=selection,
+                buffers=buffers, ms=ms, launches=dict(_cuda.LAUNCHES),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def dist_rank(rank, seed, batch_size, inputs):
+    """One rank of phase 12's world of two: the `--dp 2` steps, then the
+    `--mp 2` forward (a second mesh over the same two processes)."""
+    from butd_detr_tpu_torch.parallel import make_mesh
+
+    return dict(dp=dp_steps(seed, batch_size, make_mesh(dp=2)),
+                tp=tp_forward(seed, inputs, make_mesh(mp=2)))
+
+
+def data_parallel(args, ranks):
+    """(a) Two `--dp 2` ranks (each half of the batch) beside one process
+    at the whole batch, same weights and batches. The ranks' BatchNorm
+    buffers after one step must lie within 1e-4 * max(|buffer|, 1) of the
+    one process's: all of them where the kps selections agree, else
+    (phase 4's near-tie protocol: a differing rank's logits within twice
+    the logits' error) those of the layers before the selection (the
+    backbone and the objectness head), since a swapped query changes
+    every later layer's batch."""
+    import math
+
+    import torch
+
+    one = dp_steps(args.seed, args.train_batch)
+    want_loss, want = one["small"]
+    worst = (0.0, "", 0.0, 0.0)
+    for r, got in enumerate(ranks):
+        loss, grads = got["small"]
+        check(abs(loss - want_loss) <= 1e-4 * abs(want_loss),
+              f"dp rank {r}: small model's loss {loss} vs {want_loss}")
+        check(set(grads) == set(want) and len(want) > 100,
+              f"dp rank {r}: other parameters have gradients")
+        for name, w in want.items():
+            err = float((grads[name] - w).abs().max())
+            lim = 5e-3 * float(w.abs().max()) + 1e-6
+            check(err <= lim, f"dp rank {r}: gradient of {name} err {err} "
+                  f"> {lim}")
+            worst = max(worst, (err / lim, name, err, lim))
+        check(got["launches"] == one["launches"]
+              and all(got["launches"].values()),
+              f"dp rank {r}: a step launched {got['launches']}, one "
+              f"process's step {one['launches']}")
+        check(all(math.isfinite(v) for m in got["metrics"]
+                  for v in m.values()), f"dp rank {r}: non-finite metrics")
+    check(ranks[0]["metrics"] == ranks[1]["metrics"],
+          "the dp ranks logged different losses")
+    logits = torch.cat([r["selection"][0] for r in ranks])
+    inds = torch.cat([r["selection"][1] for r in ranks])
+    _, n_diff, gap, logit_err = _near_tie_selection(
+        {"seeds_obj_cls_logits": logits, "query_points_sample_inds": inds},
+        one["selection"][0])
+    check(n_diff == 0 or gap <= 2 * logit_err,
+          f"dp kps selection: {n_diff} ranks differ by up to {gap} in "
+          f"logit, more than twice the logits' error {logit_err}")
+    before = ("backbone_net.", "points_obj_cls.")
+    held = [n for n in one["buffers"] if n_diff == 0 or n.startswith(before)]
+    buf_err = 0.0
+    for r, got in enumerate(ranks):
+        for name in held:
+            w = one["buffers"][name]
+            err = float((got["buffers"][name] - w).abs().max())
+            lim = 1e-4 * max(float(w.abs().max()), 1.0)
+            check(err <= lim, f"dp rank {r}: BatchNorm {name} err {err} > "
+                  f"{lim}")
+            buf_err = max(buf_err, err)
+    log(f"  small model: both ranks' averaged gradients within 5e-3 max|g| "
+        f"of one process's, worst {worst[1]} {worst[2]:.3g} <= "
+        f"{worst[3]:.3g}")
+    for who, r in (("rank 0", ranks[0]), ("rank 1", ranks[1]),
+                   ("one process", one)):
+        log(f"  {who}: step {r['ms']:.1f} ms, peak device memory "
+            f"{r['peak'] / 2 ** 30:.2f} GiB, losses "
+            f"{', '.join(format(m['loss'], '.4f') for m in r['metrics'])}, "
+            f"launches {r['launches']}")
+    log(f"  kps selection: {n_diff} ranks differ (near-ties); "
+        f"{len(held)} of {len(one['buffers'])} BatchNorm buffers held, "
+        f"largest difference {buf_err:.3g}")
+    launches = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k]
+                for k in ranks[0]["launches"]}
+    return dict(
+        ranks=[dict(step_ms=r["ms"], peak_memory_bytes=r["peak"],
+                    launches=r["launches"], metrics=r["metrics"])
+               for r in ranks],
+        one=dict(step_ms=one["ms"], peak_memory_bytes=one["peak"],
+                 launches=one["launches"], metrics=one["metrics"]),
+        gradient_worst=dict(name=worst[1], err=worst[2], lim=worst[3]),
+        kps_ranks_differing=n_diff, buffers_held=len(held),
+        buffer_err=buf_err, launches=launches)
+
+
+def tp_forward(seed, inputs, mesh):
+    """An `--mp 2` rank's eval forward at full width (f32, precise), with
+    the head count of every attention call."""
+    import torch
+
+    import butd_detr_tpu_torch.nn.attention as mha
+    from butd_detr_tpu_torch.config import butd_cls_config
+    from butd_detr_tpu_torch.lang import roberta_base_config
+    from butd_detr_tpu_torch.ops import _cuda
+    from butd_detr_tpu_torch.train import Trainer
+
+    trainer = Trainer(butd_cls_config(backbone_bf16=False, attn_precise=True),
+                      roberta_config=roberta_base_config(),
+                      backbone_npoints=FULL_NPOINTS, device="cuda",
+                      seed=seed, mesh=mesh)
+    heads = []
+    core = mha.attention
+
+    def counted(q, *a, **kw):
+        heads.append(q.shape[1])
+        return core(q, *a, **kw)
+
+    mha.attention = counted
+    trainer.model.eval()
+    _cuda.reset_launches()
+    try:
+        with torch.no_grad():
+            out = trainer.model({k: v.cuda() for k, v in inputs.items()})
+        torch.cuda.synchronize()
+    finally:
+        mha.attention = core
+    return dict(out={k: v.cpu() for k, v in out.items()}, heads=heads,
+                launches=dict(_cuda.LAUNCHES),
+                sharded=len(trainer.sharded))
+
+
+def tensor_parallel(roberta, pred, inputs, ranks):
+    """(b) Two `--mp 2` ranks' forward of one request against the one
+    process's (`pred`, the f32 precise predictor whose `inputs` the ranks
+    took) on the card, phase 4's bound and near-tie protocol."""
+    import numpy as np
+    import torch
+
+    cfg = pred.cfg
+    r0, r1 = ranks
+    for key, v in r0["out"].items():
+        check(torch.equal(v, r1["out"][key]),
+              f"the mp ranks' {key} differ")
+    attention = attention_calls(cfg, roberta)
+    want_heads = [roberta.num_attention_heads] * roberta.num_hidden_layers \
+        + [8 // 2] * (attention - roberta.num_hidden_layers)
+    check(sorted(r0["heads"], reverse=True) == want_heads,
+          f"K3's heads a call under --mp 2: {r0['heads']}")
+    for r, got in enumerate(ranks):
+        expect = dict(FORWARD_LAUNCHES, attention=attention)
+        expect["gather"] += 3  # the f32 mode's groupings (phase 4)
+        expect["group_gather"] = 1
+        for name, n in expect.items():
+            check(got["launches"][name] == n,
+                  f"mp rank {r}: {name} launched {got['launches'][name]} "
+                  f"times in a request, expected {n}")
+    card = r0["out"]
+    with torch.no_grad():
+        encoded, detected = pred.model.encode(inputs)
+        logits = encoded["seeds_obj_cls_logits"].cpu()
+        inds, n_diff, gap, logit_err = _near_tie_selection(card, logits)
+        check(n_diff == 0 or gap <= 2 * logit_err,
+              f"--mp 2 kps selection: {n_diff} ranks differ by up to {gap} "
+              f"in logit, more than twice the logits' error {logit_err}")
+        want = pred.model.decode(encoded, detected,
+                                 inds.to(torch.int32).cuda())
+    worst = (0.0, "", 0.0, 0.0)
+    for key, w in want.items():
+        w = w.cpu().numpy()
+        got = card[key].numpy()
+        if w.dtype.kind in "iub":
+            if key != "query_points_sample_inds":
+                check(np.array_equal(got, w), f"--mp 2: {key} differs")
+            continue
+        err = float(np.abs(got.astype(np.float64) - w).max())
+        lim = 1e-3 + 5e-3 * float(np.std(w))
+        check(err <= lim, f"--mp 2 vs one process: {key} err {err} > {lim}")
+        worst = max(worst, (err / lim, key, err, lim))
+    log(f"  {r0['sharded']} parameters sharded a rank; K3 on "
+        f"{want_heads.count(4)} calls of 4 heads and "
+        f"{roberta.num_hidden_layers} of {roberta.num_attention_heads}; kps ranks differing {n_diff}; "
+        f"every end point within 1e-3 + 5e-3 std of one process's, worst "
+        f"{worst[1]} {worst[2]:.3g} <= {worst[3]:.3g}")
+    return dict(kps_ranks_differing=n_diff, worst=dict(
+        key=worst[1], err=worst[2], lim=worst[3]),
+        sharded=r0["sharded"],
+        launches={k: r0["launches"][k] + r1["launches"][k]
+                  for k in r0["launches"]})
+
+
+PORT_KERNEL_NAMES = {
+    "fps": "fps_", "ball_query": "ball_query_", "attention":
+    "attention_fwd_", "attention_bwd": "attention_bwd_", "scatter":
+    "scatter_rows_add_", "gather": "gather_rows_kernel", "group_gather":
+    "group_gather_", "assignment": "assignment_kernel"}
+
+
+def profiler_window(args, cfg, roberta, npoints):
+    """(e) `--profile_dir` on one short training epoch at full width (three
+    steps of synthetic scenes at `--train-batch`, through
+    `TrainTester.train_one_epoch`): the window of 2 steps logs its line
+    and writes a trace whose kernel names hold every port kernel."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from butd_detr_tpu_torch.data import SyntheticGroundingDataset
+    from butd_detr_tpu_torch.ops import _cuda
+    from butd_detr_tpu_torch.predict import build_model
+    from butd_detr_tpu_torch.train import TrainTester
+
+    B = args.train_batch
+    scenes = SyntheticGroundingDataset(
+        3 * B, seed=args.seed + 2000, num_points=cfg.num_points,
+        max_text_len=cfg.max_text_len, max_num_obj=cfg.max_num_obj,
+        max_det_boxes=cfg.max_det_boxes, vocab_size=roberta.vocab_size,
+        spatial_sort=cfg.spatial_sort)
+
+    class SmokeTester(TrainTester):
+        def get_datasets(self):
+            return scenes, scenes
+
+        def _roberta_config(self):
+            return roberta
+
+        def get_model(self):
+            return build_model(self.cfg, roberta, npoints)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = os.path.join(tmp, "profile")
+        tester = SmokeTester(dataclasses.replace(
+            cfg, batch_size=B, num_workers=0, log_dir=os.path.join(tmp, "log"),
+            profile_dir=prof, profile_steps=2), device="cuda")
+        train_loader, _ = tester.get_loaders()
+        trainer = tester.get_trainer(len(train_loader))
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        tester.train_one_epoch(1, train_loader, trainer)
+        seconds = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        with open(os.path.join(tmp, "log", "log.txt")) as f:
+            text = f.read()
+        with open(os.path.join(prof, "trace_rank0.json")) as f:
+            trace = json.load(f)
+    check(f"profiler trace (2 steps) written to {prof}" in text,
+          "the profiler window logged no trace")
+    names = {e.get("name", "") for e in trace.get("traceEvents", [])
+             if e.get("cat") == "kernel"}
+    found = {k: sum(p in n for n in names)
+             for k, p in PORT_KERNEL_NAMES.items()}
+    check(all(found.values()),
+          f"the profiler's trace lacks port kernels: {found}")
+    for name, n in training_step_launches(cfg, roberta).items():
+        check(launches[name] == 3 * n, f"profiled epoch: {name} launched "
+              f"{launches[name]} times in 3 steps, expected {n} each")
+    log(f"  3 steps at B = {B} in {seconds:.1f} s, 2 of them traced: "
+        f"{len(names)} kernel names, the port's {found}")
+    return dict(seconds=seconds, kernel_names=found, launches=launches)
+
+
+def multiview_step(args, roberta):
+    """(d) One B = 8 training step with `--use_multiview`: 128 features a
+    point beside the colour, so that sa1 groups 131 channels; K7's
+    MLP-input kernel at that width against its plain version. The
+    features come from an array, not from `make_fake_multiview`'s file, so
+    that the step needs no `h5py` (the file reader is held on the CPU by
+    tests/test_torch_data.py)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import butd_detr_tpu_torch.ops.pointcloud as pointcloud
+    from butd_detr_tpu_torch.ops import (
+        _cuda,
+        group_rows_mlp_input,
+        group_rows_mlp_input_plain,
+    )
+    from butd_detr_tpu_torch.train import INPUT_KEYS, TARGET_KEYS, Trainer
+
+    B = args.train_batch
+    cfg, _, (batch,) = full_width_batches(args.seed, B, 1,
+                                          use_multiview=True)
+    rng = np.random.RandomState(args.seed)
+    batch["point_clouds"] = np.concatenate([
+        batch["point_clouds"], rng.rand(
+            *batch["point_clouds"].shape[:2], 128).astype(np.float32)],
+        axis=-1)
+    check(batch["point_clouds"].shape == (B, cfg.num_points, 3 + 3 + 128),
+          f"multiview batch {batch['point_clouds'].shape}")
+    trainer = Trainer(cfg, steps_per_epoch=1000, roberta_config=roberta,
+                      backbone_npoints=FULL_NPOINTS, device="cuda",
+                      seed=args.seed)
+    seen = []
+    fused = pointcloud.group_rows_mlp_input
+
+    def record(xyz, new_xyz, feats, idx, inv_r):
+        if feats.shape[-1] == 131:
+            seen.append((xyz, new_xyz, feats, idx, inv_r))
+        return fused(xyz, new_xyz, feats, idx, inv_r)
+
+    pointcloud.group_rows_mlp_input = record
+    try:
+        _cuda.reset_launches()
+        metrics = trainer.train_step(
+            {k: batch[k] for k in (*INPUT_KEYS, *TARGET_KEYS)})
+        launches = dict(_cuda.LAUNCHES)
+    finally:
+        pointcloud.group_rows_mlp_input = fused
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"multiview step: non-finite metrics {metrics}")
+    for name, n in training_step_launches(cfg, roberta).items():
+        check(launches[name] == n, f"multiview step: {name} launched "
+              f"{launches[name]} times, expected {n}")
+    check(len(seen) == 1, f"sa1 grouped 131 channels {len(seen)} times")
+    xyz, new_xyz, feats, idx, inv_r = seen[0]
+    got = group_rows_mlp_input(xyz, new_xyz, feats, idx, inv_r)
+    want = group_rows_mlp_input_plain(xyz, new_xyz, feats, idx, inv_r)
+    check(got.shape == (*idx.shape, 3 + 131) and got.dtype == torch.bfloat16
+          and torch.equal(got.view(torch.int16), want.view(torch.int16)),
+          "K7's MLP input at 131 channels differs from its plain version")
+    _, m, ns = idx.shape
+    cf = feats.shape[-1]
+
+    def library():
+        cat = torch.cat([xyz, feats.to(xyz.dtype)], dim=-1)
+        g = torch.gather(cat, 1, idx.reshape(B, m * ns).long()[..., None]
+                         .expand(-1, -1, 3 + cf)).reshape(B, m, ns, -1)
+        y = (g[..., :3] - new_xyz[:, :, None, :]) * inv_r
+        return torch.cat([y, g[..., 3:]], dim=-1).to(torch.bfloat16)
+
+    ms = time_ms(lambda: group_rows_mlp_input(xyz, new_xyz, feats, idx,
+                                              inv_r), 20)
+    plain_ms = time_ms(lambda: group_rows_mlp_input_plain(
+        xyz, new_xyz, feats, idx, inv_r), 10)
+    library_ms = time_ms(library, 10)
+    distinct = sum(int(torch.unique(idx[b]).numel()) for b in range(B))
+    row_bytes = 3 * xyz.element_size() + cf * feats.element_size()
+    nbytes = (idx.numel() * idx.element_size() + B * m * 12
+              + distinct * row_bytes + B * m * ns * 2 * (3 + cf))
+    b_ms, by = bound_ms(nbytes, [])
+    log(f"  --use_multiview step at B = {B} (features from an array): loss "
+        f"{metrics['loss']:.3f}, launches {launches}; K7's MLP input at "
+        f"(3 + {cf}) bit-equal: {ms:.4f} ms (plain {plain_ms:.4f}, "
+        f"torch.gather chain {library_ms:.4f}, bound {b_ms:.5f}, {by})")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(loss=metrics["loss"], launches=launches,
+                k7=dict(shape=list(got.shape), ms=ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=b_ms, bound_by=by,
+                        bytes=nbytes))
+
+
 def run(args):
     import numpy as np
     import torch
@@ -3348,17 +3906,18 @@ def run(args):
     torch.cuda.empty_cache()
 
     # 8. train and evaluate from a data root through the CLI
+    import tempfile
+
     log("== phase 8: prepare_data_torch.py, train_torch.py, predict_torch.py "
         "and the detection evaluation on a "
         f"ScanNet-format root ({CLI_SCENES['points_per_scan']} points a "
         "scan), B=24, 4 loader workers")
-    report["cli"] = train_and_evaluate_from_a_data_root(args, cfg, roberta,
-                                                        card)
+    with tempfile.TemporaryDirectory() as tmp:
+        report["cli"] = train_and_evaluate_from_a_data_root(
+            args, cfg, roberta, card, tmp)
     cli_launches = report["cli"]["launches"]
 
     # 9, 10. the accuracy study: the overfit probe, a study resumed
-    import tempfile
-
     from butd_detr_tpu_torch.data import make_rich_scannet
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3374,6 +3933,39 @@ def run(args):
         report["study"] = study_with_resume(args, root, card)
     probe_launches = report["probe"]["launches"]
     study_launches = report["study"]["launches"]
+
+    # 12. training across processes
+    from butd_detr_tpu_torch.config import butd_cls_config as _cls_config
+
+    dist_report = report["distributed"] = {}
+    log(f"== phase 12 (a, b): --dp 2, then --mp 2, two ranks on the card "
+        f"over gloo, beside one process; {card}")
+    pred = GroundingPredictor(
+        _cls_config(backbone_bf16=False, attn_precise=True),
+        roberta_config=roberta, backbone_npoints=npoints, device="cuda",
+        seed=args.seed)
+    cloud, boxes, cids = scenes[0]
+    inputs = pred.make_inputs(cloud, REQUESTS[0][0], boxes, cids)
+    ranks = run_ranks(dist_rank, 2, args.seed, args.train_batch,
+                      {k: v.cpu() for k, v in inputs.items()})
+    log(f"  (a) --dp 2: {args.train_batch // 2} rows a rank, dropout 0; "
+        "phase 5's small model's gradients, then two full-width f32 steps")
+    dist_report["dp"] = data_parallel(args, [r["dp"] for r in ranks])
+    log("  (b) --mp 2: the forward of one request (f32, precise)")
+    dist_report["tp"] = tensor_parallel(roberta, pred, inputs,
+                                        [r["tp"] for r in ranks])
+    del pred, inputs, ranks
+    torch.cuda.empty_cache()
+    log(f"== phase 12 (c): phase 8's train_torch.py ran under torchrun, one "
+        f"process over NCCL: {report['cli']['nccl']}")
+    log("== phase 12 (d): one --use_multiview step at "
+        f"B = {args.train_batch}")
+    dist_report["multiview"] = multiview_step(args, roberta)
+    log("== phase 12 (e): --profile_dir on a short training epoch")
+    dist_report["profiler"] = profiler_window(args, cfg, roberta, npoints)
+    dist_launches = {k: sum(dist_report[part]["launches"][k]
+                            for part in dist_report)
+                     for k in dist_report["dp"]["launches"]}
 
     kernels = []
     replaces = {
@@ -3406,6 +3998,11 @@ def run(args):
               f"{name}: not launched by the overfit probe or the study")
         check(bf16_launches[name] > 0,
               f"{name}: not launched by the --use_bf16 requests and steps")
+        check(dist_report["dp"]["launches"][name] > 0
+              and dist_report["profiler"]["launches"][name] > 0
+              and dist_report["multiview"]["launches"][name] > 0,
+              f"{name}: not launched by the --dp 2 ranks, the profiled "
+              "epoch or the multiview step")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"butd_detr_tpu_torch/csrc/{name}.cu",
@@ -3413,7 +4010,7 @@ def run(args):
             "launches": (launches[name] + train_launches[name]
                          + eval_launches[name] + cli_launches[name]
                          + probe_launches[name] + study_launches[name]
-                         + bf16_launches[name]),
+                         + bf16_launches[name] + dist_launches[name]),
             "launches_serving": launches[name],
             "launches_training": train_launches[name],
             "launches_evaluation": eval_launches[name],
@@ -3421,6 +4018,7 @@ def run(args):
             "launches_probe": probe_launches[name],
             "launches_study": study_launches[name],
             "launches_bf16": bf16_launches[name],
+            "launches_distributed": dist_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -3445,6 +4043,9 @@ def run(args):
                       "training_ms_f32_operands", "bf16_rows"):
             if extra in row:
                 kernels[-1][extra] = row[extra]
+    # K7 at the multiview width (sa1's 131 channels)
+    kernels[[k["name"] for k in kernels].index("group_gather")][
+        "multiview"] = dist_report["multiview"]["k7"]
     report["kernels"] = kernels
     report["detail"] = {"fps": fps_row, "ball_query": bq_row,
                         "attention": att_row, "attention_bwd": bwd_row,

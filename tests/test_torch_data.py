@@ -15,7 +15,8 @@ without replacement as on ScanNet):
     with augmentation, val without), `butd_cls` and `butd` + `augment_det`,
     at two sample seeds, equals the JAX dataset's: bit for bit against the
     numpy augmentation, floats within 1e-6 relative (as (d)) against the
-    native one;
+    native one; with `use_multiview` too, its features written by the
+    port's `make_fake_multiview` (the JAX writer's arrays);
 (f) the loader with 2 spawned workers gives the batches of 0 workers and
     of the JAX loader, bit for bit, shuffled, with a padded tail;
 (g) `get_tokenizer` picks the JAX package's tokenizer class, in a process
@@ -303,11 +304,40 @@ def test_samples_equal_the_jax_datasets(data, monkeypatch, dataset, split):
         assert {a["dataset"] for a in got.annos} == {"sr3d", "scannet"}
 
 
-def test_multiview_waits_for_its_queue(data):
-    with pytest.raises(NotImplementedError, match="Data: multiview"):
-        JointGroundingDataset(data_path=data["root"], scans=data["scans"],
-                              use_multiview=True,
-                              tokenizer=SimpleTokenizer())
+def test_multiview_samples_equal_the_jax_datasets(data, monkeypatch,
+                                                  tmp_path):
+    """`use_multiview`: the port's `make_fake_multiview` writes the JAX
+    writer's features, and the samples (128 ENet channels after colour)
+    equal the JAX dataset's; a dataset that has opened its file still
+    pickles for the loader's workers and reads there."""
+    import h5py
+
+    monkeypatch.setenv("BUTD_NATIVE_AUGMENT", "0")
+    root = tmp_path / "root"  # the fixture's root and the features file
+    root.mkdir()
+    for name in os.listdir(data["root"]):
+        os.symlink(osp.join(data["root"], name), root / name)
+    path = synthetic.make_fake_multiview(str(root), data["scans"], dim=128,
+                                         seed=3)
+    want_path = j_synthetic.make_fake_multiview(
+        str(tmp_path / "jax"), data["jax_scans"], dim=128, seed=3)
+    with h5py.File(path, "r") as f, h5py.File(want_path, "r") as w:
+        assert sorted(f) == sorted(w) == sorted(data["scans"])
+        for sid in w:
+            np.testing.assert_array_equal(f[sid][()], w[sid][()])
+    for split in ("train", "val"):
+        got, want = _datasets(dict(data, root=str(root)), "sr3d", split,
+                              butd_cls=True, use_multiview=True)
+        assert len(got) == len(want) >= 2
+        for i in range(min(len(want), 3)):
+            for seed in (0, 7):
+                g = got.get(i, np.random.RandomState(seed))
+                _assert_same_sample(g, want.get(
+                    i, np.random.RandomState(seed)))
+        assert g["point_clouds"].shape[-1] == 3 + 3 + 128
+    again = pickle.loads(pickle.dumps(got))
+    _assert_same_sample(again.get(1, np.random.RandomState(2)),
+                        got.get(1, np.random.RandomState(2)))
 
 
 # --------------------------------------------------------- (f) the loader

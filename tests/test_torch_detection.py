@@ -20,7 +20,8 @@ original reference, on the CPU.
   tests/test_harness.py's detection test; `--ap_iou_thresholds 0.05
   0.25`, and box heads set so that some boxes overlap objects, so that
   not every AP is 0): the same boxes survive the NMS, and every AP,
-  recall, mAP and AR is equal.
+  recall, mAP and AR is equal; and two `--dp 2` ranks give the one
+  process's numbers.
 """
 
 import os
@@ -30,6 +31,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from butd_detr_tpu import native
 from butd_detr_tpu.data import JointGroundingDataset as JDataset
@@ -68,6 +70,7 @@ from butd_detr_tpu_torch.lang import SimpleTokenizer
 from butd_detr_tpu_torch.train import detection_token_map
 from butd_detr_tpu_torch.train import harness as p_harness
 
+import torch_ranks
 from test_torch_harness import CFG, NPOINTS, ScanNetTrainTester, \
     _scannet_root
 
@@ -309,7 +312,9 @@ def detection_epoch(tmp_path_factory):
         got = tester.evaluate_one_epoch(1, test_loader,
                                         tester.get_trainer(1))
     return dict(got=got, want=want, parsed=parsed, lines=lines,
-                n=len(test_set), thresholds=kw["ap_iou_thresholds"])
+                n=len(test_set), thresholds=kw["ap_iou_thresholds"],
+                kw=kw, roberta=roberta, state_dict=tester.state_dict,
+                tmp=tmp)
 
 
 def test_detection_epoch_equals_the_jax_harness(detection_epoch):
@@ -323,6 +328,23 @@ def test_detection_epoch_equals_the_jax_harness(detection_epoch):
             assert got[t][k] == w, (t, k, got[t][k], w)
         assert 0.0 <= got[t]["mAP"] <= 1.0 and 0.0 <= got[t]["AR"] <= 1.0
     assert got[0.05]["mAP"] > 0.0
+
+
+def test_two_dp_ranks_give_the_one_process_detection_metrics(
+        detection_epoch):
+    """`--dp 2`: each rank parses its rows of every batch (the tail's 1
+    real row on rank 0, none on rank 1) and the first process steps the AP
+    calculators through every shard's boxes in one process's order."""
+    d = detection_epoch
+    cfg = dict(d["kw"], dp=2, log_dir=str(d["tmp"] / "dp_log"))
+    got, other = torch_ranks.run_ranks(
+        torch_ranks.detection_world, 2, cfg, d["roberta"], NPOINTS,
+        {k: torch.as_tensor(v) for k, v in d["state_dict"].items()})
+    assert other is None
+    want = d["got"]
+    assert list(got) == list(want)
+    for t in want:
+        assert got[t] == pytest.approx(want[t], rel=1e-6, abs=1e-9), t
 
 
 def test_detection_epoch_parses_the_jax_harness_predictions(

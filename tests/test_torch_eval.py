@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_ranks
 from butd_detr_tpu.eval import grounding as jg
 from butd_detr_tpu_torch.eval import (
     BREAKDOWN_FIELDS,
@@ -209,14 +210,19 @@ def test_grounding_evaluator_matches_the_reference_counts():
         assert ev.gts[f] == pytest.approx(float(g[f"gt__{f}"])), f
 
 
-def test_one_process_helpers_and_the_refused_merge(monkeypatch):
+def test_one_process_helpers_and_the_merge_across_two_ranks():
     assert process_count() == 1 and process_index() == 0
     assert is_main_process()
     d = {("last_", "bbs"): 3.0, "easy": 1e-14}
     out = allreduce_dict(d)
     assert out == d and out is not d
-    from butd_detr_tpu_torch.utils import dist
-
-    monkeypatch.setattr(dist, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        allreduce_dict(d)
+    # the JAX package's test_allreduce_dict_allgather_branch counters, the
+    # keys in another order on each rank
+    d0 = {"acc_last_0.25": 3.0, "gt_count": 7, "acc_last_0.5": 1.0}
+    d1 = {"acc_last_0.5": 2.0, "gt_count": 5, "acc_last_0.25": 4.0}
+    ranks = torch_ranks.run_ranks(torch_ranks.merge_counters, 2, [d0, d1])
+    for rank, got in enumerate(ranks):
+        assert got["merged"] == {"acc_last_0.25": 7.0, "gt_count": 12.0,
+                                 "acc_last_0.5": 3.0}
+        assert (got["count"], got["index"], got["main"]) == (
+            2, rank, rank == 0)

@@ -493,13 +493,16 @@ def test_main_trains_saves_evaluates_and_resumes(tmp_path):
         assert torch.equal(evaluated.model.state_dict()[k], v), k
 
 
-def test_what_waits_for_its_slice_says_so(tmp_path):
+def test_every_train_flag_is_taken_and_cuda_is_the_default(tmp_path):
     cfg = Config(**dict(CFG, log_dir=str(tmp_path / "log")))
-    for kw, queue in ((dict(mp=2), "Distribution"),
-                      (dict(profile_dir="p"), "rest of the surface"),
-                      (dict(use_multiview=True), "Data: multiview")):
-        with pytest.raises(NotImplementedError, match=queue):
-            TrainTester(dataclasses.replace(cfg, **kw), device="cpu")
+    # one process: the mesh is 1 x 1, and a mesh of more ranks says why not
+    for kw in (dict(dp=1, mp=1, syncbn=True), dict(profile_dir="p"),
+               dict(use_multiview=True)):
+        tester = TrainTester(dataclasses.replace(cfg, **kw), device="cpu")
+        assert (tester.mesh.dp, tester.mesh.mp) == (1, 1)
+    with pytest.raises(ValueError, match="--mp 2 does not divide the "
+                       "world size 1"):
+        TrainTester(dataclasses.replace(cfg, mp=2), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TrainTester(cfg)

@@ -1,5 +1,5 @@
 """The port imports no JAX. In a fresh process, every module of
-`butd_detr_tpu_torch` (`train/study.py` included), one of the port's
+`butd_detr_tpu_torch` (`train/study.py` and `parallel/` included), one of the port's
 study command lines (`scripts/*_torch.py` of the accuracy study) or one
 of its entry points at the repository's root (`predict_torch.py`,
 `train_torch.py`, `prepare_data_torch.py`, `chip_smoke.py`) is imported;
@@ -38,7 +38,10 @@ def test_imports_no_jax(what, tmp_path):
             import butd_detr_tpu_torch as pkg
             names = [m.name for m in pkgutil.walk_packages(
                 pkg.__path__, pkg.__name__ + ".")]
-            assert "butd_detr_tpu_torch.train.study" in names
+            assert {"butd_detr_tpu_torch.train.study",
+                    "butd_detr_tpu_torch.parallel.mesh",
+                    "butd_detr_tpu_torch.parallel.tp",
+                    "butd_detr_tpu_torch.parallel.collectives"} <= set(names)
             for name in names:
                 importlib.import_module(name)
             """)

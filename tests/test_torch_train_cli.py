@@ -3,7 +3,9 @@ it: `TrainTester.main` through the real `get_datasets` and `get_loaders`
 (`JointGroundingDataset` from a `make_fake_scannet` root, joint detection
 prompts mixed in, 2 spawned loader workers), one training epoch, a
 checkpoint and the evaluation epochs; only the model is the tests' small
-one. Also `train_torch.py --help` and `prepare_data_torch.py --help`.
+one. Again with `--use_multiview` (the port's `make_fake_multiview`
+features, 128 a point) and the profiler window (`--profile_dir`). Also
+`train_torch.py --help` and `prepare_data_torch.py --help`.
 """
 
 import json
@@ -16,7 +18,12 @@ import pytest
 import torch
 
 from butd_detr_tpu_torch.config import parse_config
-from butd_detr_tpu_torch.data import make_fake_scannet, save_scan_cache
+from butd_detr_tpu_torch.data import (
+    load_scan_cache,
+    make_fake_multiview,
+    make_fake_scannet,
+    save_scan_cache,
+)
 from butd_detr_tpu_torch.lang import RobertaConfig
 from butd_detr_tpu_torch.predict import build_model
 from butd_detr_tpu_torch.train import TrainTester
@@ -100,9 +107,41 @@ def test_train_and_evaluate_from_a_scannet_root(tmp_path):
     assert all(torch.isfinite(p).all() for p in trainer.model.parameters())
 
 
+def test_train_with_multiview_features_and_the_profiler_window(tmp_path):
+    root = make_fake_scannet(str(tmp_path / "data"), points_per_scan=600)
+    scans = {}
+    for split in ("train", "val"):
+        cache = os.path.join(root, f"{split}_v3scans.pkl")
+        save_scan_cache(cache, split, root, num_workers=1, keep_points=256)
+        scans.update(load_scan_cache(cache,
+                                     meta_dir=os.path.join(root, "meta_data")))
+    make_fake_multiview(root, scans, dim=128)
+    log_dir, prof = tmp_path / "log", tmp_path / "prof"
+    cfg = parse_config(FLAGS + [
+        "--data_root", root, "--log_dir", str(log_dir),
+        "--roberta_checkpoint", str(tmp_path / "none.pth"),
+        "--use_multiview", "--profile_dir", str(prof), "--profile_steps",
+        "2", "--max_epoch", "2", "--val_freq", "5", "--num_workers", "0"])
+    assert cfg.input_feature_dim == 3 + 128
+    tester = SmallModelTester(cfg, device="cpu")
+    tester.evaluators = []
+    trainer = tester.main()
+    assert trainer.step == 10  # two epochs of 5 steps
+    sa1 = trainer.model.backbone_net.sa1.mlp_module.layer0.conv.weight
+    assert sa1.shape[1] == 3 + 3 + 128  # xyz and the 131 feature channels
+    text = (log_dir / "log.txt").read_text()
+    # batches 1 and 2 of the first epoch, once a run
+    assert text.count(f"profiler trace (2 steps) written to {prof}") == 1
+    trace = json.loads((prof / "trace_rank0.json").read_text())
+    assert trace["traceEvents"]
+    assert all(torch.isfinite(p).all() for p in trainer.model.parameters())
+
+
 @pytest.mark.parametrize("script", ["train_torch.py", "prepare_data_torch.py"])
 def test_entry_point_help(script):
     out = subprocess.run([sys.executable, script, "--help"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "--data_root" in out.stdout and "--num_workers" in out.stdout
+    if script == "train_torch.py":
+        assert "torchrun --standalone --nproc_per_node" in out.stdout
