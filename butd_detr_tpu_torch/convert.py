@@ -17,6 +17,15 @@ Any flax path without a mapping raises KeyError naming it.
 tree shaped like the JAX parameters — a tree of gradients, say — so that a
 test can lay `jax.grad`'s result beside `param.grad` by parameter name.
 
+`span_state_dict_from_jax(params)` maps the JAX `SpanPredictor`'s
+parameters (its RoBERTa under `text_encoder`, `Dense_0` and `Dense_1`)
+onto `lang/span_predictor.py:SpanPredictor` (`text_encoder.*`,
+`projector.0`, `projector.3`).
+
+`text_encoder_to_jax(encoder)` goes the other way for a RoBERTa trunk:
+{flax path: array}, the keys of the JAX tower's parameter tree, as
+`scripts/pretrain_text_torch.py` writes its npz.
+
 `load_text_init(path, model)` loads a text trunk saved under flax paths
 (`studies/attrib_r5/text_init.npz`, from `scripts/pretrain_text.py`) into
 `model.text_encoder` through the same map.
@@ -197,6 +206,51 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict
     return OrderedDict(
         (k, torch.from_numpy(np.array(v)))  # a writable copy
         for k, v in sorted(out.items()))
+
+
+_SPAN_PROJECTOR = {"Dense_0": "projector.0", "Dense_1": "projector.3"}
+
+
+def span_state_dict_from_jax(params: Dict
+                             ) -> "OrderedDict[str, torch.Tensor]":
+    """The port's `SpanPredictor` state dict for the JAX `SpanPredictor`'s
+    parameter tree (numpy leaves)."""
+    out = named_arrays_from_jax({"text_encoder": params["text_encoder"]})
+    for name, key in _SPAN_PROJECTOR.items():
+        out[f"{key}.weight"] = np.asarray(params[name]["kernel"],
+                                          np.float32).T
+        out[f"{key}.bias"] = np.asarray(params[name]["bias"], np.float32)
+    extra = set(params) - {"text_encoder", *_SPAN_PROJECTOR}
+    if extra:
+        raise KeyError(f"no port mapping for span predictor {sorted(extra)}")
+    return OrderedDict(
+        (k, torch.from_numpy(np.array(v))) for k, v in sorted(out.items()))
+
+
+def text_encoder_to_jax(encoder) -> Dict[str, np.ndarray]:
+    """A port `RobertaModel`'s parameters under the JAX tower's flax paths
+    (`embeddings/word_embeddings/embedding`,
+    `layer_0/attention/q_proj/kernel`, ...), in the flax layout."""
+    own = {k: v.detach().cpu().float().numpy()
+           for k, v in encoder.state_dict().items()}
+    inverse = {f"encoder.layer.{{i}}.{key}": parts
+               for parts, (key, _) in _ROBERTA_LAYER.items()}
+    out = {}
+    for i in range(len(encoder.encoder.layer)):
+        for key, parts in inverse.items():
+            base, path = key.format(i=i), "/".join((f"layer_{i}", *parts))
+            if parts[-1].endswith("norm"):
+                out[f"{path}/scale"] = own[f"{base}.weight"]
+            else:
+                out[f"{path}/kernel"] = own[f"{base}.weight"].T
+            out[f"{path}/bias"] = own[f"{base}.bias"]
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        out[f"embeddings/{name}/embedding"] = \
+            own[f"embeddings.{name}.weight"]
+    out["embeddings/layer_norm/scale"] = own["embeddings.LayerNorm.weight"]
+    out["embeddings/layer_norm/bias"] = own["embeddings.LayerNorm.bias"]
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
 
 
 def load_text_init(path: str, model) -> None:

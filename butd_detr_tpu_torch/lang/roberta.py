@@ -11,6 +11,13 @@ part of the grounding model's forward and is left out.
 the JAX tower's `dtype`: the looked-up embedding rows are cast to it (the
 rows of the table cast to it, as flax's `nn.Embed(dtype=...)` gives
 them), the LayerNorms normalize in f32.
+
+`train=True` drops where the JAX tower does: `hidden_dropout` after the
+embeddings, on the attention output and on the FFN output, and
+`attention_dropout` on the attention probabilities inside the attention
+kernel (one Philox seed a call from the tower's `DropoutRng`, which the
+backward reuses). The grounding model runs the tower with `train=False`,
+as the JAX model does; the span predictor trains it.
 """
 
 import dataclasses
@@ -20,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from butd_detr_tpu_torch.nn.attention import multi_head
+from butd_detr_tpu_torch.nn.dropout import DropoutRng, bind_rng, dropout
 from butd_detr_tpu_torch.nn.mlp import Dense, LayerNorm
 
 
@@ -34,6 +42,8 @@ class RobertaConfig:
     type_vocab_size: int = 1
     pad_token_id: int = 1
     layer_norm_eps: float = 1e-5
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
 
 
 def roberta_base_config() -> RobertaConfig:
@@ -96,6 +106,8 @@ class RobertaEmbeddings(nn.Module):
         super().__init__()
         self.pad_token_id = c.pad_token_id
         self.dtype = dtype
+        self.p = c.hidden_dropout
+        self.rng = DropoutRng()
         self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size)
         self.position_embeddings = nn.Embedding(c.max_position_embeddings,
                                                 c.hidden_size)
@@ -103,13 +115,14 @@ class RobertaEmbeddings(nn.Module):
                                                   c.hidden_size)
         self.LayerNorm = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, train: bool = False):
         pos = create_position_ids(input_ids, self.pad_token_id)
         dt = self.dtype
         x = (self.word_embeddings(input_ids).to(dt)
              + self.position_embeddings(pos).to(dt)
              + self.token_type_embeddings(torch.zeros_like(input_ids)).to(dt))
-        return self.LayerNorm(x)
+        x = self.LayerNorm(x)
+        return dropout(x, self.p, self.rng) if train else x
 
 
 class _SelfAttention(nn.Module):
@@ -134,19 +147,29 @@ class RobertaLayer(nn.Module):
         super().__init__()
         self.num_heads = c.num_attention_heads
         self.precise = precise
+        self.p = c.hidden_dropout
+        self.p_attention = c.attention_dropout
+        self.rng = DropoutRng()
         self.attention = _Attention(c, dtype)
         self.intermediate = _Dense(c.hidden_size, c.intermediate_size, dtype)
         self.output = _DenseLN(c.intermediate_size, c.hidden_size,
                                c.layer_norm_eps, dtype)
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, train: bool = False):
         sa = self.attention.self
+        pa = self.p_attention if train else 0.0
         a = multi_head(sa.query(x), sa.key(x), sa.value(x), self.num_heads,
-                       pad_mask, dropout_p=0.0, precise=self.precise)
+                       pad_mask, dropout_p=pa, precise=self.precise,
+                       seed=self.rng.next_seed() if pa > 0.0 else None)
         ao = self.attention.output
-        x = ao.LayerNorm(x + ao.dense(a))
-        h = gelu(self.intermediate(x))
-        return self.output.LayerNorm(x + self.output.dense(h))
+        a = ao.dense(a)
+        if train:
+            a = dropout(a, self.p, self.rng)
+        x = ao.LayerNorm(x + a)
+        h = self.output.dense(gelu(self.intermediate(x)))
+        if train:
+            h = dropout(h, self.p, self.rng)
+        return self.output.LayerNorm(x + h)
 
 
 class _Encoder(nn.Module):
@@ -159,7 +182,8 @@ class _Encoder(nn.Module):
 
 class RobertaModel(nn.Module):
     """input_ids (B, L), attention_mask (B, L) 1 == real -> last hidden
-    state (B, L, hidden), f32 (the last LayerNorm's)."""
+    state (B, L, hidden), f32 (the last LayerNorm's). Its layers share
+    one `DropoutRng`, `rng` (a model that holds the tower binds its own)."""
 
     def __init__(self, config: RobertaConfig, precise: bool = False,
                  dtype=torch.float32):
@@ -167,10 +191,11 @@ class RobertaModel(nn.Module):
         self.config = config
         self.embeddings = RobertaEmbeddings(config, dtype)
         self.encoder = _Encoder(config, precise, dtype)
+        self.rng = bind_rng(self, DropoutRng())
 
-    def forward(self, input_ids, attention_mask):
+    def forward(self, input_ids, attention_mask, train: bool = False):
         pad_mask = attention_mask == 0  # True == PAD
-        x = self.embeddings(input_ids.long())
+        x = self.embeddings(input_ids.long(), train)
         for layer in self.encoder.layer:
-            x = layer(x, pad_mask)
+            x = layer(x, pad_mask, train)
         return x

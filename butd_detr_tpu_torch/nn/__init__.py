@@ -9,7 +9,11 @@ from butd_detr_tpu_torch.nn.mlp import (
     SharedMLP,
 )
 from butd_detr_tpu_torch.nn.pointnet2 import (
+    GroupAll,
     PointnetFPModule,
+    PointnetLFPModuleMSG,
+    PointnetSAModule,
+    PointnetSAModuleMSG,
     PointnetSAModuleVotes,
     QueryAndGroup,
 )
@@ -18,9 +22,13 @@ from butd_detr_tpu_torch.nn.position import PositionEmbeddingLearned
 __all__ = [
     "BatchNorm",
     "ConvBNRelu1d",
+    "GroupAll",
     "MultiheadAttention",
     "Pointnet2Backbone",
     "PointnetFPModule",
+    "PointnetLFPModuleMSG",
+    "PointnetSAModule",
+    "PointnetSAModuleMSG",
     "PointnetSAModuleVotes",
     "PointwiseConv",
     "PositionEmbeddingLearned",

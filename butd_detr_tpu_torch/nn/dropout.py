@@ -39,6 +39,22 @@ class DropoutRng:
         return (self._seed * _CALL_STRIDE + self._calls) % 2 ** 64
 
 
+def dropout(x: torch.Tensor, p: float, rng: DropoutRng) -> torch.Tensor:
+    """Drop entries of `x` with probability `p` by a mask drawn from
+    `rng`'s generator on x's device; the kept entries are divided by the
+    keep rate (flax's `Dropout` in train mode)."""
+    if p == 0.0:
+        return x
+    keep = torch.rand(x.shape, device=x.device, dtype=torch.float32,
+                      generator=rng.generator(x.device)) >= p
+    if x.dtype is torch.float32:
+        return x * (keep.to(x.dtype) / (1.0 - p))
+    # flax divides the kept entries by the keep rate in x's dtype:
+    # round(x / bf16(1 - p)) under bf16; a divisor on the device keeps
+    # it a division (a Python scalar's becomes a reciprocal multiply)
+    return torch.where(keep, x / x.new_full((), 1.0 - p), x.new_zeros(()))
+
+
 class Dropout(nn.Module):
     """Elementwise dropout, identity in eval mode; the mask comes from the
     layer's `DropoutRng`."""
@@ -51,17 +67,9 @@ class Dropout(nn.Module):
         self.rng = DropoutRng()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.p == 0.0:
+        if not self.training:
             return x
-        keep = torch.rand(x.shape, device=x.device, dtype=torch.float32,
-                          generator=self.rng.generator(x.device)) >= self.p
-        if x.dtype is torch.float32:
-            return x * (keep.to(x.dtype) / (1.0 - self.p))
-        # flax divides the kept entries by the keep rate in x's dtype:
-        # round(x / bf16(1 - p)) under bf16; a divisor on the device keeps
-        # it a division (a Python scalar's becomes a reciprocal multiply)
-        return torch.where(keep, x / x.new_full((), 1.0 - self.p),
-                           x.new_zeros(()))
+        return dropout(x, self.p, self.rng)
 
     def extra_repr(self) -> str:
         return f"p={self.p}"

@@ -191,6 +191,38 @@ the last line is printed:
    `torch.gather` chain. (e) `--profile_dir` on a short training epoch
    (3 steps at `--train-batch`, 2 traced): the window's log line, a
    step's launches, and every port kernel named in the trace.
+13. the text side (run after phase 12): K3 and K4 at the text paths'
+   shapes, against their plain versions fed the kernel's own dropout mask
+   and timed beside SDPA and autograd through it: the span step's (128,
+   12, 128, 64) at p = 0.1, its scoring batch's at p = 0, the class
+   table's (64, 12, 16, 64) and the text pretraining's (64, 4, 32, 32,
+   precise); then (a) the span predictor at full width (RoBERTa-base, B
+   128, L 128, lr 1e-4, dropout 0.1, the default attention mode) on a
+   text-only root this phase writes (1,280 train and 256 test sr3d rows
+   "the <class> <relation> the <anchor>"): 1 warm and 30 timed steps, ms
+   a step and peak memory, every loss finite and the last below 0.75 x
+   the first, K3 and K4 12 launches a step and nothing else, one batch's
+   eval-mode logits on the card within 1e-2 + 2^-8 * max|CPU| of the f32
+   CPU run, and one f32 training step (attention dropout 0.1, no
+   elementwise dropout) whose loss and gradients lie within 1e-4 and
+   5e-3 * max|g| + 1e-6 of the CPU's; (b) `span_cls_torch.py` on that root
+   (1 epoch, then `--eval` and `--store`), its main in this process with
+   the launches read around each run, and the port's grounding dataset
+   reading the stored `sr3d_pred_spans.json` (each row's `pred_pos_map`
+   the stored span); (c) `gen_class_embeddings_torch.py --params` on a
+   seeded RoBERTa-base state dict, its main in this process (96 K3
+   launches): a finite (485, 768) table equal to the function's, loaded
+   through `init_class_embeddings`; (d) `scripts/pretrain_text_torch.py
+   --steps 50` in this process: the cross-entropy at step 49 below step
+   0's, its npz loaded through `load_text_init`; (e) `PointnetSAModuleMSG`
+   at B 8 on 50,000 x 6 points (npoint 2,048, three radii), a `GroupAll`
+   module and `PointnetLFPModuleMSG`, forward and backward, against the
+   CPU (indices equal, floats and gradients within 5e-3 * max + 1e-6),
+   with the launches by kernel; (f) `demo_torch.py`, its main in this
+   process (every kernel launched), prints `[demo] OK`; then the entry
+   points of (b), (c) and (f) as five child processes side by side (their
+   wall seconds), with the same accuracy, spans and table as in process
+   and `[demo] OK`. Each part's seconds are printed.
 Phase 2 also holds K1, K2, K6 and K7 bit-equal, and K3 and K4 within
 their bounds (p = 0 and 0.1, both modes), at the shapes of phases 9 and
 10: B = 12 at 5,000 points and B = 24 at 20,000, the small text tower's
@@ -208,6 +240,7 @@ report (per-tier and per-shape times, latencies, the card-vs-CPU errors).
 """
 
 import argparse
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -2312,13 +2345,13 @@ CLI_SCENES = dict(n_train=8, n_val=8, objects_per_scan=5,
                   points_per_scan=60_000)
 
 
-def run_child(cmd, timeout, what):
-    """Run `cmd` from the checkout's root in a session of its own; on
-    timeout kill the whole session (the child and its loader workers).
-    Returns its output; fails when it exits non-zero."""
+def run_child(cmd, timeout, what, cwd=ROOT):
+    """Run `cmd` from `cwd` (the checkout's root) in a session of its
+    own; on timeout kill the whole session (the child and its loader
+    workers). Returns its output; fails when it exits non-zero."""
     import signal
 
-    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
     try:
@@ -3719,6 +3752,756 @@ def multiview_step(args, roberta):
                         bytes=nbytes))
 
 
+# ------------------------------------------------------------- phase 13,
+# the text side
+
+# the span predictor's data: sr3d rows on train scans, then on test scans
+TEXT_ROWS = dict(n_train=1280, n_test=256)
+SPAN_BATCH, SPAN_LEN, SPAN_STEPS = 128, 128, 30
+# K3 and K4 at the text paths' shapes: (name, B, H, L, Dh, p, precise,
+# K3 calls, K4 calls) a span step, a span scoring batch, a class table
+# and a pretraining step
+TEXT_SHAPES = [
+    ("span_train", SPAN_BATCH, 12, SPAN_LEN, 64, 0.1, False, 12, 12),
+    ("span_score", SPAN_BATCH, 12, SPAN_LEN, 64, 0.0, False, 12, 0),
+    ("class_embeddings", 64, 12, 16, 64, 0.0, False, 96, 0),
+    ("pretrain", 64, 4, 32, 32, 0.0, True, 4, 4),
+]
+MSG_BATCH, MSG_POINTS = 8, 50_000
+
+
+def write_text_root(root, seed, n_train, n_test):
+    """A text-only data root for the span predictor: `meta_data` scan
+    lists (and the label table the grounding dataset opens) and
+    `refer_it_3d/sr3d.csv`, `n_train` rows on train scans, then `n_test`
+    on test scans, each "the <class> <relation> the <anchor>" with the
+    class as its target."""
+    import csv
+
+    import numpy as np
+
+    from butd_detr_tpu_torch.data.scannet_config import (
+        relations,
+        scannet_classes,
+    )
+
+    rng = np.random.RandomState(seed)
+    classes, rels = scannet_classes(485), relations()
+    meta = os.path.join(root, "meta_data")
+    os.makedirs(meta, exist_ok=True)
+    os.makedirs(os.path.join(root, "refer_it_3d"), exist_ok=True)
+    scans = {"train": [f"scene{i:04d}_00" for i in range(64)],
+             "test": [f"scene{i:04d}_00" for i in range(64, 80)]}
+    for split, ids in scans.items():
+        with open(os.path.join(meta, f"sr3d_{split}_scans.txt"), "w") as f:
+            f.write(repr(ids))
+    with open(os.path.join(meta, "scannetv2-labels.combined.tsv"),
+              "w") as f:
+        f.write("raw_category\tid\tnyu40id\tnyu40class\n")
+    with open(os.path.join(root, "refer_it_3d", "sr3d.csv"), "w",
+              newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["scan_id", "target_id", "distractor_ids", "utterance",
+                    "instance_type", "anchors_types", "anchor_ids",
+                    "mentions_target_class"])
+        for i in range(n_train + n_test):
+            ids = scans["train" if i < n_train else "test"]
+            c, a = rng.randint(len(classes), size=2)
+            w.writerow([ids[rng.randint(len(ids))], rng.randint(20), "[]",
+                        f"the {classes[c]} "
+                        f"{rels[rng.randint(len(rels))]} the {classes[a]}",
+                        classes[c], repr([classes[a]]), "[1]", "True"])
+    return root
+
+
+def check_text_attention(gen, seed):
+    """K3 and K4 at the text paths' shapes (TEXT_SHAPES, utterance-length
+    key padding), against their plain versions fed the kernel's own
+    dropout mask (which must equal the plain Philox generator's), in the
+    path's mode; each timed beside the plain version, SDPA and autograd
+    through SDPA at the same p. Returns ({shape: K3 numbers}, {shape: K4
+    numbers}, worst errors)."""
+    import torch
+    import torch.nn.functional as F
+
+    from butd_detr_tpu_torch.ops import (
+        attention,
+        attention_backward,
+        attention_backward_plain,
+        attention_plain,
+        dropout_keep_mask,
+        dropout_keep_mask_plain,
+    )
+
+    fwd, bwd = {}, {}
+    worst = {"attention": 0.0, "attention_bwd": 0.0}
+    for name, B, H, L, Dh, p, precise, n3, n4 in TEXT_SHAPES:
+        q, k, v, do = (torch.randn(B, L, H, Dh, device="cuda",
+                                   generator=gen).transpose(1, 2)
+                       for _ in range(4))
+        keys = torch.arange(L, device="cuda")[None]
+        # utterances of L/8 to L tokens
+        lengths = L // 8 + torch.arange(B, device="cuda")[:, None] \
+            % (L - L // 8 + 1)
+        pad = (keys >= lengths).contiguous()
+        scale = Dh ** -0.5
+        kw = dict(sm_scale=scale, dropout_p=p, precise=precise)
+        keep = None
+        if p:
+            keep = dropout_keep_mask(seed, B, H, L, L, p, device="cuda")
+            check(torch.equal(keep.cpu(), dropout_keep_mask_plain(
+                seed, B, H, L, L, p)),
+                f"{name}: the kernel's dropout mask != the plain Philox's")
+        got = attention(q, k, v, pad, seed=seed, **kw)
+        want = attention_plain(q, k, v, pad, keep_mask=keep, **kw)
+        err = (got - want).abs().max().item()
+        atol = 2e-5 if precise else (
+            4e-3 + 2 ** -8 * v.abs().max().item() / (1 - p))
+        check(torch.allclose(got, want, atol=atol,
+                             rtol=1e-4 if precise else 4e-3),
+              f"attention {name}: max err {err}")
+        worst["attention"] = max(worst["attention"], err)
+        pairs = B * H * L * L
+        rate = F32_OPS_PER_S if precise else BF16_OPS_PER_S
+        b3, by3 = bound_ms(4 * B * H * Dh * 4 * L + B * L,
+                           [(4 * pairs * Dh, rate),
+                            (5 * pairs, F32_OPS_PER_S)])
+        amask = ~pad[:, None, None, :]
+        fwd[name] = dict(
+            B=B, H=H, L=L, Dh=Dh, p=p, precise=precise, calls=n3,
+            max_abs_err=err,
+            ms=time_ms(lambda: attention(q, k, v, pad, seed=seed, **kw), 10),
+            plain_ms=time_ms(lambda: attention_plain(
+                q, k, v, pad, keep_mask=keep, **kw), 3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=amask, scale=scale, dropout_p=p), 10),
+            bound_ms=b3, bound_by=by3)
+        if n4:
+            grads = attention_backward(q, k, v, do, pad, seed=seed, **kw)
+            again = attention_backward(q, k, v, do, pad, seed=seed, **kw)
+            wants = attention_backward_plain(q, k, v, do, pad,
+                                             keep_mask=keep, **kw)
+            errs = []
+            for what, g, a, w in zip("qkv", grads, again, wants):
+                check(torch.equal(g, a),
+                      f"attention backward {name} d{what}: two runs differ")
+                e = (g - w).abs().max().item()
+                ok = (torch.allclose(g, w, atol=2e-5, rtol=1e-4) if precise
+                      else e <= 4e-3 + 4e-3 * w.abs().max().item())
+                check(ok, f"attention backward {name} d{what}: max err {e}")
+                errs.append(e)
+            del grads, again, wants
+            worst["attention_bwd"] = max(worst["attention_bwd"], *errs)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=amask, scale=scale, dropout_p=p)
+            b4, by4 = bound_ms(4 * B * H * Dh * 7 * L + B * L,
+                               [(10 * pairs * Dh, rate),
+                                (12 * pairs, F32_OPS_PER_S)])
+            bwd[name] = dict(
+                B=B, H=H, L=L, Dh=Dh, p=p, precise=precise, calls=n4,
+                max_abs_err=max(errs),
+                ms=time_ms(lambda: attention_backward(
+                    q, k, v, do, pad, seed=seed, **kw), 10),
+                plain_ms=time_ms(lambda: attention_backward_plain(
+                    q, k, v, do, pad, keep_mask=keep, **kw), 3),
+                library_ms=time_ms(lambda: torch.autograd.grad(
+                    out, leaves, do, retain_graph=True), 10),
+                bound_ms=b4, bound_by=by4)
+            del leaves, out
+        log(f"  K3 {name:16s} ({B}, {H}, {L}, {Dh}) p={p} "
+            f"precise={precise}: {fwd[name]['ms']:.3f} ms (plain "
+            f"{fwd[name]['plain_ms']:.3f}, sdpa {fwd[name]['library_ms']:.3f}"
+            f", bound {b3:.4f} by {by3}), err {err:.3g}"
+            + (f"; K4 {bwd[name]['ms']:.3f} ms (plain "
+               f"{bwd[name]['plain_ms']:.3f}, sdpa autograd "
+               f"{bwd[name]['library_ms']:.3f}, bound {b4:.4f} by {by4}), "
+               f"err {max(errs):.3g}" if n4 else ""))
+        del q, k, v, do, keep, got, want
+    torch.cuda.empty_cache()
+    return fwd, bwd, worst
+
+
+def span_training(args, root, card):
+    """(a) The span predictor at full width (RoBERTa-base, B 128, L 128,
+    lr 1e-4, dropout 0.1, the default attention mode): 1 warm and
+    SPAN_STEPS timed steps on the root's shuffled training rows; every
+    loss finite, the last below 0.75 x the first, K3 and K4 12 launches a
+    step and nothing else; then one batch's eval-mode logits on the card
+    against the f32 CPU run of the same weights (phase 4's default-mode
+    bound), and one training step against the CPU's
+    (`span_step_against_the_cpu`)."""
+    import numpy as np
+    import torch
+
+    from butd_detr_tpu_torch.lang import get_tokenizer, roberta_base_config
+    from butd_detr_tpu_torch.lang.span_predictor import SpanPredictor
+    from butd_detr_tpu_torch.lang.span_trainer import (
+        SpanTextDataset,
+        SpanTrainer,
+        batch_iter,
+    )
+    from butd_detr_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    tok = get_tokenizer(max_len=SPAN_LEN)
+    ds = SpanTextDataset("sr3d", "train", root, tokenizer=tok,
+                         max_len=SPAN_LEN)
+    check(len(ds) == TEXT_ROWS["n_train"],
+          f"span dataset: {len(ds)} rows, expected {TEXT_ROWS['n_train']}")
+    batches, epoch = [], 0
+    while len(batches) < SPAN_STEPS + 1:
+        batches += batch_iter(ds, SPAN_BATCH, True, seed=epoch,
+                              drop_last=True)
+        epoch += 1
+    trainer = SpanTrainer(roberta_base_config(), max_len=SPAN_LEN, lr=1e-4,
+                          seed=args.seed, device="cuda")
+    build_s = time.perf_counter() - t0
+    losses = [trainer.train_step(batches[0])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    ms = []
+    for batch in batches[1:SPAN_STEPS + 1]:
+        t = time.perf_counter()
+        losses.append(trainer.train_step(batch))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    check(np.isfinite(losses).all(), f"span training: losses {losses}")
+    check(losses[-1] < 0.75 * losses[0],
+          f"span training: step {SPAN_STEPS} loss {losses[-1]:.4f} is not "
+          f"below 0.75 x step 0's {losses[0]:.4f}")
+    for name, n in launches.items():
+        want = 12 * SPAN_STEPS if name in ("attention",
+                                           "attention_bwd") else 0
+        check(n == want, f"span training: {name} launched {n} times in "
+                         f"{SPAN_STEPS} steps, expected {want}")
+
+    # one batch's eval-mode logits, card (default mode) against CPU (f32)
+    batch = batches[0]
+    score_ms = median_ms(lambda: trainer.score_step(batch), 3)
+    got = trainer.score_step(batch).float().cpu().numpy()
+    cpu = SpanPredictor(roberta_base_config(), precise=True)
+    cpu.load_state_dict({k: v.cpu()
+                         for k, v in trainer.model.state_dict().items()})
+    t = trainer.tensors(batch)
+    with torch.no_grad():
+        want = cpu.eval()(t["text_ids"].cpu(), t["text_mask"].cpu()).numpy()
+    err = float(np.abs(got - want).max())
+    lim = default_mode_bound(want)
+    check(err <= lim, f"span logits, card vs CPU: max err {err} > {lim}")
+    med = sorted(ms)[len(ms) // 2]
+    log(f"  (a) span training, RoBERTa-base at B {SPAN_BATCH}, L "
+        f"{SPAN_LEN}: {SPAN_STEPS} steps median {med:.1f} ms "
+        f"({min(ms):.1f}-{max(ms):.1f}), peak {peak / 2 ** 30:.2f} GiB, "
+        f"K3 {launches['attention'] // SPAN_STEPS} and K4 "
+        f"{launches['attention_bwd'] // SPAN_STEPS} a step; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; a scoring batch "
+        f"{score_ms:.1f} ms; logits vs CPU max err {err:.3g} (bound "
+        f"{lim:.3g}); model built in {build_s:.1f} s; {card}")
+    del trainer, cpu
+    torch.cuda.empty_cache()
+    step = span_step_against_the_cpu(args, batch)
+    return dict(step_ms=ms, median_step_ms=med, peak_memory_bytes=peak,
+                losses=losses, launches=launches, score_ms=score_ms,
+                logits_max_abs_err=err, logits_bound=lim, step_vs_cpu=step,
+                tokenizer=type(tok).__name__,
+                seconds=time.perf_counter() - t0)
+
+
+def span_step_against_the_cpu(args, batch):
+    """One span training step at full width (B 128, L 128) on the card and
+    on the CPU, in the f32 mode, from the same seeded weights, batch and
+    step seed, with the attention dropout at 0.1 and every elementwise
+    dropout at 0. An elementwise mask comes from each device's own
+    generator, but the attention's is one Philox stream on both: the CPU's
+    plain forward and backward draw the mask K3 and K4 regenerate on the
+    card. The loss must agree within 1e-4 relative and every gradient
+    within phase 5's bound, 5e-3 * max|g| + 1e-6, which a wrong gradient,
+    or a K4 that does not get its forward's seed, breaks; the card's step
+    launches K3 and K4 12 times each. (The default mode's bf16 operands
+    are held to their own bounds by phases 2 and 4, not to this one.)"""
+    import dataclasses
+
+    import torch
+
+    from butd_detr_tpu_torch.lang import roberta_base_config
+    from butd_detr_tpu_torch.lang.span_trainer import SpanTrainer
+    from butd_detr_tpu_torch.ops import _cuda
+
+    config = dataclasses.replace(roberta_base_config(), hidden_dropout=0.0)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t = time.perf_counter()
+        trainer = SpanTrainer(config, max_len=SPAN_LEN, lr=1e-4,
+                              seed=args.seed, device=device, precise=True)
+        trainer.model.projector[2].p = 0.0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        _cuda.reset_launches()
+        loss = float(trainer.train_step(batch))
+        runs[device] = (loss, {n: p.grad.detach().cpu() for n, p in
+                               trainer.model.named_parameters()},
+                        dict(_cuda.LAUNCHES), time.perf_counter() - t)
+        del trainer
+        torch.cuda.empty_cache()
+    (loss_c, grads_c, launches, card_s), (loss_p, grads_p, _, cpu_s) = \
+        runs["cuda"], runs["cpu"]
+    check(launches["attention"] == 12 and launches["attention_bwd"] == 12,
+          f"span step vs CPU: the card's step launched {launches}")
+    check(abs(loss_c - loss_p) <= 1e-4 * abs(loss_p),
+          f"span step vs CPU: loss {loss_c} vs {loss_p}")
+    worst = (0.0, "", 0.0, 0.0)
+    for name, want in grads_p.items():
+        err = float((grads_c[name] - want).abs().max())
+        lim = 5e-3 * float(want.abs().max()) + 1e-6
+        check(bool(torch.isfinite(grads_c[name]).all()) and err <= lim,
+              f"span step vs CPU: gradient of {name} err {err} > {lim}")
+        worst = max(worst, (err / lim, name, err, lim))
+    log(f"  (a) one span step at B {SPAN_BATCH}, L {SPAN_LEN}, attention "
+        f"dropout 0.1, f32 mode, card vs CPU: loss {loss_c:.6f} vs "
+        f"{loss_p:.6f}; {len(grads_p)} gradients within 5e-3 max + 1e-6, "
+        f"worst {worst[1]} at {worst[0]:.3f} of its bound; card "
+        f"{card_s:.1f} s, CPU {cpu_s:.1f} s (each building its model)")
+    return dict(loss_card=loss_c, loss_cpu=loss_p, gradients=len(grads_p),
+                worst=dict(name=worst[1], err=worst[2], lim=worst[3],
+                           ratio=worst[0]),
+                card_seconds=card_s, cpu_seconds=cpu_s)
+
+
+def in_process(main, argv, cwd=None):
+    """`main(argv)` of an entry point in this process, from `cwd`, with the
+    launch counts set to 0 just before and read just after. Returns (what
+    it printed, the launches, its seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from butd_detr_tpu_torch.ops import _cuda
+
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.chdir(cwd or os.getcwd()), \
+            contextlib.redirect_stdout(printed):
+        main(argv)
+    torch.cuda.synchronize()
+    return printed.getvalue(), dict(_cuda.LAUNCHES), time.perf_counter() - t0
+
+
+def _val_acc(text, what):
+    acc = [float(line.split()[-1]) for line in text.splitlines()
+           if line.startswith("val_acc ")]
+    check(len(acc) == 1 and 0.0 <= acc[0] <= 1.0,
+          f"{what} printed no accuracy: {text[-2000:]}")
+    return acc[0]
+
+
+def span_command_line(root, tmp):
+    """(b) `span_cls_torch.py` on the root, its main in this process with
+    the launches read around each run: one epoch (K3 12 a training step
+    and a validation batch, K4 12 a training step), then `--eval` and
+    `--store` from the epoch's checkpoint (K3 12 a batch), nothing else.
+    The port's grounding dataset then reads the stored
+    `sr3d_pred_spans.json` from the root, every row's `pred_pos_map` the
+    stored span of its csv row. `entry_point_children` runs the same
+    command lines as a user starts them."""
+    import json
+
+    import span_cls_torch
+
+    from butd_detr_tpu_torch.data import JointGroundingDataset
+    from butd_detr_tpu_torch.lang import SimpleTokenizer
+
+    t0 = time.perf_counter()
+    n_train, n_test = TEXT_ROWS["n_train"], TEXT_ROWS["n_test"]
+    steps = n_train // SPAN_BATCH
+    val_batches = -(-n_test // SPAN_BATCH)
+    store_batches = -(-(n_train + n_test) // SPAN_BATCH)
+    flags = ["--data_root", root, "--epochs", "1", "--batch_size",
+             str(SPAN_BATCH), "--max_len", str(SPAN_LEN)]
+    argv = flags + ["--checkpoint_path", os.path.join(tmp, "span_ckpt")]
+    runs = {}
+    for what, extra, want in (
+            ("train", [], {"attention": 12 * (steps + val_batches),
+                           "attention_bwd": 12 * steps}),
+            ("eval", ["--eval"], {"attention": 12 * val_batches}),
+            ("store", ["--store"], {"attention": 12 * store_batches})):
+        text, launches, secs = in_process(span_cls_torch.main, argv + extra,
+                                          cwd=root)
+        for name, n in launches.items():
+            check(n == want.get(name, 0),
+                  f"span_cls_torch.main {' '.join(extra)}: {n} {name} "
+                  f"launches, expected {want.get(name, 0)}")
+        runs[what] = dict(seconds=secs, launches=launches, text=text)
+    epoch_lines = [line for line in runs["train"]["text"].splitlines()
+                   if line.startswith("epoch 1/1 ")]
+    check(len(epoch_lines) == 1, f"span_cls_torch.main: {runs['train']}")
+    acc = _val_acc(runs["eval"]["text"], "span_cls_torch.main --eval")
+    with open(os.path.join(root, "sr3d_pred_spans.json")) as f:
+        stored = json.load(f)
+    check(len(stored) == n_train + n_test,
+          f"stored spans: {len(stored)} rows, expected {n_train + n_test}")
+    ds = JointGroundingDataset(
+        dataset_dict={"sr3d": 1}, split="train", data_path=root, scans={},
+        tokenizer=SimpleTokenizer(max_len=SPAN_LEN),
+        max_text_len=SPAN_LEN)
+    check(len(ds.annos) == n_train,
+          f"grounding dataset: {len(ds.annos)} sr3d rows")
+    for i, anno in enumerate(ds.annos):  # the train rows come first
+        check(anno["pred_pos_map"] == stored[i]["span"]
+              and anno["span_utterance"] == stored[i]["utterance"],
+              f"grounding dataset row {i}: not the stored span")
+    log(f"  (b) span_cls_torch.main in process: 1 epoch "
+        f"{runs['train']['seconds']:.1f} s ({epoch_lines[0]}; K3 "
+        f"{runs['train']['launches']['attention']}, K4 "
+        f"{runs['train']['launches']['attention_bwd']}), --eval "
+        f"{runs['eval']['seconds']:.1f} s (val_acc {acc:.4f}, K3 "
+        f"{runs['eval']['launches']['attention']}), --store "
+        f"{runs['store']['seconds']:.1f} s (K3 "
+        f"{runs['store']['launches']['attention']}); {len(stored)} spans "
+        f"stored, the grounding dataset reads its {len(ds.annos)} rows")
+    return dict(seconds_in_process={k: r["seconds"] for k, r in runs.items()},
+                launches_in_process={k: r["launches"]
+                                     for k, r in runs.items()},
+                launches={k: sum(r["launches"][k] for r in runs.values())
+                          for k in runs["train"]["launches"]},
+                val_acc=acc, epoch_line=epoch_lines[0], stored=stored,
+                flags=flags, argv=argv, seconds=time.perf_counter() - t0)
+
+
+def class_embedding_table(args, tmp):
+    """(c) `gen_class_embeddings_torch.py --params` (a seeded RoBERTa-base
+    state dict): its main in this process launches K3 96 times and nothing
+    else and writes a finite (485, 768) table equal to the function's on
+    the card (timed warm), which loads into a model through
+    `init_class_embeddings`. `entry_point_children` runs the same command
+    line as a user starts it."""
+    import gen_class_embeddings_torch
+    import numpy as np
+    import torch
+
+    from butd_detr_tpu_torch.config import butd_cls_config
+    from butd_detr_tpu_torch.data.scannet_config import scannet_classes
+    from butd_detr_tpu_torch.init import init_weights_
+    from butd_detr_tpu_torch.lang import (
+        RobertaModel,
+        get_tokenizer,
+        roberta_base_config,
+        tiny_roberta_config,
+    )
+    from butd_detr_tpu_torch.lang.class_embeddings import (
+        generate_class_embeddings,
+    )
+    from butd_detr_tpu_torch.ops import _cuda
+    from butd_detr_tpu_torch.predict import build_model
+    from butd_detr_tpu_torch.train.pretrained import init_class_embeddings
+
+    t0 = time.perf_counter()
+    model = init_weights_(RobertaModel(roberta_base_config()),
+                          args.seed + 14)
+    weights = os.path.join(tmp, "roberta_base_seeded.pth")
+    torch.save(model.state_dict(), weights)
+    out = os.path.join(tmp, "class_embeddings3d.npy")
+    argv = ["--output", out, "--params", weights]
+    printed, main_launches, main_s = in_process(
+        gen_class_embeddings_torch.main, argv)
+    for name, n in main_launches.items():
+        check(n == (96 if name == "attention" else 0),
+              f"gen_class_embeddings_torch.main: {n} {name} launches")
+    table = np.load(out)
+    check(table.shape == (485, 768) and np.isfinite(table).all(),
+          f"class table: shape {table.shape}, finite "
+          f"{np.isfinite(table).all()}")
+    model = model.cuda().eval()
+    tok = get_tokenizer(max_len=16)
+    names = scannet_classes(485)
+    generate_class_embeddings(model, tok, names)  # warm
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    want = generate_class_embeddings(model, tok, names)
+    table_ms = (time.perf_counter() - t) * 1e3
+    launches = dict(_cuda.LAUNCHES)
+    check(launches["attention"] == 96,
+          f"class table: {launches['attention']} K3 launches, expected 96")
+    err = float(np.abs(table - want).max())
+    check(err <= 1e-6 * float(np.abs(want).max()),
+          f"class table: the script's main differs from the function by "
+          f"{err}")
+    grounding = build_model(butd_cls_config(num_target=16),
+                            tiny_roberta_config(), (64, 32, 16, 8))
+    check(init_class_embeddings(grounding, out) and np.array_equal(
+        grounding.butd_class_embeddings.weight.detach().numpy(), table),
+        "class table: did not load into butd_class_embeddings")
+    log(f"  (c) gen_class_embeddings_torch.main in process: "
+        f"`{printed.strip().splitlines()[-1]}` in {main_s:.1f} s, K3 "
+        f"{main_launches['attention']}; the function warm {table_ms:.1f} "
+        f"ms, K3 {launches['attention']}, max diff {err:.3g}; loads into "
+        f"butd_class_embeddings")
+    del model
+    torch.cuda.empty_cache()
+    return dict(main_seconds=main_s, table_ms=table_ms,
+                launches=main_launches, function_launches=launches,
+                max_abs_diff=err, table=out, params=weights,
+                seconds=time.perf_counter() - t0)
+
+
+def text_pretraining(tmp):
+    """(d) `scripts/pretrain_text_torch.py --steps 50`, in this process
+    (the launch counts): the cross-entropy at step 49 below step 0's, K3
+    4 a step (and 4 for the final sweep) and K4 4 a step; its npz loads
+    through `convert.load_text_init` into the small text tower."""
+    import contextlib
+    import io
+    import re
+    import types
+
+    from butd_detr_tpu_torch.convert import load_text_init
+    from butd_detr_tpu_torch.lang import (
+        RobertaModel,
+        small_text_roberta_config,
+    )
+    from butd_detr_tpu_torch.ops import _cuda
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    try:
+        import pretrain_text_torch
+    finally:
+        sys.path.pop(0)
+    out = os.path.join(tmp, "text_init_torch.npz")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    _cuda.reset_launches()
+    with contextlib.redirect_stdout(printed):
+        pretrain_text_torch.main(["--out", out, "--steps", "50"])
+    launches = dict(_cuda.LAUNCHES)
+    seconds = time.perf_counter() - t0
+    ce = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"^step (\d+) ce ([-\d.naif]+)", printed.getvalue(), re.M)}
+    check(set(ce) == {0, 49} and ce[49] < ce[0],
+          f"pretraining: step cross-entropies {ce}")
+    check(launches["attention"] == 4 * 50 + 4
+          and launches["attention_bwd"] == 4 * 50,
+          f"pretraining: launches {launches}")
+    tower = types.SimpleNamespace(
+        text_encoder=RobertaModel(small_text_roberta_config()))
+    load_text_init(out, tower)
+    sweep = [line for line in printed.getvalue().splitlines()
+             if line.startswith("final class-name sweep")]
+    log(f"  (d) pretrain_text_torch.py --steps 50: ce {ce[0]:.3f} -> "
+        f"{ce[49]:.3f}, {sweep[-1] if sweep else ''}, {seconds:.1f} s; "
+        f"K3 {launches['attention']}, K4 {launches['attention_bwd']}; the "
+        f"npz loads through load_text_init")
+    return dict(ce=ce, launches=launches, seconds=seconds)
+
+
+def msg_modules(args, card):
+    """(e) `PointnetSAModuleMSG` at B 8 on 50,000 x 6 points (npoint
+    2,048, radii 0.1 / 0.2 / 0.4, nsamples 16 / 32 / 64), then a global
+    `PointnetSAModule` (`GroupAll`) on 256 of its points with 256 of its
+    channels, then `PointnetLFPModuleMSG` from 512 of its points onto
+    1,024; forward and backward in eval mode, on the card and with the
+    plain versions on the CPU (same weights and inputs): the integer
+    indices equal, every output and gradient within phase 5's bound
+    (5e-3 * max + 1e-6); launches by kernel."""
+    import numpy as np
+    import torch
+
+    from butd_detr_tpu_torch.init import init_weights_
+    from butd_detr_tpu_torch.nn import (
+        PointnetLFPModuleMSG,
+        PointnetSAModule,
+        PointnetSAModuleMSG,
+    )
+    from butd_detr_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    torch.manual_seed(args.seed)
+    modules = torch.nn.ModuleDict(dict(
+        msg=PointnetSAModuleMSG(2048, (0.1, 0.2, 0.4), (16, 32, 64), 3,
+                                ((32, 32, 64), (64, 64, 128),
+                                 (64, 96, 128))),
+        group_all=PointnetSAModule((256, 512), 256),
+        lfp=PointnetLFPModuleMSG((0.2, 0.4), (16, 32), 320,
+                                 ((128, 128), (128, 128)), (256,),
+                                 skip_channels=320)))
+    init_weights_(modules, args.seed + 13)
+    rng = np.random.RandomState(args.seed + 13)
+    clouds = np.stack([make_scene(rng, n_points=MSG_POINTS)[0]
+                       for _ in range(MSG_BATCH)])
+
+    def run(device):
+        mods = {k: m.to(device).eval() for k, m in modules.items()}
+        xyz = torch.from_numpy(clouds[..., :3].copy()).to(device)
+        feats = torch.from_numpy(clouds[..., 3:].copy()).to(device) \
+            .requires_grad_(True)
+        new_xyz, f1, inds = mods["msg"](xyz, feats)
+        _, f_all, _ = mods["group_all"](new_xyz[:, :256], f1[:, :256, :256])
+        f_lfp = mods["lfp"](new_xyz[:, :1024], new_xyz[:, :512],
+                            f1[:, :1024], f1[:, :512])
+        loss = sum(f.square().mean() for f in (f1, f_all, f_lfp))
+        for m in mods.values():
+            m.zero_grad(set_to_none=True)
+        loss.backward()
+        out = dict(inds=inds, new_xyz=new_xyz, msg=f1, group_all=f_all,
+                   lfp=f_lfp, dfeats=feats.grad)
+        out.update({f"d{k}.{n}": p.grad for k, m in mods.items()
+                    for n, p in m.named_parameters()})
+        return {k: v.detach().cpu() for k, v in out.items()}
+
+    run("cuda")  # warm
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    card_out = run("cuda")
+    card_ms = (time.perf_counter() - t) * 1e3
+    launches = dict(_cuda.LAUNCHES)
+    t = time.perf_counter()
+    cpu_out = run("cpu")
+    cpu_s = time.perf_counter() - t
+    check(torch.equal(card_out["inds"], cpu_out["inds"])
+          and torch.equal(card_out["new_xyz"], cpu_out["new_xyz"]),
+          "MSG: FPS indices or sampled points differ from the plain "
+          "versions'")
+    worst = (None, 0.0)
+    for k, want in cpu_out.items():
+        if k in ("inds", "new_xyz"):
+            continue
+        err = float((card_out[k] - want).abs().max())
+        lim = 5e-3 * float(want.abs().max()) + 1e-6
+        check(err <= lim, f"MSG {k}: card vs CPU max err {err} > {lim}")
+        if err / lim > worst[1]:
+            worst = (k, err / lim)
+    for name in ("fps", "ball_query", "gather", "group_gather", "scatter"):
+        check(launches[name] > 0, f"MSG: {name} not launched")
+    log(f"  (e) MSG at B {MSG_BATCH}, {MSG_POINTS} x 6 points -> GroupAll "
+        f"-> LFP, forward and backward: {card_ms:.1f} ms on the card "
+        f"(CPU {cpu_s:.1f} s); indices equal, worst {worst[0]} at "
+        f"{worst[1]:.3f} of its bound; launches {launches}; {card}")
+    modules.cpu()
+    torch.cuda.empty_cache()
+    return dict(card_ms=card_ms, cpu_seconds=cpu_s, launches=launches,
+                worst=worst, seconds=time.perf_counter() - t0)
+
+
+def demo(tmp):
+    """(f) `demo_torch.py`'s main in this process: every kernel launches
+    (the tiny model's training epoch and request) and it ends with
+    `[demo] OK`. `entry_point_children` runs it as a user starts it."""
+    import demo_torch
+
+    text, launches, seconds = in_process(
+        demo_torch.main, ["--workdir", os.path.join(tmp, "demo_main")])
+    check(text.rstrip().endswith("[demo] OK"),
+          f"demo_torch.main did not print [demo] OK:\n{text[-2000:]}")
+    for name, n in launches.items():
+        check(n > 0, f"demo_torch.main: {name} not launched")
+    log(f"  (f) demo_torch.main in process: [demo] OK in {seconds:.1f} s, "
+        f"launches {launches}")
+    return dict(launches=launches, seconds=seconds)
+
+
+def entry_point_children(root, tmp, span_cli, stored, table):
+    """The entry points of (b), (c) and (f) as a user starts them, five
+    child processes side by side, for their wall seconds (their launches
+    were counted in process): `span_cls_torch.py` for one epoch (into a
+    checkpoint of its own), `--eval` and `--store` from (b)'s checkpoint,
+    whose accuracy and spans must equal (b)'s in-process runs';
+    `gen_class_embeddings_torch.py` with (c)'s `--params`, whose table must
+    equal (c)'s; `demo_torch.py`, which must end with `[demo] OK`."""
+    import json
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    span = [sys.executable, os.path.join(ROOT, "span_cls_torch.py")]
+    out = os.path.join(tmp, "class_embeddings_child.npy")
+    children = {
+        "span_cls_torch.py": (span + span_cli["flags"] + [
+            "--checkpoint_path", os.path.join(tmp, "span_ckpt_child")], root),
+        "span_cls_torch.py --eval": (span + span_cli["argv"] + ["--eval"],
+                                     root),
+        "span_cls_torch.py --store": (span + span_cli["argv"]
+                                      + ["--store"], root),
+        "gen_class_embeddings_torch.py": ([
+            sys.executable,
+            os.path.join(ROOT, "gen_class_embeddings_torch.py"),
+            "--output", out, "--params", table["params"]], ROOT),
+        "demo_torch.py": ([
+            sys.executable, os.path.join(ROOT, "demo_torch.py"),
+            "--workdir", os.path.join(tmp, "demo")], ROOT),
+    }
+
+    def timed(what):
+        cmd, cwd = children[what]
+        t = time.perf_counter()
+        return run_child(cmd, 600, what, cwd), time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(len(children)) as ex:
+        futures = {what: ex.submit(timed, what) for what in children}
+        done = {what: f.result() for what, f in futures.items()}
+    text = {what: r[0] for what, r in done.items()}
+    seconds = {what: r[1] for what, r in done.items()}
+    check(any(line.startswith("epoch 1/1 ")
+              for line in text["span_cls_torch.py"].splitlines()),
+          f"span_cls_torch.py: {text['span_cls_torch.py'][-2000:]}")
+    check(_val_acc(text["span_cls_torch.py --eval"],
+                   "span_cls_torch.py --eval") == span_cli["val_acc"],
+          "span_cls_torch.py --eval: another accuracy than its main's in "
+          "this process")
+    with open(os.path.join(root, "sr3d_pred_spans.json")) as f:
+        check(json.load(f) == stored, "span_cls_torch.py "
+              "--store: other spans than its main's in this process")
+    check(np.array_equal(np.load(out), np.load(table["table"])),
+          "gen_class_embeddings_torch.py: another table than its main's in "
+          "this process")
+    check(text["demo_torch.py"].rstrip().endswith("[demo] OK"),
+          f"demo_torch.py did not print [demo] OK:\n"
+          f"{text['demo_torch.py'][-2000:]}")
+    log("  (b, c, f) as child processes side by side: " + ", ".join(
+        f"{what} {s:.1f} s" for what, s in seconds.items())
+        + "; the same accuracy, spans and table as in process, [demo] OK")
+    return dict(child_seconds=seconds, seconds=time.perf_counter() - t0)
+
+
+def text_side(args, gen, card, tmp):
+    """Phase 13: K3 and K4 at the text shapes, then parts (a) to (f); the
+    launches of each part's main path, read around it."""
+    report = {}
+    t = time.perf_counter()
+    report["attention"], report["attention_bwd"], report["worst"] = \
+        check_text_attention(gen, 0x5EED0000 + args.seed)
+    report["attention_seconds"] = time.perf_counter() - t
+    root = write_text_root(os.path.join(tmp, "text_root"), args.seed,
+                           **TEXT_ROWS)
+    report["span"] = span_training(args, root, card)
+    report["span_cli"] = span_command_line(root, tmp)
+    report["class_embeddings"] = class_embedding_table(args, tmp)
+    report["pretrain"] = text_pretraining(tmp)
+    report["msg"] = msg_modules(args, card)
+    report["demo"] = demo(tmp)
+    report["children"] = entry_point_children(
+        root, tmp, report["span_cli"], report["span_cli"].pop("stored"),
+        report["class_embeddings"])
+    report["launches"] = {
+        k: sum(report[part]["launches"][k] for part in
+               ("span", "span_cli", "class_embeddings", "pretrain", "msg",
+                "demo"))
+        for k in report["span"]["launches"]}
+    for part in ("attention", "span", "span_cli", "class_embeddings",
+                 "pretrain", "msg", "demo", "children"):
+        s = report[part]["seconds"] if part != "attention" \
+            else report["attention_seconds"]
+        log(f"  phase 13 {part}: {s:.1f} s")
+    return report
+
+
 def run(args):
     import numpy as np
     import torch
@@ -3966,6 +4749,16 @@ def run(args):
     dist_launches = {k: sum(dist_report[part]["launches"][k]
                             for part in dist_report)
                      for k in dist_report["dp"]["launches"]}
+    torch.cuda.empty_cache()
+
+    # 13. the text side
+    log("== phase 13: the text side: K3 and K4 at the text shapes, the "
+        "span predictor (RoBERTa-base trained at B 128), span_cls_torch.py, "
+        "the class table, the text pretraining, the PointNet++ MSG modules "
+        "and the demo")
+    with tempfile.TemporaryDirectory() as tmp:
+        text = report["text"] = text_side(args, gen, card, tmp)
+    text_launches = text["launches"]
 
     kernels = []
     replaces = {
@@ -4003,6 +4796,10 @@ def run(args):
               and dist_report["multiview"]["launches"][name] > 0,
               f"{name}: not launched by the --dp 2 ranks, the profiled "
               "epoch or the multiview step")
+        # the text side: K3 and K4 by the span training, the point
+        # kernels by the PointNet++ MSG modules, all eight by the demo
+        check(text_launches[name] > 0,
+              f"{name}: not launched on the text side (phase 13)")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"butd_detr_tpu_torch/csrc/{name}.cu",
@@ -4010,7 +4807,8 @@ def run(args):
             "launches": (launches[name] + train_launches[name]
                          + eval_launches[name] + cli_launches[name]
                          + probe_launches[name] + study_launches[name]
-                         + bf16_launches[name] + dist_launches[name]),
+                         + bf16_launches[name] + dist_launches[name]
+                         + text_launches[name]),
             "launches_serving": launches[name],
             "launches_training": train_launches[name],
             "launches_evaluation": eval_launches[name],
@@ -4019,6 +4817,7 @@ def run(args):
             "launches_study": study_launches[name],
             "launches_bf16": bf16_launches[name],
             "launches_distributed": dist_launches[name],
+            "launches_text": text_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -4046,6 +4845,16 @@ def run(args):
     # K7 at the multiview width (sa1's 131 channels)
     kernels[[k["name"] for k in kernels].index("group_gather")][
         "multiview"] = dist_report["multiview"]["k7"]
+    # K3 and K4 at the text shapes: the span step's, scoring batch's,
+    # class table's and pretraining step's calls, each shape's numbers
+    # times its calls
+    for k in kernels:
+        if k["name"] in ("attention", "attention_bwd"):
+            shapes = text[k["name"]]
+            k["text_shapes"] = shapes
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                for name, sh in shapes.items():
+                    k[f"{key}_{name}"] = sh["calls"] * sh[key]
     report["kernels"] = kernels
     report["detail"] = {"fps": fps_row, "ball_query": bq_row,
                         "attention": att_row, "attention_bwd": bwd_row,

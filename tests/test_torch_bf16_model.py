@@ -78,6 +78,7 @@ from butd_detr_tpu_torch.train import INPUT_KEYS, METRIC_KEYS, Trainer
 
 from test_torch_bf16 import pallas_attention_on_cpu
 from test_torch_train_step import BATCH, CFG, NPOINTS, ROBERTA
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG_BF16 = dict(CFG, use_bf16=True, backbone_bf16=True, attn_precise=False)
 

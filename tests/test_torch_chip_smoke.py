@@ -7,6 +7,7 @@ import os
 import shutil
 import subprocess
 import sys
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "chip_smoke.py")

@@ -15,6 +15,7 @@ from butd_detr_tpu.train.torch_convert import (
     convert_torch_checkpoint,
     flatten,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 _POS_IDX = {"Dense_0": "0", "BatchNorm_0": "1", "Dense_1": "3"}
 _CON_IDX = {"Dense_0": "0", "Dense_1": "2", "Dense_2": "4"}

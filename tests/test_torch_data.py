@@ -56,6 +56,7 @@ from butd_detr_tpu_torch.data import (
 )
 from butd_detr_tpu_torch.data import synthetic
 from butd_detr_tpu_torch.lang.tokenizer import SimpleTokenizer
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 KEEP_POINTS = 1024

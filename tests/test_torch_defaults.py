@@ -50,6 +50,7 @@ from butd_detr_tpu_torch.models import BeaUTyDETR
 from butd_detr_tpu_torch.predict import load_state_dict
 
 from test_torch_model import DEC, ENC, NPOINTS, NQ, ROBERTA, _inputs
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def bf16_tol(want: np.ndarray) -> float:

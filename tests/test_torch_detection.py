@@ -73,6 +73,7 @@ from butd_detr_tpu_torch.train import harness as p_harness
 import torch_ranks
 from test_torch_harness import CFG, NPOINTS, ScanNetTrainTester, \
     _scannet_root
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURE = osp.join(osp.dirname(osp.abspath(__file__)), "golden",
                    "ap_golden.npz")

@@ -8,6 +8,8 @@ process), evaluates, and then evaluates freshly seeded weights; those
 counters must equal one process's, every scene counted once. The
 log names the backend and the world, and logs `--syncbn` as the JAX
 harness does; a checkpoint of either world loads into one process.
+One spawned world of two ranks runs both meshes, one after the other,
+while this process runs the one-process reference.
 """
 
 import pytest
@@ -15,6 +17,7 @@ import pytest
 import torch_ranks
 from butd_detr_tpu_torch.data import DataLoader
 from butd_detr_tpu_torch.train import load_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROBERTA = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
                num_attention_heads=4, intermediate_size=96,
@@ -34,24 +37,36 @@ SCENES = dict(num_points=1024, max_text_len=12, max_num_obj=8,
               n_true_det=4, vocab_size=128)
 
 
-def _world(tmp_path, world_size, **flags):
-    cfg = dict(CFG, log_dir=str(tmp_path / "log"), **flags)
-    ranks = torch_ranks.run_ranks(torch_ranks.harness_world, world_size,
-                                  cfg, ROBERTA, NPOINTS, SCENES)
-    return cfg, ranks
+FLAGS = {"dp2": dict(dp=2, syncbn=True), "mp2": dict(mp=2)}
 
 
 @pytest.fixture(scope="module")
-def one(tmp_path_factory):
-    cfg = dict(CFG, log_dir=str(tmp_path_factory.mktemp("one") / "log"))
-    return torch_ranks.harness_world(0, cfg, ROBERTA, NPOINTS, SCENES)
+def worlds(tmp_path_factory):
+    """{flags id: (log dir, the two ranks' results)} of one spawned world
+    running each mesh in turn, and "one": one process's results."""
+    tmp = tmp_path_factory.mktemp("worlds")
+    cfgs = [dict(CFG, log_dir=str(tmp / name / "log"), **flags)
+            for name, flags in FLAGS.items()]
+    world = torch_ranks.start_ranks(torch_ranks.harness_worlds, 2, cfgs,
+                                    ROBERTA, NPOINTS, SCENES)
+    one = torch_ranks.harness_world(
+        0, dict(CFG, log_dir=str(tmp / "one" / "log")), ROBERTA, NPOINTS,
+        SCENES)
+    ranks = world.join()
+    out = {name: (tmp / name / "log", [r[i] for r in ranks])
+           for i, name in enumerate(FLAGS)}
+    out["one"] = one
+    return out
 
 
 @pytest.mark.parametrize("flags", [dict(dp=2, syncbn=True), dict(mp=2)],
                          ids=["dp2", "mp2"])
 def test_two_ranks_train_save_and_evaluate_as_one_process(
-        flags, one, tmp_path):
-    cfg, ranks = _world(tmp_path, 2, **flags)
+        flags, worlds, tmp_path):
+    name = "dp2" if flags.get("dp") == 2 else "mp2"
+    assert FLAGS[name] == flags
+    log_dir, ranks = worlds[name]
+    one = worlds["one"]
     dp = flags.get("dp", 1)
     for rank in ranks:
         assert rank["step"] == one["step"] == 2  # 8 scenes at B = 4
@@ -64,7 +79,6 @@ def test_two_ranks_train_save_and_evaluate_as_one_process(
     assert ranks[0]["rows"] == [4 // dp] * 3
     assert ranks[0]["valid"] == ranks[1]["valid"] == [None, None, 2]
 
-    log_dir = tmp_path / "log"
     text = (log_dir / "log.txt").read_text()
     assert (f"process group: backend gloo, world size 2, dp {dp}, "
             f"mp {3 - dp}; rank 0 on cpu") in text

@@ -28,6 +28,9 @@ CPU over gloo.
     so the per-rank variance is 0 and the global one is not; two ranks
     equal one process on the concatenated rows in output, running buffers
     and input gradient.
+
+One spawned world runs (a)'s ranks and then (b)'s, while this process
+jits the JAX step.
 """
 
 import numpy as np
@@ -73,9 +76,18 @@ BATCH = dict(batch_size=8, num_points=1024, max_text_len=12, max_num_obj=8,
              n_true_det=4, vocab_size=128)
 
 
+# (b)'s rows: rank r's four rows are constant r + 1, so the variance is 0
+# on a rank and var([1, 2]) = 0.25 over both
+BN_ROWS = np.kron(np.arange(1, 3, dtype=np.float32)[:, None],
+                  np.ones((4, 5), np.float32))
+BN_SEED = 3
+
+
 @pytest.fixture(scope="module")
 def steps():
-    """The JAX dp=2 step, the port's two ranks and its one process."""
+    """The JAX dp=2 step, the port's two ranks (one spawned world, which
+    also runs (b)'s BatchNorm) and its one process. The world runs while
+    this process jits the JAX step."""
     import flax.linen
 
     batch = synthetic_batch(**BATCH, seed=11)
@@ -86,6 +98,12 @@ def steps():
                        backbone_npoints=NPOINTS)
     inputs = {k: jnp.asarray(batch[k]) for k in J_INPUT_KEYS}
     variables = jax.jit(jm.init)(jax.random.PRNGKey(0), inputs)
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    state_dict = state_dict_from_jax(to_np(variables["params"]),
+                                     to_np(variables["batch_stats"]))
+    args = (CFG, ROBERTA, NPOINTS, state_dict, batch)
+    world = torch_ranks.start_ranks(torch_ranks.dp_world, 2, *args,
+                                    BN_ROWS, BN_SEED)
     mesh = j_make_mesh(dp=2, mp=1)
 
     def loss_fn(params, stats, jbatch, train):
@@ -116,18 +134,15 @@ def steps():
     finally:
         mp.undo()
 
-    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
-    state_dict = state_dict_from_jax(to_np(variables["params"]),
-                                     to_np(variables["batch_stats"]))
-    args = (CFG, ROBERTA, NPOINTS, state_dict, batch)
-    ranks = torch_ranks.run_ranks(torch_ranks.dp_gradients, 2, *args)
     trainer = torch_ranks.make_trainer(*args[:4])
     one = dict(eval=torch_ranks.gradient_step(trainer, batch, train=False),
                train=torch_ranks.gradient_step(trainer, batch))
+    ranks = world.join()
     return dict(
         want_eval=(float(loss), named_arrays_from_jax(to_np(grads))),
         want_train=(float(train_loss), named_arrays_from_jax(to_np(stats))),
-        ranks=ranks, one=one)
+        ranks=[r["dp"] for r in ranks], bn=[r["bn"] for r in ranks],
+        one=one)
 
 
 def _assert_gradients(got, want):
@@ -191,20 +206,17 @@ def test_two_dp_ranks_train_as_one_process_at_the_whole_batch(steps):
     assert all(torch.equal(b0[k], b1[k]) for k in b0)
 
 
-def test_batchnorm_statistics_are_global_over_the_dp_ranks():
-    # rank r's four rows are constant r + 1: variance 0 on a rank,
-    # var([1, 2]) = 0.25 over both
-    x = np.kron(np.arange(1, 3, dtype=np.float32)[:, None],
-                np.ones((4, 5), np.float32))
-    got = torch_ranks.run_ranks(torch_ranks.global_batchnorm, 2, x, 3)
+def test_batchnorm_statistics_are_global_over_the_dp_ranks(steps):
+    x = BN_ROWS
+    got = steps["bn"]
     bn = BatchNorm(5)
-    torch.manual_seed(3)
+    torch.manual_seed(BN_SEED)
     with torch.no_grad():
         bn.weight.uniform_(0.5, 1.5)
         bn.bias.uniform_(-0.5, 0.5)
     xs = torch.as_tensor(x).clone().requires_grad_(True)
     y = bn.train()(xs)
-    cot = torch.as_tensor(np.random.RandomState(3).randn(*x.shape)
+    cot = torch.as_tensor(np.random.RandomState(BN_SEED).randn(*x.shape)
                           .astype(np.float32))
     (y * cot).sum().backward()
     assert float(bn.running_var[0]) == pytest.approx(0.9 + 0.1 * 0.25)

@@ -35,6 +35,7 @@ from butd_detr_tpu_torch.utils import (
     process_count,
     process_index,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURE = osp.join(osp.dirname(osp.abspath(__file__)), "golden",
                    "eval_golden.npz")

@@ -41,6 +41,7 @@ from butd_detr_tpu_torch.ops import (
 )
 from butd_detr_tpu_torch.ops.gather import copy_unit
 from butd_detr_tpu_torch.ops.pointcloud import _is_large_grouping
+from torch_threads import one_torch_thread  # noqa: F401
 
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}

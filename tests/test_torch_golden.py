@@ -17,6 +17,7 @@ import torch
 from butd_detr_tpu_torch.lang import RobertaConfig
 from butd_detr_tpu_torch.models import BeaUTyDETR
 from butd_detr_tpu_torch.predict import load_state_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIX = osp.join(osp.dirname(osp.abspath(__file__)), "golden",
                "full_model_golden.npz")

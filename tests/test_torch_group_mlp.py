@@ -53,6 +53,7 @@ from butd_detr_tpu_torch.ops import (
     group_rows_mlp_input_plain,
 )
 from butd_detr_tpu_torch.utils import reciprocal_f32
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _bits(a) -> np.ndarray:

@@ -65,6 +65,7 @@ from butd_detr_tpu_torch.train import (
     save_checkpoint,
 )
 from butd_detr_tpu_torch.train.harness import EVALUATOR_KEYS
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROBERTA = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
                num_attention_heads=4, intermediate_size=96,

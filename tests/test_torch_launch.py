@@ -16,6 +16,7 @@ import torch
 
 from butd_detr_tpu_torch.ops import _cuda
 from butd_detr_tpu_torch.ops.gather import _check, index_operand
+from torch_threads import one_torch_thread  # noqa: F401
 
 _C_TYPES = {
     "int": ctypes.c_int,

@@ -39,6 +39,7 @@ from butd_detr_tpu_torch.ops.assignment import (
     batched_linear_sum_assignment_plain,
 )
 from tests.test_torch_train_modules import _seeded_end_points
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(q, g) for q in (32, 256) for g in (7, 32, 132)]
 KINDS = ("uniform", "integer_ties", "duplicated_columns", "all_tied")

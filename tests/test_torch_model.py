@@ -26,6 +26,7 @@ from butd_detr_tpu_torch.convert import state_dict_from_jax
 from butd_detr_tpu_torch.lang import RobertaConfig, SimpleTokenizer
 from butd_detr_tpu_torch.models import BeaUTyDETR
 from butd_detr_tpu_torch.predict import GroundingPredictor, load_state_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROBERTA = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
                num_attention_heads=4, intermediate_size=96,

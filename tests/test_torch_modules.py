@@ -42,6 +42,7 @@ from butd_detr_tpu_torch.nn import (
     PositionEmbeddingLearned,
 )
 from butd_detr_tpu_torch.predict import load_state_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 1e-5, 1e-4
 

@@ -1,13 +1,17 @@
 """The port imports no JAX. In a fresh process, every module of
-`butd_detr_tpu_torch` (`train/study.py` and `parallel/` included), one of the port's
-study command lines (`scripts/*_torch.py` of the accuracy study) or one
-of its entry points at the repository's root (`predict_torch.py`,
-`train_torch.py`, `prepare_data_torch.py`, `chip_smoke.py`) is imported;
-an entry point's `main` (not `chip_smoke.py`'s, whose phases import the
-port lazily and which the package-wide case covers) then runs on
-arguments that stop it once it has imported what it needs (a data root
-that does not exist, no GPU). The process must then hold no module of
-`jax`, `flax`, the JAX package or the JAX package's study scripts
+`butd_detr_tpu_torch` (`train/study.py`, `parallel/`, the span predictor,
+the class embeddings and `utils/visualize.py` included), one of the
+port's study command lines (`scripts/*_torch.py` of the accuracy study,
+`scripts/pretrain_text_torch.py`) or one of its entry points at the
+repository's root (`predict_torch.py`, `train_torch.py`,
+`prepare_data_torch.py`, `span_cls_torch.py`,
+`gen_class_embeddings_torch.py`, `demo_torch.py`, `chip_smoke.py`) is
+imported; an entry point's `main` and the pretraining script's (not
+`chip_smoke.py`'s, whose phases import the port lazily and which the
+package-wide case covers) then runs on arguments that stop it once it has
+imported what it needs (a data root that does not exist, no GPU). The
+process must then hold no module of `jax`, `flax`, the JAX package or the
+JAX package's study scripts
 (`scripts.probe_common`, `scripts.train_split_eval`)."""
 
 import os
@@ -16,21 +20,29 @@ import sys
 import textwrap
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ("accuracy_study_torch.py", "overfit_probe_torch.py",
-           "diag_grounding_torch.py")
+           "diag_grounding_torch.py", "pretrain_text_torch.py")
 MISSING = "/nonexistent/data_root"
 ENTRY_POINTS = {
     "predict_torch.py": ["--scan_id", "scene0000_00", "--utterance", "a",
                          "--data_root", MISSING],
     "train_torch.py": ["--data_root", MISSING, "--log_dir", "{tmp}/log"],
     "prepare_data_torch.py": ["--data_root", MISSING, "--num_workers", "1"],
+    "span_cls_torch.py": ["--data_root", MISSING, "--checkpoint_path",
+                          "{tmp}/ck"],
+    "gen_class_embeddings_torch.py": ["--output", "{tmp}/table.npy"],
+    "demo_torch.py": ["--workdir", "{tmp}/demo"],
+    "pretrain_text_torch.py": ["--out", "{tmp}/text_init.npz"],
 }
 
 
 @pytest.mark.parametrize("what", ["butd_detr_tpu_torch", *SCRIPTS,
-                                  *ENTRY_POINTS, "chip_smoke.py"])
+                                  *(e for e in ENTRY_POINTS
+                                    if e not in SCRIPTS),
+                                  "chip_smoke.py"])
 def test_imports_no_jax(what, tmp_path):
     if what == "butd_detr_tpu_torch":
         load = textwrap.dedent("""
@@ -41,7 +53,11 @@ def test_imports_no_jax(what, tmp_path):
             assert {"butd_detr_tpu_torch.train.study",
                     "butd_detr_tpu_torch.parallel.mesh",
                     "butd_detr_tpu_torch.parallel.tp",
-                    "butd_detr_tpu_torch.parallel.collectives"} <= set(names)
+                    "butd_detr_tpu_torch.parallel.collectives",
+                    "butd_detr_tpu_torch.lang.span_predictor",
+                    "butd_detr_tpu_torch.lang.span_trainer",
+                    "butd_detr_tpu_torch.lang.class_embeddings",
+                    "butd_detr_tpu_torch.utils.visualize"} <= set(names)
             for name in names:
                 importlib.import_module(name)
             """)

@@ -33,6 +33,7 @@ from butd_detr_tpu_torch.ops import (
     three_interpolate,
     three_nn,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -43,6 +43,7 @@ from butd_detr_tpu_torch.data.scan import Scan
 from butd_detr_tpu_torch.lang import SimpleTokenizer, tiny_roberta_config
 from butd_detr_tpu_torch.predict import GroundingPredictor
 from butd_detr_tpu_torch.train import Trainer, save_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401
 
 NPOINTS = ["64", "32", "16", "8"]
 MODEL_FLAGS = [

@@ -49,6 +49,7 @@ from butd_detr_tpu_torch.train.pretrained import (
     apply_pretrained_init,
     roberta_state_dict,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TABLE_DIR = os.path.join(ROOT, "studies", "attrib_r5", "ref", "data")

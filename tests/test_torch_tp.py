@@ -48,6 +48,7 @@ from butd_detr_tpu_torch.lang import RobertaConfig
 from butd_detr_tpu_torch.parallel import param_spec, unshard_state_dicts
 from butd_detr_tpu_torch.predict import build_model
 from butd_detr_tpu_torch.train import load_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROBERTA = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
                num_attention_heads=4, intermediate_size=96,
@@ -134,26 +135,31 @@ def test_sharding_rules_fall_back_where_mp_does_not_divide():
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
+    """The two `--mp 2` ranks (one spawned world, running while this
+    process jits the JAX forward), the JAX forward and one process's
+    gradient."""
     batch = synthetic_batch(**BATCH, seed=5)
     batch = {k: batch[k] for k in (*J_INPUT_KEYS, *J_TARGET_KEYS)
              if k in batch}
     jm = _jax_model()
     inputs = {k: jnp.asarray(batch[k]) for k in J_INPUT_KEYS}
     variables = jax.jit(jm.init)(jax.random.PRNGKey(0), inputs)
-    want = jax.jit(lambda v, i: jm.apply(v, i, train=False))(variables,
-                                                             inputs)
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
     state_dict = state_dict_from_jax(to_np(variables["params"]),
                                      to_np(variables["batch_stats"]))
     ckpt_dir = str(tmp_path_factory.mktemp("tp_ckpt"))
     args = (CFG, ROBERTA, NPOINTS, state_dict, batch)
-    ranks = torch_ranks.run_ranks(torch_ranks.tp_world, 2, *args, ckpt_dir)
+    ranks = torch_ranks.start_ranks(torch_ranks.tp_world, 2, *args,
+                                    ckpt_dir)
+    want = jax.jit(lambda v, i: jm.apply(v, i, train=False))(variables,
+                                                             inputs)
     one = torch_ranks.make_trainer(*args[:4])
     _, grads, _ = torch_ranks.gradient_step(one, batch, train=False)
     from butd_detr_tpu_torch.train.optimizer import clip_by_global_norm_
 
     norm = float(clip_by_global_norm_([p.grad for p in one._params()],
                                       float("inf")))
+    ranks = ranks.join()
     return dict(want={k: np.asarray(v) for k, v in want.items()},
                 ranks=ranks, grads=grads, norm=norm, batch=batch,
                 args=args)

@@ -27,6 +27,7 @@ from butd_detr_tpu_torch.data import (
 from butd_detr_tpu_torch.lang import RobertaConfig
 from butd_detr_tpu_torch.predict import build_model
 from butd_detr_tpu_torch.train import TrainTester
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # joint_det raises max_text_len to 128: position embeddings for 128 + 2

@@ -42,6 +42,7 @@ from butd_detr_tpu_torch.train import (
     make_optimizer,
     make_schedule,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN = osp.join(osp.dirname(osp.abspath(__file__)), "golden",
                   "loss_golden.npz")

@@ -47,6 +47,7 @@ from butd_detr_tpu_torch.train import (
     Trainer,
     criterion_config,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROBERTA = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
                num_attention_heads=4, intermediate_size=96,

@@ -4,8 +4,12 @@
 the `spawn` method, joins them into one gloo group over localhost, runs
 `task(rank, *args)` in each, and returns the ranks' results in rank order
 (each written with `torch.save`, read back here). A rank that raises fails
-the call with its traceback. The tasks live in this module, which imports
-only torch, numpy and the port, so that a child starts without JAX.
+the call with its traceback. `start_ranks` starts the same world and
+returns at once, so that the caller works (jits the JAX side, runs the
+one-process reference) while the ranks run; its `join()` returns the
+results. A test module spawns one world and runs every multi-rank task of
+the module in it. The tasks live in this module, which imports only
+torch, numpy and the port, so that a child starts without JAX.
 """
 
 import os
@@ -19,7 +23,7 @@ import torch
 import torch.multiprocessing as mp
 from torch.multiprocessing.spawn import ProcessException
 
-TIMEOUT = 600
+TIMEOUT = 300
 
 
 def _free_port() -> int:
@@ -52,30 +56,54 @@ def _read(path):
         return f.read()
 
 
+class Ranks:
+    """A spawned world of `task(rank, *args)`; `join()` waits for it
+    (at most TIMEOUT seconds from its start) and returns the ranks'
+    results in rank order."""
+
+    def __init__(self, task, world_size, args):
+        self.task = task
+        self.world_size = world_size
+        self._dir = tempfile.TemporaryDirectory()
+        self._ctx = mp.start_processes(
+            _entry, args=(world_size, _free_port(), self._dir.name, task,
+                          args),
+            nprocs=world_size, join=False, start_method="spawn")
+        self._deadline = time.monotonic() + TIMEOUT
+
+    def join(self):
+        out_dir = self._dir.name
+        try:
+            try:
+                # join returns False while a rank is still running
+                while not self._ctx.join(timeout=5):
+                    if time.monotonic() > self._deadline:
+                        for p in self._ctx.processes:
+                            p.kill()
+                        raise AssertionError(
+                            f"{self.task.__name__}: the ranks did not "
+                            f"finish in {TIMEOUT} s")
+            except ProcessException as e:
+                errors = [_read(os.path.join(out_dir, f))
+                          for f in sorted(os.listdir(out_dir))
+                          if f.startswith("error")]
+                raise AssertionError("\n".join(errors) or str(e)) from None
+            return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                               weights_only=False)
+                    for r in range(self.world_size)]
+        finally:
+            self._dir.cleanup()
+
+
+def start_ranks(task, world_size, *args) -> Ranks:
+    """Start `task(rank, *args)` in a spawned world and return at once."""
+    return Ranks(task, world_size, args)
+
+
 def run_ranks(task, world_size, *args):
     """[task(rank, *args) for each rank], run in spawned processes; the
     world must finish within TIMEOUT seconds."""
-    with tempfile.TemporaryDirectory() as out_dir:
-        ctx = mp.start_processes(
-            _entry, args=(world_size, _free_port(), out_dir, task, args),
-            nprocs=world_size, join=False, start_method="spawn")
-        deadline = time.monotonic() + TIMEOUT
-        try:
-            # join returns False while a rank is still running
-            while not ctx.join(timeout=5):
-                if time.monotonic() > deadline:
-                    for p in ctx.processes:
-                        p.kill()
-                    raise AssertionError(f"{task.__name__}: the ranks did "
-                                         f"not finish in {TIMEOUT} s")
-        except ProcessException as e:
-            errors = [_read(os.path.join(out_dir, f))
-                      for f in sorted(os.listdir(out_dir))
-                      if f.startswith("error")]
-            raise AssertionError("\n".join(errors) or str(e)) from None
-        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
-                           weights_only=False)
-                for r in range(world_size)]
+    return start_ranks(task, world_size, *args).join()
 
 
 # ------------------------------------------------------------------ tasks
@@ -129,6 +157,15 @@ def dp_gradients(rank, cfg_kw, roberta_kw, npoints, state_dict, batch):
     rows = trainer.mesh.shard_batch(batch)
     return dict(eval=gradient_step(trainer, rows, train=False),
                 train=gradient_step(trainer, rows))
+
+
+def dp_world(rank, cfg_kw, roberta_kw, npoints, state_dict, batch, x,
+             seed):
+    """test_torch_dp.py's world: `dp_gradients`, then `global_batchnorm`
+    on `x`."""
+    return dict(dp=dp_gradients(rank, cfg_kw, roberta_kw, npoints,
+                                state_dict, batch),
+                bn=global_batchnorm(rank, x, seed))
 
 
 def global_batchnorm(rank, x, seed):
@@ -255,6 +292,13 @@ def harness_world(rank, cfg_kw, roberta_kw, npoints, scenes):
                 gts=dict(evaluator.gts),
                 rows=[int(b["point_clouds"].shape[0]) for b in test_loader],
                 valid=[b.get("__valid__") for b in test_loader])
+
+
+def harness_worlds(rank, cfgs, roberta_kw, npoints, scenes):
+    """`harness_world` once for each of `cfgs`, in order, in one world
+    (each config lays its own mesh over the group)."""
+    return [harness_world(rank, cfg, roberta_kw, npoints, scenes)
+            for cfg in cfgs]
 
 
 def detection_world(rank, cfg_kw, roberta_kw, npoints, state_dict):
