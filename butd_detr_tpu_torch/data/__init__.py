@@ -1,7 +1,7 @@
 """Data pipeline of the port: ScanNet scans, augmentation, the grounding
 datasets, positive maps, synthetic batches and data roots, and the
-batching loader. Imports numpy only: the loader's worker processes import
-this package."""
+batching loader. Imports numpy and the host C++ runtime (`native.py`)
+only, never torch: the loader's worker processes import this package."""
 
 from butd_detr_tpu_torch.data.augment import (
     MEAN_RGB,

@@ -1,17 +1,20 @@
-"""Host-side (numpy) point-cloud augmentation.
+"""Host-side point-cloud augmentation.
 
 The port's copy of `butd_detr_tpu/data/augment.py` (reference
 `src/joint_det_dataset.py:358-403` `_augment`, and the box round trip
 `box2points`/`points2box`, :926-956, that moves detected boxes by the same
-augmentation). Only the numpy path: the JAX package's fused C++ pass
-differs from it by f32 rounding order (<= 1e-6 relative). Every function
-takes an explicit `np.random.RandomState`, so a sample depends only on its
-seed, in whichever process it is made.
+augmentation). An f32 cloud goes through the fused C++ pass of
+`native.py`, as in the JAX package; the numpy passes are the plain
+version (they differ from it by f32 rounding order, <= 1e-6 relative).
+Every function takes an explicit `np.random.RandomState`, so a sample
+depends only on its seed, in whichever process it is made.
 """
 
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from butd_detr_tpu_torch.native import augment_fused_native
 
 MEAN_RGB = np.array([109.8, 97.2, 83.8]) / 256
 
@@ -63,7 +66,8 @@ def points2box(corners: np.ndarray) -> np.ndarray:
 
 
 def augment_pointcloud(pc: np.ndarray, color: Optional[np.ndarray],
-                       rotate: bool, rng: np.random.RandomState
+                       rotate: bool, rng: np.random.RandomState,
+                       plain: bool = False
                        ) -> Tuple[np.ndarray, Optional[np.ndarray], Dict]:
     """Augment points (+ optional colors) without touching the inputs;
     returns the augmentation record so that detected boxes can be moved
@@ -72,7 +76,10 @@ def augment_pointcloud(pc: np.ndarray, color: Optional[np.ndarray],
     rotate=True: 90k +- 5 degree z-rotation + yz/xz flips; else +- 5
     degrees only (view-dependent utterances must not be rotated). Every
     draw happens first, in f64 and in the reference's order; the
-    applications run in the cloud's dtype."""
+    applications run in the cloud's dtype: a C-contiguous f32 cloud with
+    f32 colour (or none) in one fused C++ pass (flips and rotations folded
+    into one 3x3 built in f64), any other in numpy passes. `plain=True`
+    takes the numpy passes always (the tests' reference)."""
     pc = np.copy(pc)
     aug: Dict = {}
     if rotate:
@@ -89,6 +96,20 @@ def augment_pointcloud(pc: np.ndarray, color: Optional[np.ndarray],
     aug["scale"] = 0.98 + 0.04 * rng.random_sample()
     cscale = (0.98 + 0.04 * rng.random_sample((len(color), 3))
               if color is not None else None)
+
+    if (not plain and pc.dtype == np.float32 and pc.flags.c_contiguous
+            and (color is None or color.dtype == np.float32)):
+        # flips apply BEFORE the rotations (reference _augment order); all
+        # four fold into one matrix: M = Ry @ Rx @ Rz @ F
+        F = np.diag([-1.0 if aug.get("yz_flip", False) else 1.0,
+                     -1.0 if aug.get("xz_flip", False) else 1.0, 1.0])
+        M = (_rot(aug["theta_y"], 1) @ _rot(aug["theta_x"], 0)
+             @ _rot(aug["theta_z"], 2) @ F)
+        if color is not None:  # a copy: the caller's array stays as it is
+            color = np.array(color, np.float32, order="C")
+        augment_fused_native(pc, M, noise, aug["shift"], aug["scale"], color,
+                             cscale, MEAN_RGB)
+        return pc, color, aug
 
     if aug.get("yz_flip", False):
         pc[:, 0] = -pc[:, 0]

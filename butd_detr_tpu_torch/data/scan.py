@@ -1,9 +1,10 @@
 """ScanNet scan loading: PLY parsing, axis alignment, object aggregation.
 
 The port's copy of `butd_detr_tpu/data/scan.py` (reference
-`src/visual_data_handlers.py`, Scan:69 and ScanNetMappings:17), with the
-pure-Python PLY parser only: the JAX package's C++ parser gives the same
-columns (tests/test_torch_data.py holds the two against each other).
+`src/visual_data_handlers.py`, Scan:69 and ScanNetMappings:17). PLY files
+are read by the port's host C++ reader (`native.py`), as the JAX package
+reads them; the Python parser reads what the C++ rejects (ascii,
+big-endian) and is the plain version the tests hold the reader against.
 
 `Scan` keeps the JAX package's attribute names, so one scan cache serves
 both packages: `load_scan_cache` reads a `{split}_v3scans.pkl` written by
@@ -18,6 +19,8 @@ from collections import defaultdict
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from butd_detr_tpu_torch.native import ply_read_vertices_native
 
 KEEP_POINTS = 50000
 SUBSAMPLE_SEED = 1184
@@ -68,9 +71,21 @@ def hilbert_code(xyz: np.ndarray, bits: int = HILBERT_BITS) -> np.ndarray:
 
 def read_ply(path: str) -> Dict[str, np.ndarray]:
     """PLY vertex reader: {property: column} of the first (vertex)
-    element. binary_little_endian, binary_big_endian and ascii; all ScanNet
-    `_vh_clean_2` files are binary little-endian."""
-    return _read_ply_py(path)
+    element. binary_little_endian (the C++ reader: x, y, z as f32, the
+    colour columns when any is non-zero, `label` when any is >= 0),
+    binary_big_endian and ascii (the Python parser: every column as the
+    header types it); all ScanNet `_vh_clean_2` files are binary
+    little-endian."""
+    native = ply_read_vertices_native(path)
+    if native is None:
+        return _read_ply_py(path)
+    xyz, rgb, label = native
+    out = {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2]}
+    if rgb.any():
+        out.update({"red": rgb[:, 0], "green": rgb[:, 1], "blue": rgb[:, 2]})
+    if (label >= 0).any():
+        out["label"] = label
+    return out
 
 
 _PLY_TYPES = {

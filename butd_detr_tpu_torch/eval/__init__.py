@@ -1,5 +1,6 @@
 """Evaluation of the port: grounding accuracy (on the device, vectorized)
-and detection mAP (host numpy, copied from the JAX package's `eval/`)."""
+and detection mAP (host numpy, copied from the JAX package's `eval/`,
+with its NMS and VOC matcher in the host C++ of `native.py`)."""
 
 from butd_detr_tpu_torch.eval.box_util import (
     aabb_iou,

@@ -8,9 +8,10 @@ eval_grounding:364). Host-side numpy cold path per SURVEY.md section 7.8;
 the per-proposal Python loops of the reference are vectorized. BUTD-DETR is
 size-class-agnostic with soft-token ("hungarian") objectness: objectness is
 1 - P(no-object-bin) and class probs are renormalized by it
-(ap_helper.py:146-149). The JAX package matches detections to boxes in
-host C++ where it can (`csrc/butd_native.cpp voc_match`); the port runs
-the numpy loop, that package's fallback.
+(ap_helper.py:146-149). As in the JAX package, detections are matched
+to boxes by the host C++ matcher (`native.py`) wherever every box is
+axis-aligned under the default IoU; the numpy loop, that package's
+fallback, is the plain version (`plain=True`).
 """
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -19,6 +20,7 @@ import numpy as np
 
 from butd_detr_tpu_torch.eval.box_util import (
     aabb_iou,
+    box3d_vol,
     corners_to_aabb,
     flip_axis_to_camera,
     get_3d_box_batch,
@@ -29,6 +31,7 @@ from butd_detr_tpu_torch.eval.nms import (
     nms_3d_faster,
     nms_3d_faster_samecls,
 )
+from butd_detr_tpu_torch.native import voc_match_native
 
 
 def softmax(x: np.ndarray) -> np.ndarray:
@@ -192,11 +195,13 @@ def voc_ap(rec: np.ndarray, prec: np.ndarray, use_07_metric=False) -> float:
 
 def eval_det_cls(
     pred: Dict, gt: Dict, ovthresh=0.25, use_07_metric=False,
-    get_iou_func=get_iou_obb,
+    get_iou_func=get_iou_obb, plain=False,
 ):
     """Single-class VOC precision/recall (eval_det.py:162-260): sort all
     detections by confidence, greedily match each against unclaimed GT of
-    the same image at IoU>=ovthresh."""
+    the same image at IoU > ovthresh. The host C++ matcher matches where
+    `_voc_match_native_path` can take the boxes; the numpy loop matches
+    the rest, and all of them with `plain=True`."""
     class_recs = {}
     npos = 0
     for img_id, boxes in gt.items():
@@ -217,7 +222,11 @@ def eval_det_cls(
     nd = len(image_ids)
     tp = np.zeros(nd)
     fp = np.zeros(nd)
-    if nd > 0:
+    native = None if plain else _voc_match_native_path(
+        gt, image_ids, confidence, BB, ovthresh, get_iou_func)
+    if native is not None:
+        tp, fp = native
+    elif nd > 0:
         order = np.argsort(-np.asarray(confidence))
         for rank, d in enumerate(order):
             R = class_recs[image_ids[d]]
@@ -239,11 +248,52 @@ def eval_det_cls(
     return rec, prec, voc_ap(rec, prec, use_07_metric)
 
 
+def _voc_match_native_path(gt, image_ids, confidence, BB, ovthresh,
+                           get_iou_func):
+    """(tp, fp) in descending confidence from the C++ matcher, or None
+    where it cannot take the boxes: another IoU function than
+    `get_iou_obb`, no detection, a box that is not (8, 3) corners or not
+    axis-aligned (its AABB's volume off the corners' by more than rtol
+    1e-4; BUTD-DETR's boxes have heading 0). The JAX package's
+    conditions, `butd_detr_tpu/eval/detection.py:247-297`."""
+    if get_iou_func is not get_iou_obb or len(image_ids) == 0:
+        return None
+    corners = np.asarray(BB, np.float64)
+    if corners.ndim != 3 or corners.shape[1:] != (8, 3):
+        return None
+    det_aabb = corners_to_aabb(corners)
+    if not np.allclose(np.prod(det_aabb[:, 3:] - det_aabb[:, :3], -1),
+                       box3d_vol(corners), rtol=1e-4):
+        return None
+    img_ids = sorted({*image_ids, *gt.keys()}, key=repr)
+    img_index = {im: i for i, im in enumerate(img_ids)}
+    gt_boxes, gt_img = [], []
+    for im, boxes in gt.items():
+        for b in boxes:
+            b = np.asarray(b, np.float64)
+            if b.shape != (8, 3):
+                return None
+            a = corners_to_aabb(b)
+            if not np.isclose(np.prod(a[3:] - a[:3]), box3d_vol(b),
+                              rtol=1e-4):
+                return None
+            gt_boxes.append(a)
+            gt_img.append(img_index[im])
+    order = np.argsort(-np.asarray(confidence))
+    det_img = np.asarray([img_index[image_ids[d]] for d in order], np.int32)
+    tp, fp = voc_match_native(
+        det_aabb[order], det_img,
+        np.asarray(gt_boxes, np.float32).reshape(-1, 6),
+        np.asarray(gt_img, np.int32), ovthresh)
+    return tp.astype(np.float64), fp.astype(np.float64)
+
+
 def eval_det(pred_all: Dict, gt_all: Dict, ovthresh=0.25,
-             use_07_metric=False):
+             use_07_metric=False, plain=False):
     """All-class detection eval (eval_det.py:263-361), one class after
     another on the calling process (the reference fans classes out over a
-    Pool(10); forking after CUDA initialisation is unsafe)."""
+    Pool(10); forking after CUDA initialisation is unsafe). `plain=True`
+    matches in the numpy loop (`eval_det_cls`)."""
     pred: Dict[int, Dict] = {}
     gt: Dict[int, Dict] = {}
     for img_id, dets in pred_all.items():
@@ -263,8 +313,8 @@ def eval_det(pred_all: Dict, gt_all: Dict, ovthresh=0.25,
     rec, prec, ap = {}, {}, {}
     for c in gt:
         if c in pred:
-            rec[c], prec[c], ap[c] = eval_det_cls(pred[c], gt[c], ovthresh,
-                                                  use_07_metric)
+            rec[c], prec[c], ap[c] = eval_det_cls(
+                pred[c], gt[c], ovthresh, use_07_metric, plain=plain)
         else:
             rec[c], prec[c], ap[c] = 0.0, 0.0, 0.0
     return rec, prec, ap

@@ -17,7 +17,8 @@ card, the peak memory.
 With `--test_dataset scannet` the evaluation is detection mAP and AR at
 `--ap_iou_thresholds` on the fixed 18-class prompt, as the JAX harness's
 `evaluate_one_epoch_det`: contrastive scores projected onto the classes,
-NMS and VOC AP on the host (`eval/detection.py`, numpy).
+NMS and VOC AP on the host (`eval/detection.py`: the NMS and the VOC
+matcher in the host C++ of `native.py`, the rest numpy).
 
 `--use_bf16` builds the model in the bf16 compute dtype
 (`predict.build_model`); `--use_multiview` adds the ENet features to each
@@ -67,6 +68,7 @@ from butd_detr_tpu_torch.eval.grounding import (
 )
 from butd_detr_tpu_torch.lang.roberta import RobertaConfig, \
     roberta_base_config
+from butd_detr_tpu_torch.native import CALLS as NATIVE_CALLS
 from butd_detr_tpu_torch.ops import _cuda
 from butd_detr_tpu_torch.parallel.mesh import make_mesh
 from butd_detr_tpu_torch.predict import build_model, resolve_device
@@ -508,9 +510,10 @@ class TrainTester:
         contrastive scores -> 256-bin -> 19-class projection -> NMS -> AP,
         at every `ap_iou_thresholds`. Returns {threshold: metrics}. The
         `epoch stats` line adds `detection_seconds`, the host seconds of
-        the projection, NMS and AP, and `detection_copy_seconds`, those of
+        the projection, NMS and AP, `detection_copy_seconds`, those of
         the end points' copy to the host, which waits for the batch's
-        forward pass.
+        forward pass, and `native_calls`, this process's calls of the
+        host C++ NMS and VOC matcher in the epoch.
 
         Across dp shards every rank parses its rows and the first process
         steps the AP calculators through every shard's boxes in the order
@@ -524,6 +527,7 @@ class TrainTester:
                        for t in cfg.ap_iou_thresholds]
         meter = EpochMeter(test_loader, self.device)
         seconds = copy_seconds = 0.0
+        calls = {k: NATIVE_CALLS[k] for k in ("greedy_nms", "voc_match")}
         parsed = []  # (batch index, dp index, predictions, ground truths)
         for batch_idx, end_points in self._eval_batches(meter, trainer):
             t0 = time.perf_counter()
@@ -565,7 +569,8 @@ class TrainTester:
         stats = meter.stats(scenes=len(test_loader.dataset))
         self._log_epoch_stats("eval", epoch, dict(
             stats, detection_seconds=seconds,
-            detection_copy_seconds=copy_seconds))
+            detection_copy_seconds=copy_seconds,
+            native_calls={k: NATIVE_CALLS[k] - v for k, v in calls.items()}))
         for t, metrics in (results or {}).items():
             self.logger.info(f"=====> last_ IOU THRESH: {t} <=====")
             self.logger.info(

@@ -4,8 +4,8 @@ the harness that trains and evaluates on it, and the probe metrics.
 Counterpart of the JAX package's study tooling, which lives in its
 scripts (`scripts/accuracy_study.py`, `scripts/probe_common.py`); the port
 keeps its own copy here, and `scripts/accuracy_study_torch.py`,
-`scripts/overfit_probe_torch.py` and `scripts/diag_grounding_torch.py` are
-its command lines.
+`scripts/overfit_probe_torch.py`, `scripts/diag_grounding_torch.py` and
+`scripts/train_split_eval_torch.py` are its command lines.
   * `build_dataset`: the probe's dataset (sr3d rows of a
     `make_rich_scannet` root, plus scannet x10 prompts under `joint_det`);
   * `probe_row`: reduces a forward's logits and boxes to the probe's
@@ -14,6 +14,7 @@ its command lines.
   * `StudyTrainTester`: `TrainTester` on the study's data root, with the
     tiny or small text trunk, `--text_init` and one `history.jsonl` row
     an evaluation;
+  * `accuracy_row`: an evaluation's accuracies under the study's keys;
   * `study_arg_parser` / `study_config` / `main`: the study's command line,
     the flags of the JAX package's `accuracy_study.py` plus `--device`.
 
@@ -159,6 +160,26 @@ def append_row(row: Dict, out_path: str) -> None:
     print("PROBE", json.dumps(row), flush=True)
 
 
+def accuracy_row(cfg: Config, ev) -> Dict[str, float]:
+    """A study's accuracies of one evaluation, to 4 digits: under
+    `butd_cls` the GT evaluator's exact-match accuracy by prefix and mode
+    (`acc_{last_,proposal_}{bbs,bbf}`), else the last prefix's at IoU 0.25
+    and 0.5, top 1 and 5 (`acc@{t}_top{k}_{mode}`)."""
+    row = {}
+    if cfg.butd_cls:
+        for mode in ("bbs", "bbf"):
+            for prefix in ("last_", "proposal_"):
+                row[f"acc_{prefix}{mode}"] = round(
+                    ev.accuracy(prefix, mode), 4)
+    else:
+        for t in (0.25, 0.5):
+            for k in (1, 5):
+                for mode in ("bbs", "bbf"):
+                    row[f"acc@{t}_top{k}_{mode}"] = round(
+                        ev.accuracy("last_", t, k, mode), 4)
+    return row
+
+
 class StudyTrainTester(TrainTester):
     """`TrainTester` on the study's data root.
 
@@ -221,19 +242,8 @@ class StudyTrainTester(TrainTester):
 
     def evaluate_one_epoch(self, epoch, test_loader, trainer):
         ev = super().evaluate_one_epoch(epoch, test_loader, trainer)
-        row = {"epoch": epoch, "step": int(trainer.step)}
-        if self.cfg.butd_cls:
-            # the GT evaluator: exact-match accuracy by (prefix, mode)
-            for mode in ("bbs", "bbf"):
-                for prefix in ("last_", "proposal_"):
-                    row[f"acc_{prefix}{mode}"] = round(
-                        ev.accuracy(prefix, mode), 4)
-        else:
-            for t in (0.25, 0.5):
-                for k in (1, 5):
-                    for mode in ("bbs", "bbf"):
-                        row[f"acc@{t}_top{k}_{mode}"] = round(
-                            ev.accuracy("last_", t, k, mode), 4)
+        row = {"epoch": epoch, "step": int(trainer.step),
+               **accuracy_row(self.cfg, ev)}
         self.history.append(row)
         self.logger.info(f"STUDY {json.dumps(row)}")
         with open(osp.join(self.args.out, "history.jsonl"), "a") as f:
@@ -365,5 +375,6 @@ def main(argv: Optional[List[str]] = None) -> StudyTrainTester:
     return tester
 
 
-__all__ = ["StudyTrainTester", "append_row", "build_dataset", "main",
-           "probe_row", "read_scan_ids", "study_arg_parser", "study_config"]
+__all__ = ["StudyTrainTester", "accuracy_row", "append_row",
+           "build_dataset", "main", "probe_row", "read_scan_ids",
+           "study_arg_parser", "study_config"]

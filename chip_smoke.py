@@ -223,6 +223,24 @@ the last line is printed:
    points of (b), (c) and (f) as five child processes side by side (their
    wall seconds), with the same accuracy, spans and table as in process
    and `[demo] OK`. Each part's seconds are printed.
+14. the host runtime (run last; butd_detr_tpu_torch/native.py, the port's
+   copy of the JAX package's host C++, built with g++ at first use): the
+   compiler, a fresh build's seconds, the `-march` it resolved and the
+   host CPU; (a) `augment_pointcloud` on a 50,000-point f32 cloud with
+   colour, the fused pass within 1e-6 x max|plain| of the numpy passes
+   (4 seeds), the median ms of each; (b) `read_ply` on every PLY of
+   phase 8's root, the C++ columns bit-equal to the Python parser's,
+   ms a scan of each; (c) the same-class NMS on 32 scenes x 256 boxes
+   with distinct scores, keep lists equal to numpy's, and on three tied
+   equal boxes the highest index kept, ms of each; (d) `eval_det` at 0.25
+   and 0.5 on the kept boxes, recall, precision and every AP equal to the
+   numpy loop's, seconds of each; (e) phase 8's detection epoch ran the
+   NMS (once a scene) and the VOC matcher in the host C++: its
+   `detection_seconds`; (f) `scripts/train_split_eval_torch.py` as a
+   child on phase 10's study: one row per checkpoint, every accuracy in
+   [0, 1], the last row equal to an in-process `evaluate_one_epoch` of
+   the same weights (and the study's own row of that epoch printed
+   beside it).
 Phase 2 also holds K1, K2, K6 and K7 bit-equal, and K3 and K4 within
 their bounds (p = 0 and 0.1, both modes), at the shapes of phases 9 and
 10: B = 12 at 5,000 points and B = 24 at 20,000, the small text tower's
@@ -2774,39 +2792,35 @@ def overfit_probe(args, root, card):
                           for k in summary["train_launches"]})
 
 
-def study_with_resume(args, root, card):
+def study_with_resume(args, root, card, out_dir):
     """scripts/accuracy_study_torch.py with the nt32 study's flags, cut to
-    24 train and 8 val scenes and 2 epochs, evaluated each epoch: epoch 1
-    in one process, epoch 2 in a second that resumes its checkpoint.
-    Fails unless both exit 0, the history has rows at epochs 1 and 2 with
-    the step count continuing across the resume, every accuracy lies in
-    [0, 1], every logged loss is finite, and every step and evaluation
-    batch launched the worked-out counts."""
-    import tempfile
-
+    24 train and 8 val scenes and 2 epochs, evaluated each epoch, into
+    `out_dir` (its data a link to `root`): epoch 1 in one process, epoch
+    2 in a second that resumes its checkpoint. Fails unless both exit 0,
+    the history has rows at epochs 1 and 2 with the step count continuing
+    across the resume, every accuracy lies in [0, 1], every logged loss is
+    finite, and every step and evaluation batch launched the worked-out
+    counts."""
     from butd_detr_tpu_torch.lang import small_text_roberta_config
 
-    with tempfile.TemporaryDirectory() as tmp:
-        out_dir = os.path.join(tmp, "study")
-        os.makedirs(out_dir)
-        os.symlink(root, os.path.join(out_dir, "data"))
-        cmd = [sys.executable, os.path.join("scripts",
-                                            "accuracy_study_torch.py"),
-               "--out", out_dir, *STUDY_FLAGS,
-               "--n_train", str(STUDY_SCENES["n_train"]),
-               "--n_val", str(STUDY_SCENES["n_val"])]
-        seconds = []
-        for extra, what in ((["--epochs", "1"], "epoch 1"),
-                            (["--epochs", "2", "--resume", os.path.join(
-                                out_dir, "log", "ckpt_epoch_1.pth")],
-                             "epoch 2, resumed")):
-            t0 = time.perf_counter()
-            run_child(cmd + extra, 900, f"accuracy_study_torch.py ({what})")
-            seconds.append(time.perf_counter() - t0)
-        with open(os.path.join(out_dir, "history.jsonl")) as f:
-            history = [json.loads(line) for line in f]
-        with open(os.path.join(out_dir, "log", "log.txt")) as f:
-            text = f.read()
+    os.makedirs(out_dir)
+    os.symlink(root, os.path.join(out_dir, "data"))
+    cmd = [sys.executable, os.path.join("scripts", "accuracy_study_torch.py"),
+           "--out", out_dir, *STUDY_FLAGS,
+           "--n_train", str(STUDY_SCENES["n_train"]),
+           "--n_val", str(STUDY_SCENES["n_val"])]
+    seconds = []
+    for extra, what in ((["--epochs", "1"], "epoch 1"),
+                        (["--epochs", "2", "--resume", os.path.join(
+                            out_dir, "log", "ckpt_epoch_1.pth")],
+                         "epoch 2, resumed")):
+        t0 = time.perf_counter()
+        run_child(cmd + extra, 900, f"accuracy_study_torch.py ({what})")
+        seconds.append(time.perf_counter() - t0)
+    with open(os.path.join(out_dir, "history.jsonl")) as f:
+        history = [json.loads(line) for line in f]
+    with open(os.path.join(out_dir, "log", "log.txt")) as f:
+        text = f.read()
 
     check([r["epoch"] for r in history] == [1, 1, 2, 2],
           f"history epochs {[r['epoch'] for r in history]}")
@@ -4502,6 +4516,326 @@ def text_side(args, gen, card, tmp):
     return report
 
 
+# ------------------------------------------------------------- phase 14
+
+def _resolved_march(cxx):
+    """The -march that `cxx -march=native` resolves to on this host."""
+    out = subprocess.run([*cxx, "-march=native", "-Q", "--help=target"],
+                         capture_output=True, text=True, timeout=60)
+    for line in out.stdout.splitlines():
+        fields = line.split()
+        if len(fields) == 2 and fields[0] == "-march=":
+            return fields[1]
+    return "not reported"
+
+
+def _host_cpu():
+    """The host CPU's model name from /proc/cpuinfo; where it names none
+    (a virtualised host may say "unknown"), its vendor, family and model
+    numbers."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break  # the first processor's block
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    name = fields.get("model name", "unknown")
+    if name != "unknown":
+        return name
+    return (f"{fields.get('vendor_id', '?')} family "
+            f"{fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')} (no model name in /proc/cpuinfo)")
+
+
+def host_library_build():
+    """The host library's compiler, the seconds of a fresh build (into a
+    temporary directory), the -march the compiler resolved and the CPU."""
+    import tempfile
+
+    from butd_detr_tpu_torch import native
+
+    cxx = native.compiler()
+    version = subprocess.run([*cxx, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        native.build(tmp)
+        seconds = time.perf_counter() - t0
+    native.library()  # the build every path of this process loads
+    return dict(compiler=" ".join(cxx), version=version,
+                build_seconds=seconds, march=_resolved_march(cxx),
+                cpu=_host_cpu(), library=str(native.library_path()))
+
+
+def augmentation_against_plain(seed, n=50_000, reps=21):
+    """(a) `augment_pointcloud` on an f32 cloud of `n` points with colour:
+    the fused pass within 1e-6 x max|plain| of the plain (numpy) passes,
+    on 4 seeds; the median ms of each."""
+    import numpy as np
+
+    from butd_detr_tpu_torch import native
+    from butd_detr_tpu_torch.data import augment_pointcloud
+
+    rng = np.random.RandomState(seed)
+    pc = (rng.rand(n, 3) * [8.0, 8.0, 3.0]).astype(np.float32)
+    color = rng.rand(n, 3).astype(np.float32)
+    worst = 0.0
+    for s in range(4):
+        got = augment_pointcloud(pc, color, True, np.random.RandomState(s))
+        plain = augment_pointcloud(pc, color, True, np.random.RandomState(s),
+                                   plain=True)
+        for g, p in zip(got[:2], plain[:2]):
+            err = float(np.abs(g.astype(np.float64) - p).max()
+                        / np.abs(p).max())
+            check(err <= 1e-6, f"(a) augmentation: the fused pass is {err} "
+                  "x max|plain| off the numpy passes (bound 1e-6)")
+            worst = max(worst, err)
+    calls = native.CALLS["augment_fused"]
+    ms = host_ms(lambda: augment_pointcloud(
+        pc, color, True, np.random.RandomState(0)), reps)
+    check(native.CALLS["augment_fused"] == calls + reps,
+          "(a) augmentation: the default path did not take the fused pass")
+    plain_ms = host_ms(lambda: augment_pointcloud(
+        pc, color, True, np.random.RandomState(0), plain=True), reps)
+    return dict(points=n, worst_relative_err=worst, ms=ms,
+                plain_ms=plain_ms)
+
+
+def ply_reader_against_plain(root, reps=3):
+    """(b) `read_ply` (the C++ reader) on every PLY of the scans of
+    `root`: the same columns as the Python parser, bit for bit (labels as
+    values: the parser keeps the file's ushort); ms a scan of each."""
+    import glob
+
+    import numpy as np
+
+    from butd_detr_tpu_torch import native
+    from butd_detr_tpu_torch.data.scan import _read_ply_py, read_ply
+
+    paths = sorted(glob.glob(os.path.join(root, "scans", "*", "*.ply")))
+    n_scans = CLI_SCENES["n_train"] + CLI_SCENES["n_val"]
+    check(len(paths) == 2 * n_scans,
+          f"(b) {len(paths)} PLY files under {root}, not {2 * n_scans}")
+    points = 0
+    for path in paths:
+        got, want = read_ply(path), _read_ply_py(path)
+        check(sorted(got) == sorted(want),
+              f"(b) {path}: columns {sorted(got)} against {sorted(want)}")
+        for k, w in want.items():
+            g = np.ascontiguousarray(got[k])
+            same = (np.array_equal(g, w) if k == "label" else
+                    g.dtype == w.dtype and g.tobytes() == w.tobytes())
+            check(same, f"(b) {path}: column {k} differs")
+        points += len(want["x"])
+    calls = native.CALLS["ply_read_vertices"]
+    ms = host_ms(lambda: [read_ply(p) for p in paths], reps)
+    check(native.CALLS["ply_read_vertices"] == calls + reps * len(paths),
+          "(b) read_ply did not take the C++ reader")
+    plain_ms = host_ms(lambda: [_read_ply_py(p) for p in paths], reps)
+    # a scan: its cloud and its labels file
+    return dict(files=len(paths), scans=n_scans, points=points,
+                ms_a_scan=ms / n_scans, plain_ms_a_scan=plain_ms / n_scans)
+
+
+def detection_scenes(seed, n_scenes=32, n_boxes=256, n_objects=12,
+                     n_classes=18):
+    """`n_scenes` scenes of `n_objects` ground-truth boxes and `n_boxes`
+    predicted boxes around them (centres jittered by 0.2 of the size,
+    sizes x 0.7-1.3, the object's class 80 % of the time), every score
+    distinct: [(gt_class, gt_corners, pred_aabb (K, 6), score, class,
+    pred_corners)]."""
+    import numpy as np
+
+    from butd_detr_tpu_torch.eval import corners_to_aabb, get_3d_box_batch
+
+    rng = np.random.RandomState(seed)
+    scenes = []
+    for _ in range(n_scenes):
+        center = rng.rand(n_objects, 3) * [8.0, 8.0, 2.0]
+        size = rng.rand(n_objects, 3) * 1.5 + 0.2
+        gcls = rng.randint(0, n_classes, n_objects)
+        src = rng.randint(0, n_objects, n_boxes)
+        pc = center[src] + rng.randn(n_boxes, 3) * 0.2 * size[src]
+        ps = size[src] * rng.uniform(0.7, 1.3, (n_boxes, 3))
+        pcls = np.where(rng.rand(n_boxes) < 0.8, gcls[src],
+                        rng.randint(0, n_classes, n_boxes))
+        corners = get_3d_box_batch(ps, np.zeros(n_boxes), pc)
+        scenes.append(dict(
+            gt_cls=gcls,
+            gt_corners=get_3d_box_batch(size, np.zeros(n_objects), center),
+            aabb=corners_to_aabb(corners),
+            score=(rng.permutation(n_boxes) + 1) / n_boxes, cls=pcls,
+            corners=corners))
+    return scenes
+
+
+def nms_and_ap_against_plain(seed, reps=5):
+    """(c) the same-class 3D NMS of the detection path (IoU 0.25) on 32
+    scenes x 256 boxes with distinct scores: keep lists equal to the plain
+    (numpy) path's; on a hand-built tie the higher index is kept first.
+    (d) `eval_det` on the kept boxes at 0.25 and 0.5: recall, precision
+    (so tp and fp) and every AP equal to the numpy loop's. The ms / s of
+    each."""
+    import numpy as np
+
+    from butd_detr_tpu_torch import native
+    from butd_detr_tpu_torch.eval import eval_det, nms_3d_faster, \
+        nms_3d_faster_samecls
+
+    scenes = detection_scenes(seed)
+    boxes = [np.concatenate([s["aabb"], s["score"][:, None],
+                             s["cls"][:, None].astype(np.float64)], 1)
+             for s in scenes]
+    keeps = [nms_3d_faster_samecls(b, 0.25) for b in boxes]
+    for i, b in enumerate(boxes):
+        check(keeps[i] == nms_3d_faster_samecls(b, 0.25, plain=True),
+              f"(c) scene {i}: the C++ NMS keeps another list than numpy")
+        check(nms_3d_faster(b[:, :7], 0.25)
+              == nms_3d_faster(b[:, :7], 0.25, plain=True),
+              f"(c) scene {i}: the class-blind NMS differs from numpy")
+    tie = np.tile([[0, 0, 0, 1, 1, 1, 0.5]], (4, 1)).astype(np.float64)
+    tie[0] = [5, 5, 5, 6, 6, 6, 0.25]
+    tie_keep = nms_3d_faster(tie, 0.25)
+    check(tie_keep == [3, 0],
+          f"(c) three tied equal boxes kept {tie_keep}, not [3, 0]")
+    calls = native.CALLS["greedy_nms"]
+    ms = host_ms(lambda: [nms_3d_faster_samecls(b, 0.25) for b in boxes],
+                 reps)
+    check(native.CALLS["greedy_nms"] == calls + reps * len(boxes),
+          "(c) the NMS did not take the C++ path")
+    plain_ms = host_ms(lambda: [nms_3d_faster_samecls(b, 0.25, plain=True)
+                                for b in boxes], reps)
+
+    pred_all = {i: [(int(s["cls"][j]), s["corners"][j], float(s["score"][j]))
+                    for j in keep]
+                for i, (s, keep) in enumerate(zip(scenes, keeps))}
+    gt_all = {i: [(int(c), s["gt_corners"][j])
+                  for j, c in enumerate(s["gt_cls"])]
+              for i, s in enumerate(scenes)}
+    ap_rows = {}
+    seconds = plain_seconds = 0.0
+    for thr in (0.25, 0.5):
+        calls = native.CALLS["voc_match"]
+        t0 = time.perf_counter()
+        rec, prec, ap = eval_det(pred_all, gt_all, thr)
+        t1 = time.perf_counter()
+        rec_p, prec_p, ap_p = eval_det(pred_all, gt_all, thr, plain=True)
+        t2 = time.perf_counter()
+        seconds += t1 - t0
+        plain_seconds += t2 - t1
+        check(native.CALLS["voc_match"] == calls + len(ap),
+              f"(d) at {thr}: the C++ matcher ran "
+              f"{native.CALLS['voc_match'] - calls} times for {len(ap)} "
+              "classes")
+        check(ap == ap_p, f"(d) at {thr}: AP {ap} against numpy's {ap_p}")
+        for c in ap:
+            check(np.array_equal(rec[c], rec_p[c])
+                  and np.array_equal(prec[c], prec_p[c]),
+                  f"(d) at {thr}, class {c}: recall or precision (tp, fp) "
+                  "differs from numpy's")
+        ap_rows[thr] = float(np.mean(list(ap.values())))
+    return dict(scenes=len(scenes), boxes=boxes[0].shape[0],
+                kept=sum(map(len, keeps)), tie_keep=tie_keep,
+                nms_ms=ms, nms_plain_ms=plain_ms, eval_det_seconds=seconds,
+                eval_det_plain_seconds=plain_seconds, mAP=ap_rows)
+
+
+def train_split_evaluation(study_dir, history):
+    """(f) scripts/train_split_eval_torch.py as a child process on phase
+    10's study: one row per checkpoint (epochs 1 and 2), every accuracy in
+    [0, 1], and the last row equal to an in-process evaluate_one_epoch of
+    the same weights (the script's `evaluation`, `evaluate_checkpoint`)."""
+    t0 = time.perf_counter()
+    text = run_child([sys.executable, os.path.join(
+        "scripts", "train_split_eval_torch.py"), "--study", study_dir,
+        "--small_text"], 600, "train_split_eval_torch.py")
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(study_dir, "train_split_eval.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    check(json.loads(text.strip().splitlines()[-1]) == rows,
+          "(f) the printed rows are not the file's")
+    check([r["epoch"] for r in rows] == [1, 2],
+          f"(f) rows for epochs {[r['epoch'] for r in rows]}, not [1, 2]")
+    accs = [v for r in rows for k, v in r.items() if k.startswith("acc")]
+    check(len(accs) == 8 and all(0.0 <= v <= 1.0 for v in accs),
+          f"(f) accuracies {accs}")
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    try:
+        import train_split_eval_torch as script
+    finally:
+        sys.path.pop(0)
+    t0 = time.perf_counter()
+    tester, loader, trainer = script.evaluation(study_dir, small_text=True,
+                                                device="cuda")
+    try:
+        row = script.evaluate_checkpoint(tester, loader, trainer, study_dir,
+                                         rows[-1]["epoch"])
+    finally:
+        loader.close()
+    in_process = time.perf_counter() - t0
+    check(row == rows[-1], f"(f) the child's last row {rows[-1]} is not "
+          f"the in-process evaluation's {row}")
+    studied = {k: v for k, v in history[-1].items() if k != "step"}
+    return dict(rows=rows, in_process=row, seconds=seconds,
+                in_process_seconds=in_process, study_row=studied,
+                equals_study_row=studied == rows[-1])
+
+
+def host_runtime(args, card, cli_root, det_stats, study_dir, history):
+    """Phase 14: the port's host C++ runtime (butd_detr_tpu_torch/native.py)
+    on the card's host, (a)-(f); every time beside the card and the CPU."""
+    build = host_library_build()
+    cpu = build["cpu"]
+    log(f"  built with {build['compiler']} ({build['version']}) in "
+        f"{build['build_seconds']:.2f} s, -march=native -> {build['march']}; "
+        f"host CPU {cpu}")
+    aug = augmentation_against_plain(args.seed)
+    log(f"  (a) augment_pointcloud, {aug['points']} f32 points with colour: "
+        f"fused {aug['ms']:.3f} ms, numpy {aug['plain_ms']:.3f} ms (median "
+        f"of 21); worst error {aug['worst_relative_err']:.3g} x max|plain| "
+        f"(bound 1e-6); {cpu}; card {card}")
+    ply = ply_reader_against_plain(cli_root)
+    log(f"  (b) read_ply on phase 8's {ply['scans']} scans ({ply['files']} "
+        f"files, {ply['points']} points): C++ {ply['ms_a_scan']:.3f} ms a "
+        f"scan, Python {ply['plain_ms_a_scan']:.3f} ms a scan; columns "
+        f"bit-equal; {cpu}")
+    det = nms_and_ap_against_plain(args.seed)
+    log(f"  (c) same-class NMS, {det['scenes']} scenes x {det['boxes']} "
+        f"boxes ({det['kept']} kept): C++ {det['nms_ms']:.3f} ms, numpy "
+        f"{det['nms_plain_ms']:.3f} ms for all; keep lists equal; a tie "
+        f"kept {det['tie_keep']}; {cpu}")
+    log(f"  (d) eval_det at 0.25 and 0.5 on the kept boxes (mAP "
+        f"{det['mAP'][0.25]:.4f}, {det['mAP'][0.5]:.4f}): C++ matcher "
+        f"{det['eval_det_seconds']:.3f} s, numpy loop "
+        f"{det['eval_det_plain_seconds']:.3f} s; recall, precision and AP "
+        f"equal; {cpu}")
+    calls = det_stats.get("native_calls", {})
+    check(calls.get("greedy_nms") == CLI_SCENES["n_val"]
+          and calls.get("voc_match", 0) > 0,
+          f"(e) phase 8's detection epoch made {calls} host C++ calls "
+          f"(expected greedy_nms {CLI_SCENES['n_val']}, voc_match > 0)")
+    log(f"  (e) phase 8's detection epoch on the default path: "
+        f"detection_seconds {det_stats['detection_seconds']:.3f} "
+        f"(projection, NMS, AP), copy "
+        f"{det_stats['detection_copy_seconds']:.3f} s, host C++ calls "
+        f"{calls}; {cpu}; card {card}")
+    tse = train_split_evaluation(study_dir, history)
+    studied = ("equal" if tse["equals_study_row"]
+               else f"differs: {tse['study_row']}")
+    log(f"  (f) train_split_eval_torch.py ran {tse['seconds']:.1f} s: rows "
+        f"{tse['rows']}; the in-process evaluation of epoch "
+        f"{tse['rows'][-1]['epoch']} ({tse['in_process_seconds']:.1f} s) "
+        f"equal; the study's own row of that epoch {studied}; card {card}")
+    return dict(build=build, augmentation=aug, ply=ply, detection=det,
+                detection_epoch=dict(
+                    detection_seconds=det_stats["detection_seconds"],
+                    detection_copy_seconds=det_stats[
+                        "detection_copy_seconds"],
+                    native_calls=calls),
+                train_split_eval=tse)
+
+
 def run(args):
     import numpy as np
     import torch
@@ -4695,25 +5029,28 @@ def run(args):
         "and the detection evaluation on a "
         f"ScanNet-format root ({CLI_SCENES['points_per_scan']} points a "
         "scan), B=24, 4 loader workers")
-    with tempfile.TemporaryDirectory() as tmp:
-        report["cli"] = train_and_evaluate_from_a_data_root(
-            args, cfg, roberta, card, tmp)
+    # phase 8's root and phase 10's study stay until phase 14 reads them
+    kept = tempfile.TemporaryDirectory()
+    cli_tmp = os.path.join(kept.name, "cli")
+    os.makedirs(cli_tmp)
+    report["cli"] = train_and_evaluate_from_a_data_root(
+        args, cfg, roberta, card, cli_tmp)
     cli_launches = report["cli"]["launches"]
 
     # 9, 10. the accuracy study: the overfit probe, a study resumed
     from butd_detr_tpu_torch.data import make_rich_scannet
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "data")
-        make_rich_scannet(root, **STUDY_SCENES)
-        log("== phase 9: overfit_probe_torch.py, the jax_b12_nt32 "
-            "invocation (220 steps at B = 12, 5,000 points, small text "
-            "tower from text_init.npz)")
-        report["probe"] = overfit_probe(args, root, card)
-        log("== phase 10: accuracy_study_torch.py, the nt32 study cut to "
-            f"{STUDY_SCENES['n_train']} + {STUDY_SCENES['n_val']} scenes "
-            "and 2 epochs, the second resumed in a new process")
-        report["study"] = study_with_resume(args, root, card)
+    root = os.path.join(kept.name, "study_data")
+    make_rich_scannet(root, **STUDY_SCENES)
+    log("== phase 9: overfit_probe_torch.py, the jax_b12_nt32 "
+        "invocation (220 steps at B = 12, 5,000 points, small text "
+        "tower from text_init.npz)")
+    report["probe"] = overfit_probe(args, root, card)
+    log("== phase 10: accuracy_study_torch.py, the nt32 study cut to "
+        f"{STUDY_SCENES['n_train']} + {STUDY_SCENES['n_val']} scenes "
+        "and 2 epochs, the second resumed in a new process")
+    study_dir = os.path.join(kept.name, "study")
+    report["study"] = study_with_resume(args, root, card, study_dir)
     probe_launches = report["probe"]["launches"]
     study_launches = report["study"]["launches"]
 
@@ -4759,6 +5096,16 @@ def run(args):
     with tempfile.TemporaryDirectory() as tmp:
         text = report["text"] = text_side(args, gen, card, tmp)
     text_launches = text["launches"]
+
+    # 14. the host runtime
+    log("== phase 14: the host runtime (butd_detr_tpu_torch/native.py): "
+        "the build, the fused augmentation, the PLY reader, the NMS, the "
+        "VOC matcher, the detection epoch, the train-split evaluation")
+    report["host_runtime"] = host_runtime(
+        args, card, os.path.join(cli_tmp, "data"),
+        report["cli"]["detection"]["stats"], study_dir,
+        report["study"]["history"])
+    kept.cleanup()
 
     kernels = []
     replaces = {

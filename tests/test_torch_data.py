@@ -4,25 +4,29 @@ with a scan cache built by each package (1,024 points a scan, subsampled
 without replacement as on ScanNet):
 
 (a) the port's writers write the JAX writers' files byte for byte;
-(b) `read_ply` equals the JAX package's native (C++) and Python readers;
+(b) `read_ply` equals the JAX package's `read_ply` (both through their
+    host C++ readers; ascii through the Python parsers) and the JAX C++
+    reader's columns, and the port's Python parser equals the JAX one;
 (c) the scan caches hold the same scans, and a JAX-written cache loads in a
     fresh process that then holds no module of JAX, of the JAX package or
     of torch; a cache naming another class of the JAX package is refused;
-(d) `augment_pointcloud` is bit-equal to the JAX numpy path
-    (`BUTD_NATIVE_AUGMENT=0`) and within 1e-6 of the largest magnitude of
-    each array of its fused native path, the JAX default;
+(d) `augment_pointcloud` is bit-equal to the JAX default (each package's
+    fused C++ pass), its plain path (`plain=True`, numpy) bit-equal to the
+    JAX numpy path (`BUTD_NATIVE_AUGMENT=0`) and within 1e-6 of each
+    array's largest magnitude of the fused pass;
 (e) every key of every sample of the five datasets x two splits (train
     with augmentation, val without), `butd_cls` and `butd` + `augment_det`,
-    at two sample seeds, equals the JAX dataset's: bit for bit against the
-    numpy augmentation, floats within 1e-6 relative (as (d)) against the
-    native one; with `use_multiview` too, its features written by the
-    port's `make_fake_multiview` (the JAX writer's arrays);
+    at two sample seeds, equals the JAX dataset's bit for bit: the two
+    defaults, and the port's plain augmentation against the JAX numpy
+    one; with `use_multiview` too, its features written by the port's
+    `make_fake_multiview` (the JAX writer's arrays);
 (f) the loader with 2 spawned workers gives the batches of 0 workers and
     of the JAX loader, bit for bit, shuffled, with a padded tail;
 (g) `get_tokenizer` picks the JAX package's tokenizer class, in a process
     where the HF hub is offline from its start.
 """
 
+import functools
 import os
 import os.path as osp
 import pickle
@@ -39,6 +43,7 @@ from butd_detr_tpu.data.loader import DataLoader as JDataLoader
 from butd_detr_tpu.data.scan import (
     ScanNetMappings as JScanNetMappings,
     _read_ply_py as j_read_ply_py,
+    read_ply as j_read_ply,
     load_scan_cache as j_load_scan_cache,
     save_scan_cache as j_save_scan_cache,
 )
@@ -54,7 +59,11 @@ from butd_detr_tpu_torch.data import (
     read_ply,
     save_scan_cache,
 )
-from butd_detr_tpu_torch.data import synthetic
+from butd_detr_tpu_torch.data import joint_dataset, synthetic
+from butd_detr_tpu_torch.data.scan import _read_ply_py
+from butd_detr_tpu_torch.native import (
+    ply_read_vertices_native as p_ply_read_vertices_native,
+)
 from butd_detr_tpu_torch.lang.tokenizer import SimpleTokenizer
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -129,15 +138,22 @@ def test_read_ply_equals_the_jax_readers(data, tmp_path, kind):
     path = {"cloud": osp.join(sdir, "scene0001_00_vh_clean_2.ply"),
             "labels": osp.join(sdir, "scene0001_00_vh_clean_2.labels.ply"),
             "ascii": _ascii_ply(str(tmp_path / "a.ply"))}[kind]
-    got, want = read_ply(path), j_read_ply_py(path)
-    assert list(got) == list(want)
-    for k in want:
-        assert got[k].dtype == want[k].dtype, k
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    if kind == "ascii":
-        return
+    for got, want in ((read_ply(path), j_read_ply(path)),
+                      (_read_ply_py(path), j_read_ply_py(path))):
+        assert list(got) == list(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    got = read_ply(path)
     native = ply_read_vertices_native(path)
+    mine = p_ply_read_vertices_native(path)
+    if kind == "ascii":  # the C++ readers refuse it: both parse in Python
+        assert native is None and mine is None
+        return
     assert native is not None, "the JAX package's native reader did not load"
+    for m, n in zip(mine, native):
+        assert m.dtype == n.dtype
+        np.testing.assert_array_equal(m, n)
     xyz, rgb, label = native
     np.testing.assert_array_equal(
         np.stack([got["x"], got["y"], got["z"]], 1), xyz)
@@ -237,22 +253,25 @@ def test_augment_pointcloud_matches_the_jax_package(monkeypatch, rotate,
     for seed in range(3):
         got = augment_pointcloud(pc, color, rotate,
                                  np.random.RandomState(seed))
+        plain = augment_pointcloud(pc, color, rotate,
+                                   np.random.RandomState(seed), plain=True)
         monkeypatch.setenv("BUTD_NATIVE_AUGMENT", "0")
         numpy_path = j_augment(pc, color, rotate,
                                np.random.RandomState(seed))
         monkeypatch.setenv("BUTD_NATIVE_AUGMENT", "1")
         native = j_augment(pc, color, rotate, np.random.RandomState(seed))
-        for record in (numpy_path[2], native[2]):
-            assert list(got[2]) == list(record)
+        for mine, record in ((plain[2], numpy_path[2]), (got[2], native[2])):
+            assert list(mine) == list(record)
             for k, v in record.items():
-                np.testing.assert_array_equal(got[2][k], v, err_msg=k)
+                np.testing.assert_array_equal(mine[k], v, err_msg=k)
         for i in (0, 1):
             if not with_color and i == 1:
-                assert got[1] is None
+                assert got[1] is None and plain[1] is None
                 continue
-            assert got[i].dtype == np.float32
-            np.testing.assert_array_equal(got[i], numpy_path[i])
-            assert _relative_err(got[i], native[i]) <= 1e-6
+            assert got[i].dtype == plain[i].dtype == np.float32
+            np.testing.assert_array_equal(got[i], native[i])
+            np.testing.assert_array_equal(plain[i], numpy_path[i])
+            assert _relative_err(got[i], plain[i]) <= 1e-6
             assert not np.array_equal(got[i], pc if i == 0 else color)
 
 
@@ -271,7 +290,7 @@ def _datasets(data, dataset, split, **flags):
                      scans=data["jax_scans"], **kw))
 
 
-def _assert_same_sample(got, want, rel=None):
+def _assert_same_sample(got, want):
     assert list(got) == list(want)
     for k, w in want.items():
         g = got[k]
@@ -279,10 +298,7 @@ def _assert_same_sample(got, want, rel=None):
             assert type(g) is type(w) and g == w, k
             continue
         assert (g.dtype, g.shape) == (w.dtype, w.shape), k
-        if rel is None or w.dtype.kind != "f":
-            np.testing.assert_array_equal(g, w, err_msg=k)
-        else:
-            assert _relative_err(g, w) <= rel, k
+        np.testing.assert_array_equal(g, w, err_msg=k)
 
 
 @pytest.mark.parametrize("split", ["train", "val"])
@@ -293,27 +309,28 @@ def test_samples_equal_the_jax_datasets(data, monkeypatch, dataset, split):
         assert len(got) == len(want) >= 2
         assert got.augment == (split == "train")
         for native in ("0", "1"):
+            # "0": the port's plain augmentation against the JAX numpy one
             monkeypatch.setenv("BUTD_NATIVE_AUGMENT", native)
+            monkeypatch.setattr(
+                joint_dataset, "augment_pointcloud",
+                functools.partial(augment_pointcloud, plain=native == "0"))
             for i in range(min(len(want), 4)):
                 for seed in (0, 7):
                     _assert_same_sample(
                         got.get(i, np.random.RandomState(seed)),
-                        want.get(i, np.random.RandomState(seed)),
-                        rel=None if native == "0" else 1e-6)
+                        want.get(i, np.random.RandomState(seed)))
     if dataset == "scannet" and split == "train":
         # the joint dataset mixes detection prompts in; both kinds compared
         assert {a["dataset"] for a in got.annos} == {"sr3d", "scannet"}
 
 
-def test_multiview_samples_equal_the_jax_datasets(data, monkeypatch,
-                                                  tmp_path):
+def test_multiview_samples_equal_the_jax_datasets(data, tmp_path):
     """`use_multiview`: the port's `make_fake_multiview` writes the JAX
     writer's features, and the samples (128 ENet channels after colour)
     equal the JAX dataset's; a dataset that has opened its file still
     pickles for the loader's workers and reads there."""
     import h5py
 
-    monkeypatch.setenv("BUTD_NATIVE_AUGMENT", "0")
     root = tmp_path / "root"  # the fixture's root and the features file
     root.mkdir()
     for name in os.listdir(data["root"]):
@@ -343,8 +360,7 @@ def test_multiview_samples_equal_the_jax_datasets(data, monkeypatch,
 
 # --------------------------------------------------------- (f) the loader
 
-def test_loader_workers_give_the_inline_and_jax_batches(data, monkeypatch):
-    monkeypatch.setenv("BUTD_NATIVE_AUGMENT", "0")
+def test_loader_workers_give_the_inline_and_jax_batches(data):
     got_set, want_set = _datasets(data, "scannet", "train", butd_cls=True)
     kw = dict(batch_size=4, shuffle=True, drop_last=False, seed=5)
     workers = DataLoader(got_set, num_workers=2, **kw)

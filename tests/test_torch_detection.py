@@ -9,11 +9,11 @@ original reference, on the CPU.
   and AR to 1e-6 relative, as tests/test_ap_golden.py holds the JAX
   package;
 - the NMS and `eval_det` on seeded boxes with tied scores and IoUs exactly
-  at the threshold: equal to the JAX functions on their numpy path (the
-  port's only path) in every case, and on their host C++ path
-  (`butd_detr_tpu/native.py`) wherever that path agrees with its own
-  numpy fallback: the C++ NMS takes tied scores in index order, numpy's
-  unstable argsort does not (ROADMAP section 3);
+  at the threshold: the port's default (its host C++, `native.py`) equal
+  to the JAX functions' default (theirs, `butd_detr_tpu/native.py`), and
+  the port's plain path (`plain=True`, numpy) equal to the JAX numpy
+  fallback, in every case: the C++ NMS takes tied scores in descending
+  index order, numpy's unstable argsort in another;
 - `detection_token_map` equal to the JAX one for `SimpleTokenizer`;
 - one detection epoch of the port's harness beside the JAX harness's on a
   `make_fake_scannet` root with the same weights (`--butd`, as
@@ -136,6 +136,7 @@ def _exact_overlaps(b, thresholds):
 
 @pytest.mark.parametrize("kind", sorted(NMS))
 def test_nms_equals_the_jax_numpy_path_with_ties(kind, jax_numpy_path):
+    """The port's plain path (numpy) is the JAX package's numpy fallback."""
     port, jax_fn, cols = NMS[kind]
     exact = 0
     for seed in range(20):
@@ -143,23 +144,25 @@ def test_nms_equals_the_jax_numpy_path_with_ties(kind, jax_numpy_path):
         exact += _exact_overlaps(b, (0.25, 0.5))
         for thr in (0.25, 0.5):
             for old_type in (False, True):
-                assert list(port(cols(b), thr, old_type)) == \
+                assert list(port(cols(b), thr, old_type, plain=True)) == \
                     list(jax_fn(cols(b), thr, old_type)), (seed, thr)
     assert exact > 0
 
 
 @pytest.mark.parametrize("kind", sorted(NMS))
 def test_nms_equals_the_jax_native_path_at_distinct_scores(kind):
-    """Distinct scores, IoUs at the threshold: the port equals the JAX
-    package's host C++ NMS (f32) too."""
+    """Distinct and tied scores, IoUs at the threshold: the port's default
+    (its host C++ NMS, f32) equals the JAX package's default, its own."""
     if native.load_native() is None:
         pytest.skip("the JAX package's host library did not build")
     port, jax_fn, cols = NMS[kind]
-    for seed in range(20):
-        b = _nms_boxes(seed, distinct_scores=True)
-        for thr in (0.25, 0.5):
-            assert list(port(cols(b), thr)) == list(jax_fn(cols(b), thr)), \
-                (seed, thr)
+    for distinct_scores in (True, False):
+        for seed in range(20):
+            b = _nms_boxes(seed, distinct_scores=distinct_scores)
+            for thr in (0.25, 0.5):
+                for old_type in (False, True):
+                    assert list(port(cols(b), thr, old_type)) == \
+                        list(jax_fn(cols(b), thr, old_type)), (seed, thr)
 
 
 # --------------------------------------------------------------- eval_det
@@ -204,6 +207,8 @@ def _assert_same_eval_det(got, want):
 
 @pytest.mark.parametrize("path", ["numpy", "native"])
 def test_eval_det_equals_the_jax_function(path, monkeypatch):
+    """numpy: the port's plain path against the JAX numpy fallback;
+    native: the two defaults, each package's host C++ matcher."""
     if path == "numpy":
         monkeypatch.setattr(native, "load_native", lambda: None)
     elif native.load_native() is None:
@@ -211,8 +216,9 @@ def test_eval_det_equals_the_jax_function(path, monkeypatch):
     for seed in range(12):
         pred_all, gt_all = _scenes(seed)
         for thr in (0.25, 0.5):
-            _assert_same_eval_det(eval_det(pred_all, gt_all, thr),
-                                  jdetection.eval_det(pred_all, gt_all, thr))
+            _assert_same_eval_det(
+                eval_det(pred_all, gt_all, thr, plain=path == "numpy"),
+                jdetection.eval_det(pred_all, gt_all, thr))
         # the planted pair lies at IoU 1/4 exactly: a false positive at
         # 0.25 (a match needs IoU > threshold), a true one below it
         assert get_iou_obb(pred_all[0][0][1], gt_all[0][0][1]) == 0.25
@@ -381,6 +387,10 @@ def test_detection_epoch_logs_its_stats_and_metrics(detection_epoch):
     assert stats[0]["batches"] == 2
     assert stats[0]["detection_seconds"] > 0.0
     assert stats[0]["detection_copy_seconds"] >= 0.0
+    # the default path: the NMS and the VOC matcher in the host C++
+    calls = stats[0]["native_calls"]
+    assert sorted(calls) == ["greedy_nms", "voc_match"]
+    assert calls["greedy_nms"] == 5 and calls["voc_match"] > 0
     for t in detection_epoch["thresholds"]:
         assert f"=====> last_ IOU THRESH: {t} <=====" in lines
     assert sum(m.startswith("mAP ") for m in lines) == \

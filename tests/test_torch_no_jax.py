@@ -1,7 +1,8 @@
 """The port imports no JAX. In a fresh process, every module of
 `butd_detr_tpu_torch` (`train/study.py`, `parallel/`, the span predictor,
-the class embeddings and `utils/visualize.py` included), one of the
-port's study command lines (`scripts/*_torch.py` of the accuracy study,
+the class embeddings, `native.py` and `utils/visualize.py` included), one
+of the port's study command lines (`scripts/*_torch.py` of the accuracy
+study, `scripts/train_split_eval_torch.py` among them,
 `scripts/pretrain_text_torch.py`) or one of its entry points at the
 repository's root (`predict_torch.py`, `train_torch.py`,
 `prepare_data_torch.py`, `span_cls_torch.py`,
@@ -12,7 +13,9 @@ package-wide case covers) then runs on arguments that stop it once it has
 imported what it needs (a data root that does not exist, no GPU). The
 process must then hold no module of `jax`, `flax`, the JAX package or the
 JAX package's study scripts
-(`scripts.probe_common`, `scripts.train_split_eval`)."""
+(`scripts.probe_common`, `scripts.train_split_eval`). The host C++
+runtime (`butd_detr_tpu_torch.native`) loads, builds if need be and runs
+in a process that imports neither JAX nor torch."""
 
 import os
 import subprocess
@@ -24,7 +27,8 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ("accuracy_study_torch.py", "overfit_probe_torch.py",
-           "diag_grounding_torch.py", "pretrain_text_torch.py")
+           "diag_grounding_torch.py", "pretrain_text_torch.py",
+           "train_split_eval_torch.py")
 MISSING = "/nonexistent/data_root"
 ENTRY_POINTS = {
     "predict_torch.py": ["--scan_id", "scene0000_00", "--utterance", "a",
@@ -57,6 +61,7 @@ def test_imports_no_jax(what, tmp_path):
                     "butd_detr_tpu_torch.lang.span_predictor",
                     "butd_detr_tpu_torch.lang.span_trainer",
                     "butd_detr_tpu_torch.lang.class_embeddings",
+                    "butd_detr_tpu_torch.native",
                     "butd_detr_tpu_torch.utils.visualize"} <= set(names)
             for name in names:
                 importlib.import_module(name)
@@ -94,3 +99,22 @@ def test_imports_no_jax(what, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_native_runs_without_torch():
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        from butd_detr_tpu_torch import native
+        keep = native.greedy_nms_native(np.zeros((2, 3)), np.ones((2, 3)),
+                                        np.array([0.5, 0.5]), 0.25)
+        print(keep)
+        print(sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                            "butd_detr_tpu", "torch")))
+        """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines() == ["[1]", "[]"]
