@@ -171,6 +171,11 @@ int call_packed(int (*entry)(Args...), const unsigned char* args) {
     return call_packed(entry, args);                           \
   }
 
+// What a launch entry returns, launching nothing, where it refuses a size:
+// no cudaError_t is negative, so the caller tells a refusal from a CUDA
+// error (ops/_cuda.py:launch raises the wrapper's own message for it).
+constexpr int kRefused = -1;
+
 #define BUTD_ERROR_STRING(prefix)                                 \
   extern "C" const char* prefix##_error_string(int code) {         \
     return cudaGetErrorString(static_cast<cudaError_t>(code));     \

@@ -26,10 +26,11 @@ host cost near that of a PyTorch operator:
     ctypes object a call.
 `_SIGNATURES` lists each typed entry's parameters (tests/test_torch_launch
 holds them against the C sources); the packed layout follows from them.
-Every C entry returns `cudaGetLastError()` after its launch; `launch()`
-raises if it is not 0. `LAUNCHES` counts kernel launches per kernel;
-`launch()` adds one right after the entry launched its kernel, and nothing
-else does.
+Every C entry returns `cudaGetLastError()` after its launch, or
+`REFUSED` (-1, which no CUDA error is), launching nothing, where it
+refuses a size; `launch()` raises if it is not 0. `LAUNCHES` counts
+kernel launches per kernel; `launch()` adds one after the entry launched
+its kernel, and nothing else does.
 """
 
 import ctypes
@@ -106,7 +107,7 @@ _SIGNATURES = {
                            _VP],
     },
     "gather": {
-        "gather_launch": [_I, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP],
+        "gather_launch": [_I, _VP, _VP, _I, _VP, _I, _LL, _LL, _LL, _VP],
     },
     "group_gather": {
         "group_gather_launch": [_I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I,
@@ -117,7 +118,10 @@ _SIGNATURES = {
     "assignment": {
         "assignment_launch": [_I, _VP, _LL, _LL, _LL, _VP, _I, _VP, _I, _I,
                               _I, _VP],
-        "assignment_smem_bytes": [_I, _I],
+        "assignment_slice_bytes": [_I, _I],
+        "assignment_staged_rows": [_I, _I],
+        "assignment_warps": [_I, _I],
+        "assignment_resident_blocks": [_I, _I, _I, _I],
     },
 }
 # The struct format of one 8-byte slot of each parameter type.
@@ -238,11 +242,17 @@ def _packed(entry: str) -> tuple:
     return _PACKED[entry]
 
 
-def launch(entry: str, device: int, *args, count: bool = True) -> None:
+REFUSED = -1  # csrc/common.cuh:kRefused
+
+
+def launch(entry: str, device: int, *args, count: bool = True,
+           invalid=None) -> None:
     """Call C entry `entry` with the device ordinal, `args` (ints, floats;
     pointers as ints, 0 for none) and the current stream of that device;
     count the launch of its kernel (unless `count` is False: the dropout
-    mask writer) and raise on a CUDA error."""
+    mask writer) and raise on a CUDA error. An entry that checks its sizes
+    itself returns `REFUSED` where a limit is passed, launching nothing:
+    that raises a ValueError with the message `invalid(*args)`."""
     packed = _PACKED.get(entry)
     if packed is None:
         packed = _packed(entry)
@@ -250,10 +260,12 @@ def launch(entry: str, device: int, *args, count: bool = True) -> None:
     layout.pack_into(buf, 0, device, *args,
                      torch._C._cuda_getCurrentRawStream(device))
     code = fn(address)
+    if code:
+        if code == REFUSED and invalid is not None:
+            raise ValueError(invalid(*args))
+        check(kernel, code)
     if count:
         LAUNCHES[kernel] += 1
-    if code:
-        check(kernel, code)
 
 
 _KERNEL_OF = {entry: kernel for kernel, entries in _SIGNATURES.items()

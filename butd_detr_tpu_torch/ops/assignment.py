@@ -116,6 +116,54 @@ def batched_linear_sum_assignment_plain(cost_mgq: torch.Tensor,
     return col4row.clamp(min=0).to(torch.int32)
 
 
+# The kernel's plan (csrc/assignment.cu): a warp solves a matrix, up to
+# WARPS matrices a block (as few as spread a call over the SMs), and a
+# warp's slice (a WARPS-th of a block's MAX_SMEM bytes) stages the first R
+# valid rows of costs, R the most that fit beside the rest of its state; a
+# lane holds K columns, so a row is P + 1 floats, P = 32 K. The C entries
+# `assignment_{warps,staged_rows,slice_bytes,resident_blocks}` give it on
+# the card; `assignment_plan` mirrors it for the CPU tests, which cannot
+# ask them (chip_smoke.py holds the two equal).
+WARPS = 4
+MAX_SMEM = 232448
+MAX_COLUMNS = 1024
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def assignment_plan(G: int, Q: int, M: int = 0, sms: int = 132) -> dict:
+    """The kernel's plan for a call of M (G, Q) matrices on a card of
+    `sms` SMs: the matrices a block (`warps`), the rows a warp stages in
+    shared memory (`rows_staged`, R; a matrix with more valid rows reads
+    the rest from device memory), a warp's shared bytes (`slice_bytes`)
+    and a block's (`smem_bytes`)."""
+    rows = min(G, Q)
+    k = 1  # columns a lane holds: ceil(Q / 32) up to a power of two
+    while 32 * k < Q:
+        k *= 2
+    p = 32 * k
+    state = 2 * _align16(4 * p) + 4 * _align16(4 * rows)
+    row_bytes = 4 * (p + 1)
+    slice_max = MAX_SMEM // WARPS
+    r = ((slice_max - state - 16) // row_bytes
+         if state + row_bytes + 16 <= slice_max else 1)
+    r = max(min(r, rows), 1)
+    slice_bytes = _align16(r * row_bytes) + state
+    warps = min(max(-(-M // sms), 1), WARPS)
+    return dict(warps=warps, rows_staged=r, slice_bytes=slice_bytes,
+                smem_bytes=warps * slice_bytes)
+
+
+def _refused(cost_ptr, sm, sg, sq, count_ptr, count64, out_ptr, M, G, Q):
+    """The message of the assignment's C entry refusing a call."""
+    slice_bytes = _cuda.lib("assignment").assignment_slice_bytes(G, Q)
+    return (f"the kernel takes at most {MAX_COLUMNS} columns and a block's "
+            f"227 KB of shared memory, got (G, Q) = ({G}, {Q}): "
+            f"{slice_bytes} bytes a matrix")
+
+
 def batched_linear_sum_assignment(cost_mgq: torch.Tensor,
                                   n_valid: torch.Tensor) -> torch.Tensor:
     """Min-cost assignment of the first `n_valid[m]` rows of each (G, Q)
@@ -125,29 +173,30 @@ def batched_linear_sum_assignment(cost_mgq: torch.Tensor,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (or raises). The kernel reads no value on the host: a call
     never waits for the device."""
-    if cost_mgq.dim() != 3 or tuple(n_valid.shape) != cost_mgq.shape[:1]:
-        raise ValueError(f"cost {tuple(cost_mgq.shape)} and n_valid "
+    shape = cost_mgq.shape
+    if len(shape) != 3 or n_valid.shape != shape[:1]:
+        raise ValueError(f"cost {tuple(shape)} and n_valid "
                          f"{tuple(n_valid.shape)} do not form (M, G, Q), "
                          "(M,)")
-    if cost_mgq.device.type == "cpu":
-        return batched_linear_sum_assignment_plain(cost_mgq, n_valid)
-    _cuda.require_cuda(cost_mgq, "batched_linear_sum_assignment")
-    M, G, Q = cost_mgq.shape
-    if Q > 1024:
-        raise ValueError(f"the kernel takes at most 1024 columns, got {Q}")
+    if not cost_mgq.is_cuda:
+        if cost_mgq.device.type == "cpu":
+            return batched_linear_sum_assignment_plain(cost_mgq, n_valid)
+        _cuda.require_cuda(cost_mgq, "batched_linear_sum_assignment")
     dev = cost_mgq.get_device()
-    if n_valid.device != cost_mgq.device:
+    if n_valid.get_device() != dev:
         raise ValueError(f"n_valid lies on {n_valid.device}, the costs on "
                          f"{cost_mgq.device}")
     cost = cost_mgq if cost_mgq.dtype is torch.float32 else cost_mgq.float()
-    if n_valid.dtype not in (torch.int32, torch.int64):
+    count_dtype = n_valid.dtype
+    if count_dtype is not torch.int64 and count_dtype is not torch.int32:
         n_valid = n_valid.to(torch.int32)
-    n_valid = n_valid.contiguous()
+    if not n_valid.is_contiguous():
+        n_valid = n_valid.contiguous()
+    M, G, Q = shape
     out = torch.empty(M, G, dtype=torch.int32, device=cost.device)
-    if M * G == 0:
-        return out
-    sm, sg, sq = cost.stride()
-    _cuda.launch("assignment_launch", dev, cost.data_ptr(), sm, sg, sq,
-                 n_valid.data_ptr(), int(n_valid.dtype is torch.int64),
-                 out.data_ptr(), M, G, Q)
+    if M and G:
+        _cuda.launch("assignment_launch", dev, cost.data_ptr(),
+                     *cost.stride(), n_valid.data_ptr(),
+                     count_dtype is torch.int64, out.data_ptr(), M, G, Q,
+                     invalid=_refused)
     return out

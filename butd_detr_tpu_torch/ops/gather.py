@@ -36,7 +36,7 @@ import torch
 
 from butd_detr_tpu_torch.ops import _cuda
 
-_MAX_GRID_Y = 65535
+_MAX_GRID_Y = 65535  # the grouped copy kernel's batch limit
 
 
 def _payload(t: torch.Tensor) -> torch.Tensor:
@@ -167,43 +167,54 @@ def _check_sizes(what: str, batch: int, n: int, threads: int) -> None:
             f"(65535, 2^31, 2^31)")
 
 
+def _too_large(src_ptr, idx_ptr, idx64, out_ptr, batch, n, m, row_bytes):
+    """The message of the row gather's C entry refusing a call."""
+    return (f"gather_rows: batch {batch}, source rows {n} or row bytes "
+            f"{row_bytes} exceed what the kernel indexes (65535, 2^63, a "
+            "row that fits a block's 227 KB of shared memory)")
+
+
+_F32, _BF16, _I32, _I64 = torch.float32, torch.bfloat16, torch.int32, \
+    torch.int64
+
+
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[b, m] = src[b, idx[b, m]]: (B, N, C) f32 or bf16 (other dtypes
     widened to f32), (B, M) integer -> (B, M, C) in the source's dtype."""
-    if not src.is_cuda:
+    dev = src.get_device()  # -1 off the card
+    if dev < 0 or not src.is_cuda:
         _check(src, idx, 2, "gather_rows")
         if src.device.type == "cpu":
             return gather_rows_plain(src, idx)
         _cuda.require_cuda(src, "gather_rows")
-    # the common case costs a few attribute reads; _check words the error
+    # the common case costs a few attribute reads; _check words the error,
+    # and the C entry makes the integer work (the copy granule, the tile,
+    # the size limits)
     shape, ishape = src.shape, idx.shape
     if len(shape) != 3 or len(ishape) != 2 or ishape[0] != shape[0]:
         _check(src, idx, 2, "gather_rows")
     dtype = src.dtype
-    if dtype is not torch.float32 and dtype is not torch.bfloat16:
-        src, dtype = src.float(), torch.float32
+    if dtype is _F32:
+        size = 4
+    elif dtype is _BF16:
+        size = 2
+    else:
+        src, dtype, size = src.float(), _F32, 4
     if not src.is_contiguous():
         src = src.contiguous()
-    dev = src.get_device()
     idx_dtype = idx.dtype
-    if ((idx_dtype is torch.int64 or idx_dtype is torch.int32)
-            and idx.get_device() == dev and idx.is_contiguous()):
-        idx64 = idx_dtype is torch.int64  # as it is: the common case
+    if ((idx_dtype is _I64 or idx_dtype is _I32) and idx.get_device() == dev
+            and idx.is_contiguous()):
+        idx64 = idx_dtype is _I64  # as it is: the common case
     else:
         idx, idx64 = index_operand(idx, dev)
     B, N, C = shape
     M = ishape[1]
     out = torch.empty(B, M, C, dtype=dtype, device=src.device)
-    if not (B and M and C):
-        return out
-    src_ptr, out_ptr = src.data_ptr(), out.data_ptr()
-    row_bytes = C * src.element_size()
-    unit = copy_unit(row_bytes, src_ptr, out_ptr)
-    units = row_bytes // unit
-    if B > _MAX_GRID_Y or N >= 2 ** 31 or M * units >= 2 ** 31:
-        _check_sizes("gather_rows", B, N, M * units)
-    _cuda.launch("gather_launch", dev, src_ptr, idx.data_ptr(), idx64,
-                 out_ptr, B, N, M, units, unit)
+    if B and M and C:
+        _cuda.launch("gather_launch", dev, src.data_ptr(), idx.data_ptr(),
+                     idx64, out.data_ptr(), B, N, M, C * size,
+                     invalid=_too_large)
     return out
 
 

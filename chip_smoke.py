@@ -15,8 +15,10 @@ the last line is printed:
    each attention kernel, forward and backward, also its spills and the
    HMMA (tensor-core) instructions in its SASS (cuobjdump -sass), which
    every kernel of the default (bf16-operand) mode must have (and the
-   forward's no spill); FPS's layout per tier size: the blocks of a
-   cloud's cluster and cudaOccupancyMaxActiveClusters;
+   forward's no spill); the row gather's and the assignment's kernels'
+   registers, static shared memory and spills by instantiation; FPS's
+   layout per tier size: the blocks of a cloud's cluster and
+   cudaOccupancyMaxActiveClusters;
 2. kernels vs plain versions on the card, at the paths' shapes:
    FPS and ball query bit-equal at the 4 SA tiers (one scene, and again
    on the training batch's clouds; plus an all-zero cloud and centers
@@ -47,8 +49,12 @@ the last line is printed:
    every shape the three paths launch them, f32 and bf16 rows, one scene
    and the batch, strided sources, int64 indices and an index out of
    range, the row gather also timed with int32 and with int64 indices
-   (each read as it is; the row gather and torch.gather as the median of
-   three runs, since a call is bound by the host); the grouped gather's
+   (each read as it is; the row gather and torch.gather in turns, the
+   median of three rounds, a call's ms by CUDA events over 20 calls and
+   its host us on the host's clock, since a call is bound by the host;
+   at the f32 backbone's sa2-sa4 groupings its device ms, CUDA events
+   over 20 launches queued behind a spin kernel, beside torch.gather's
+   and the bound); the grouped gather's
    MLP-input kernel (each set-abstraction tier's bf16 MLP input in one
    pass) bit-equal to its plain version with special values in the rows
    and centres, int32 and int64 indices and an index out of range, timed
@@ -62,8 +68,13 @@ the last line is printed:
    the matcher call of every path that takes one (56 x (132, 256) at
    B = 8, 168 x (132, 256) at B = 24, 84 and 168 x (16, 32) in the probe
    and the study; 132 valid rows), with NaN and infinite costs and with
-   every cost tied, its optimum scipy's within 1e-5 relative, timed
-   beside scipy on the host with both copies (the port's earlier path).
+   every cost tied, and at n_valid = R and R + 1 (R the rows a warp
+   stages in shared memory: every row staged, one read from device
+   memory), its optimum scipy's within 1e-5 relative, timed (a call, and
+   its device ms over 50 launches queued behind a spin kernel) beside
+   scipy on the host with both copies (the port's earlier path); its plan
+   at each path's (G, Q) (matrices a block, R, shared bytes, blocks
+   resident an SM: every path's call in one wave, or the phase fails).
    Each is timed against
    its plain version and a library yardstick
    the port never calls (scaled_dot_product_attention and autograd through
@@ -355,6 +366,50 @@ def median_ms(fn, reps, rounds=3):
     return sorted(time_ms(fn, reps) for _ in range(rounds))[rounds // 2]
 
 
+def device_ms(fn, reps):
+    """Device ms a call of `fn`: `reps` calls queued behind a spin kernel
+    (`torch.cuda._sleep`) that holds the stream until they are all queued,
+    timed by two CUDA events around them, so the host's time a call does
+    not enter it. Raises if the host took longer to queue them than the
+    spin held the stream."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    held = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    held.record()
+    torch.cuda._sleep(int(4e6))  # ~2 ms at the card's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    if queued_ms >= held.elapsed_time(start):
+        raise SmokeFailure(f"the host queued {reps} calls in "
+                           f"{queued_ms:.2f} ms, longer than the spin held "
+                           "the stream")
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, calls=200):
+    """Host µs a call of `fn`: `calls` back-to-back calls from a
+    synchronized start, on the host's clock, not waiting for the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def bound_ms(nbytes, ops_by_rate):
     """Least time: the larger of bytes over HBM rate and the operations
     over their type's peak rate."""
@@ -391,12 +446,9 @@ def _short_name(mangled):
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def attention_resources(lib_name):
-    """Per kernel function of csrc/<lib_name>.cu (the attention forward or
-    backward): ptxas's registers, shared memory and spills (from the build
-    log) and the HMMA (tensor-core mma) instructions in its SASS (cuobjdump
-    -sass, where the toolkit has it). Fails if a default-mode (mma) kernel
-    has no HMMA, or if one of the forward's spills."""
+def _ptxas_report(lib_name):
+    """{mangled kernel: registers, static shared bytes, spill stores and
+    loads} from ptxas's -v lines in the build log of csrc/<lib_name>.cu."""
     import re
 
     from butd_detr_tpu_torch.ops import _cuda
@@ -420,6 +472,44 @@ def attention_resources(lib_name):
         if m:
             cur["smem_bytes"] = int(m.group(1))
     check(len(funcs) > 0, f"{lib_name}: no ptxas report in the build log")
+    return funcs
+
+
+def tile_kernel_resources(lib_name):
+    """The row gather's and the assignment's kernels, one line each:
+    ptxas's registers, static shared memory and spills by instantiation
+    (the dynamic shared memory a launch takes is planned per call)."""
+    import re
+
+    out = {}
+    for mangled, res in _ptxas_report(lib_name).items():
+        m = re.search(r"\d+((?:gather|assignment)\w*?_kernel)I(\w*?)EEv",
+                      mangled)
+        if m:  # <the literals, then int32 or int64>: the index or counts
+            args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
+            kind = re.sub(r"L[ib]\d+E", "", m.group(2))
+            args.append("int32" if kind == "i" else "int64")
+            name = f"{m.group(1)}<{', '.join(args)}>"
+        else:
+            name = mangled
+        out[name] = res
+        log(f"  [{lib_name}] {name}: {res.get('registers')} registers, "
+            f"{res.get('smem_bytes')} B static smem, spills "
+            f"{res.get('spill_stores')}/{res.get('spill_loads')} B")
+    return out
+
+
+def attention_resources(lib_name):
+    """Per kernel function of csrc/<lib_name>.cu (the attention forward or
+    backward): ptxas's registers, shared memory and spills (from the build
+    log) and the HMMA (tensor-core mma) instructions in its SASS (cuobjdump
+    -sass, where the toolkit has it). Fails if a default-mode (mma) kernel
+    has no HMMA, or if one of the forward's spills."""
+    import re
+
+    from butd_detr_tpu_torch.ops import _cuda
+
+    funcs = _ptxas_report(lib_name)
     tool = _cuobjdump()
     if tool:
         sass = subprocess.run([tool, "-sass",
@@ -1417,7 +1507,8 @@ def check_gathers(rows, groups, gen, batched):
 
     g_row = dict(name="gather", ms=0.0, ms_int32=0.0, ms_int64=0.0,
                  plain_ms=0.0, bound_ms=0.0, library_ms=0.0, step_ms=0.0,
-                 max_abs_err=0, shapes=[])
+                 host_us=0.0, library_host_us=0.0, max_abs_err=0, shapes=[],
+                 groupings_device_ms={})
     # K7's main-path form is the MLP-input kernel (ms, plain, bound,
     # library: the four tiers summed); the copy kernel's keep copy_*
     gg_row = dict(name="group_gather", ms=0.0, plain_ms=0.0, bound_ms=0.0,
@@ -1456,32 +1547,69 @@ def check_gathers(rows, groups, gen, batched):
               f"gather {name}: an index out of range gave no zero row")
         del wide
         src = torch.randn(B, n, C, device="cuda", generator=gen).to(dtype)
-        ms = median_ms(lambda: gather_rows(src, idx), 20)
         # each index type read as it is (no cast kernel before the gather)
         idx32, idx64 = idx.int(), idx.long()
-        ms32 = median_ms(lambda: gather_rows(src, idx32), 20)
-        ms64 = median_ms(lambda: gather_rows(src, idx64), 20)
-        pms = time_ms(lambda: gather_rows_plain(src, idx), 20)
         wide_idx = idx.long()[..., None].expand(-1, -1, C)
-        lms = median_ms(lambda: torch.gather(src, 1, wide_idx), 20)
+
+        def k6():
+            return gather_rows(src, idx)
+
+        def library():
+            return torch.gather(src, 1, wide_idx)
+
+        # K6 and torch.gather in turns, three rounds, the median kept: a
+        # call's ms (CUDA events over 20 back-to-back calls: the host's
+        # time at the main paths' shapes) and its host us (the host's
+        # clock, not waiting for the device)
+        turns = {key: [] for key in ("ms", "lms", "ms32", "ms64", "us",
+                                     "lus")}
+        main_path = per_batch or per_step
+        for _ in range(3):
+            turns["ms"].append(time_ms(k6, 20))
+            turns["lms"].append(time_ms(library, 20))
+            turns["ms32"].append(time_ms(lambda: gather_rows(src, idx32), 20))
+            turns["ms64"].append(time_ms(lambda: gather_rows(src, idx64), 20))
+            if main_path:
+                turns["us"].append(host_us(k6))
+                turns["lus"].append(host_us(library))
+        ms, lms, ms32, ms64 = (sorted(turns[k])[1] for k in
+                               ("ms", "lms", "ms32", "ms64"))
+        us, lus = (sorted(turns[k])[1] if turns[k] else None
+                   for k in ("us", "lus"))
+        pms = time_ms(lambda: gather_rows_plain(src, idx), 20)
         row_bytes = C * src.element_size()
         nbytes = B * M * 4 + (_distinct_rows(idx, n) + B * M) * row_bytes
         b_ms, by = bound_ms(nbytes, [])
-        g_row["shapes"].append(dict(
+        entry = dict(
             name=name, B=B, n=n, M=M, C=C, dtype=str(dtype),
             index_dtype=str(idx.dtype), per_batch=per_batch,
             per_step=per_step, ms=ms, ms_int32=ms32, ms_int64=ms64,
-            plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=by))
+            plain_ms=pms, library_ms=lms, bound_ms=b_ms, bound_by=by,
+            host_us=us, library_host_us=lus, turns=turns)
+        if not main_path:  # the f32 groupings: the device's time
+            entry["device_ms"] = device_ms(k6, 20)
+            entry["library_device_ms"] = device_ms(library, 20)
+            g_row["groupings_device_ms"][name] = dict(
+                ms=entry["device_ms"], library_ms=entry["library_device_ms"],
+                bound_ms=b_ms)
+        g_row["shapes"].append(entry)
         for key, val in (("ms", ms), ("ms_int32", ms32), ("ms_int64", ms64),
                          ("plain_ms", pms), ("library_ms", lms),
-                         ("bound_ms", b_ms)):
+                         ("bound_ms", b_ms), ("host_us", us or 0.0),
+                         ("library_host_us", lus or 0.0)):
             g_row[key] += per_batch * val
         g_row["step_ms"] += per_step * ms
+        cmp = "<=" if ms <= lms else ">"
         log(f"  gather {name:18s} B={B} n={n:5d} M={M:6d} C={C:3d} "
-            f"{str(dtype)[6:]}: {ms:.4f} ms (int32 {ms32:.4f}, int64 "
-            f"{ms64:.4f}; plain {pms:.4f}, torch.gather {lms:.4f}, bound "
-            f"{b_ms:.5f}) x{per_batch} a batch, x{per_step} a step: "
-            f"bit-equal")
+            f"{str(dtype)[6:]}: {ms:.4f} ms {cmp} torch.gather {lms:.4f} "
+            f"(int32 {ms32:.4f}, int64 {ms64:.4f}; plain {pms:.4f}, bound "
+            f"{b_ms:.5f}) x{per_batch} a batch, x{per_step} a step"
+            + (f"; host {us:.2f} us a call, torch.gather {lus:.2f}"
+               if main_path else
+               f"; device {entry['device_ms']:.4f} ms, torch.gather "
+               f"{entry['library_device_ms']:.4f}, "
+               f"{entry['device_ms'] / b_ms:.2f}x the bound")
+            + ": bit-equal")
 
     for name, n, cf, idx, new_xyz, inv_r in groups:
         B, m, ns = idx.shape
@@ -1612,6 +1740,10 @@ def check_gathers(rows, groups, gen, batched):
     for row in (g_row, gg_row):
         row["bound_by"] = "bytes"
         row["batched"] = batched
+    log(f"  gather: an evaluation batch's 8 launches {g_row['ms']:.4f} ms, "
+        f"torch.gather {g_row['library_ms']:.4f}; host "
+        f"{g_row['host_us']:.1f} us, torch.gather "
+        f"{g_row['library_host_us']:.1f}")
     return g_row, gg_row
 
 
@@ -1873,6 +2005,7 @@ def check_assignment(gen):
     )
 
     lib = _cuda.lib("assignment")
+    plan = check_assignment_plan(lib)
     cases = []
     for name, M, G, Q, counts in ASSIGNMENT_SHAPES:
         pick = torch.randint(0, len(counts), (M,), device="cuda",
@@ -1880,6 +2013,12 @@ def check_assignment(gen):
         n_valid = torch.tensor(counts, device="cuda")[pick]
         cases.append((name, matcher_costs(gen, M, G, Q, n_valid), n_valid))
     M, G, Q = 56, 132, 256
+    # every valid row staged in the warp's slice (R), and one row past it
+    # read from device memory (R + 1)
+    R = plan["rows_staged"]
+    for name, n in (("staged_R", R), ("staged_R+1", R + 1)):
+        n_valid = torch.full((M,), n, device="cuda")
+        cases.append((name, matcher_costs(gen, M, G, Q, n_valid), n_valid))
     n_valid = torch.full((M,), 20, device="cuda")
     nan = matcher_costs(gen, M, G, Q, n_valid).contiguous()
     nan[0, 3] = float("nan")
@@ -1890,7 +2029,7 @@ def check_assignment(gen):
     cases.append(("all_tied", torch.full((4, G, Q), 0.5, device="cuda"),
                   torch.tensor([G, 64, 1, 0], device="cuda")))
 
-    row = dict(name="assignment", max_abs_err=0, shapes={})
+    row = dict(name="assignment", max_abs_err=0, shapes={}, plan=plan)
     for name, cost, n_valid in cases:
         M, G, Q = cost.shape
         got = solve(cost, n_valid)
@@ -1915,18 +2054,22 @@ def check_assignment(gen):
             worst = max(worst, abs(ours - best) / max(abs(best), 1e-30))
         check(worst <= 1e-5, f"assignment {name}: optimum {worst:.3g} "
                              "relative from scipy's")
-        smem = int(lib.assignment_smem_bytes(G, Q))
-        # the tile of min(G, Q) rows of Q + 1 costs fits, or each path
-        # step reads its row from device memory
+        # a warp stages a matrix's first R valid rows in shared memory;
+        # the rows past R are read from device memory
+        staged = int(lib.assignment_staged_rows(G, Q))
         entry = dict(matrices=M, targets=G, queries=Q,
-                     rows=int(n_valid.sum()), smem_bytes=smem,
-                     staged=smem >= min(G, Q) * (Q + 1) * 4,
+                     rows=int(n_valid.sum()),
+                     slice_bytes=int(lib.assignment_slice_bytes(G, Q)),
+                     rows_staged=staged,
+                     matrices_past_staged=int((n_valid > staged).sum()),
                      optimum_rel_err=worst)
-        if name in ("training", "cli", "probe", "study", "full"):
+        if name in ("training", "cli", "probe", "study", "full",
+                    "staged_R", "staged_R+1"):
             before = _cuda.LAUNCHES["assignment"]
             entry["ms"] = time_ms(lambda: solve(cost, n_valid), 20)
             check(_cuda.LAUNCHES["assignment"] == before + 21,
                   f"assignment {name}: not one launch a call")
+            entry["device_ms"] = device_ms(lambda: solve(cost, n_valid), 50)
             entry["plain_ms"] = time_ms(lambda: solve_plain(cost, n_valid),
                                         1)
             entry["library_ms"] = host_ms(
@@ -1940,19 +2083,64 @@ def check_assignment(gen):
                 [(5 * rows * Q, F32_OPS_PER_S)])
         row["shapes"][name] = entry
         log(f"  assignment {name}: {M} x ({G}, {Q}), {entry['rows']} rows "
-            f"solved, bit-equal (card and CPU), optimum within "
+            f"solved ({entry['matrices_past_staged']} matrices past R = "
+            f"{staged}), bit-equal (card and CPU), optimum within "
             f"{worst:.2g} of scipy's" + (
-                f"; {entry['ms']:.3f} ms (plain {entry['plain_ms']:.1f}, "
+                f"; {entry['ms']:.4f} ms a call, device "
+                f"{entry['device_ms']:.4f} (plain {entry['plain_ms']:.1f}, "
                 f"bound {entry['bound_ms']:.5f}, scipy on the host with the "
-                f"copies {entry['library_ms']:.2f}); {entry['smem_bytes']} "
-                f"B of shared memory" if "ms" in entry else ""))
+                f"copies {entry['library_ms']:.2f}); {entry['slice_bytes']} "
+                f"B of shared memory a matrix" if "ms" in entry else ""))
     main = row["shapes"]["training"]
-    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+    for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+              "bound_by"):
         row[k] = main[k]
     for name in ("cli", "probe", "study"):
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
             row[f"{k}_{name}"] = row["shapes"][name][k]
     return row
+
+
+def check_assignment_plan(lib):
+    """K8's plan for each path's call: matrices (warps) a block, the rows a
+    warp stages (R), a matrix's and a block's shared bytes and the blocks
+    resident on an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), as
+    the kernel's C entries give them; fails unless every path's matcher
+    call runs in one wave, or unless ops/assignment.py:assignment_plan,
+    the mirror the CPU tests size their cases by, gives the same numbers.
+    Returns the plan of a training step's call (56 x (132, 256)), with
+    every path's."""
+    import torch
+
+    from butd_detr_tpu_torch.ops.assignment import assignment_plan
+
+    dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {}
+    for name, M, G, Q, _ in ASSIGNMENT_SHAPES:
+        warps = int(lib.assignment_warps(dev, M))
+        plan = dict(warps=warps,
+                    rows_staged=int(lib.assignment_staged_rows(G, Q)),
+                    slice_bytes=int(lib.assignment_slice_bytes(G, Q)),
+                    smem_bytes=warps * int(lib.assignment_slice_bytes(G, Q)))
+        want = assignment_plan(G, Q, M, sms)
+        check(plan == want, f"assignment plan of {M} x ({G}, {Q}): the C "
+                            f"entries give {plan}, ops/assignment.py {want}")
+        resident = int(lib.assignment_resident_blocks(dev, M, G, Q))
+        blocks = -(-M // warps)
+        plan.update(resident_blocks_an_sm=resident, sms=sms, blocks=blocks,
+                    matrices=M, waves=-(-blocks // max(resident * sms, 1)))
+        check(resident > 0 and plan["waves"] == 1,
+              f"assignment {name}: {blocks} blocks of {warps} matrices, "
+              f"{resident} resident an SM on {sms} SMs: {plan['waves']} "
+              "waves")
+        log(f"  assignment plan {name}: {M} x ({G}, {Q}): {warps} matrices "
+            f"(warps) a block, R = {plan['rows_staged']} rows staged, "
+            f"{plan['slice_bytes']} B of shared memory a matrix, "
+            f"{plan['smem_bytes']} a block, {resident} blocks resident an SM "
+            f"x {sms} SMs; {blocks} blocks: one wave")
+        plans[name] = plan
+    return plans["training"] | {"by_path": plans}
 
 
 # ------------------------------------------------------------- phase 5
@@ -3604,7 +3792,7 @@ def tensor_parallel(roberta, pred, inputs, ranks):
 PORT_KERNEL_NAMES = {
     "fps": "fps_", "ball_query": "ball_query_", "attention":
     "attention_fwd_", "attention_bwd": "attention_bwd_", "scatter":
-    "scatter_rows_add_", "gather": "gather_rows_kernel", "group_gather":
+    "scatter_rows_add_", "gather": "gather_tile_kernel", "group_gather":
     "group_gather_", "assignment": "assignment_kernel"}
 
 
@@ -4860,6 +5048,8 @@ def run(args):
         for line in _cuda.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  [{name}] {line.strip()}")
+    report["gather_resources"] = tile_kernel_resources("gather")
+    report["assignment_resources"] = tile_kernel_resources("assignment")
     report["attention_resources"] = attention_resources("attention")
     report["attention_bwd_resources"] = attention_resources("attention_bwd")
     report["fps_plan"] = fps_plan((50_000, 2048, 1024, 512))
@@ -5186,7 +5376,10 @@ def run(args):
                       "library_ms_study", "bound_ms_study",
                       "ms_bf16_operands", "ms_f32_operands",
                       "training_ms_bf16_operands",
-                      "training_ms_f32_operands", "bf16_rows"):
+                      "training_ms_f32_operands", "bf16_rows", "host_us",
+                      "library_host_us", "groupings_device_ms", "device_ms",
+                      "device_ms_cli", "device_ms_probe", "device_ms_study",
+                      "plan"):
             if extra in row:
                 kernels[-1][extra] = row[extra]
     # K7 at the multiview width (sa1's 131 channels)

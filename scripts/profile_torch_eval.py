@@ -38,7 +38,7 @@ GROUPS = (
     ("ball_query", "ball_query_"),  # the scan and grid kernels
     ("attention", "attention_fwd_"),  # the _mma_ and _f32_ kernels
     ("group_gather", "group_gather_"),  # the copy and MLP-input kernels
-    ("gather", "gather_rows_kernel"),
+    ("gather", "gather_tile_kernel"),
     ("matmul", ("gemm", "sgemm", "cutlass", "gemv", "xmma", "nvjet")),
 )
 STAGES = ("step", "evaluate")

@@ -5,27 +5,31 @@
         [--rounds 7] [--report PATH]
 
 The port's kernels are bound with ctypes, and a wrapper does its checks,
-its allocation and its launch in Python. For a small gather (256 rows of 3
-floats from each of 8 scenes, the kps gather of a batch) the kernel runs
-for microseconds, so back-to-back calls are bound by the host. This script
-times, over `--calls` calls each ending without a synchronisation, the
-whole `gather_rows` call with an int32 and with an int64 index beside
-`torch.gather` on the same rows, and the wrapper's parts on their own:
-the checks, the index operand, the output allocation, the unit choice, the
-stream lookup, the packing of the arguments into one buffer and the ctypes
-call of the packed entry that launches the kernel (the device is made
-current inside the C entry, only when it is not), and `launch()` whole;
-the typed entry called with its dozen arguments through ctypes is timed
-beside it. The previous launch path's parts (a `torch.cuda.device`
-context, `torch.cuda.current_stream`, a `ctypes.c_void_p` object a
-pointer) are timed as `old_*`. Every part runs in rounds of `--calls`
-calls, the parts taking turns, and the median round is reported. Prints one JSON object (also written to `--report PATH` when
-given) with the card's name and power limit, times in microseconds a
-call. Needs one NVIDIA GPU.
+its allocation and its launch in Python; the C entry makes the integer
+work (the copy granule, the tile, the size limits). For a small gather
+(256 rows of 3 floats from each of 8 scenes, the kps gather of a batch)
+the kernel runs for microseconds, so back-to-back calls are bound by the
+host. This script times, over `--calls` calls each ending without a
+synchronisation, the whole `gather_rows` call with an int32 and with an
+int64 index beside `torch.gather` on the same rows, the whole
+`batched_linear_sum_assignment` call at a training step's matcher shape
+(56 x (132, 256), 6 valid rows), and the gather wrapper's parts on their
+own: the checks, the index operand, the output allocation in six forms
+(positional sizes with the source's device, an ordinal or a device object
+made once; a tuple with the device or an ordinal; `new_empty`;
+`empty_like` of a one-element tensor expanded to the shape), the stream
+lookup, the packing of the arguments into one buffer and the ctypes call
+of the packed entry that launches the kernel (the device is made current
+inside the C entry, only when it is not), the same call for an empty
+batch (the C entry returns before it launches: the ctypes call alone),
+and `launch()` whole, which every wrapper calls; the typed entry called
+with its arguments through ctypes is timed beside it. Every part runs in rounds of `--calls` calls, the parts taking turns, and the
+median round is reported. Prints one JSON object (also written to
+`--report PATH` when given) with the card's name and power limit, times
+in microseconds a call. Needs one NVIDIA GPU.
 """
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -51,7 +55,11 @@ def main(argv=None):
               file=sys.stderr)
         return 2
 
-    from butd_detr_tpu_torch.ops import _cuda, gather_rows
+    from butd_detr_tpu_torch.ops import (
+        _cuda,
+        batched_linear_sum_assignment,
+        gather_rows,
+    )
     from butd_detr_tpu_torch.ops import gather as G
 
     _cuda.build_all()
@@ -61,21 +69,25 @@ def main(argv=None):
     idx64 = idx.long()
     wide = idx64[..., None].expand(-1, -1, C)
     out = torch.empty(B, M, C, device="cuda")
+    cost = torch.rand(56, 256, 132, device="cuda").transpose(1, 2)
+    n_valid = torch.full((56,), 6, device="cuda")
     dev = src.get_device()
     launch_fn = _cuda.lib("gather").gather_launch
     _, packed_fn, layout, buf, address = _cuda._packed("gather_launch")
     raw_stream = torch._C._cuda_getCurrentRawStream
     stream = raw_stream(dev)
-    vp = ctypes.c_void_p
-
-    def old_device_context():
-        with torch.cuda.device(src.device):
-            pass
+    row_bytes = C * 4
+    kept_device = src.device
+    # a one-element tensor seen as (B, M, C): empty_like gives it
+    # contiguous storage of its own
+    expanded = torch.empty((), device="cuda").expand(B, M, C)
 
     parts = {
         "gather_rows_int32": lambda: gather_rows(src, idx),
         "gather_rows_int64": lambda: gather_rows(src, idx64),
         "torch.gather": lambda: torch.gather(src, 1, wide),
+        "assignment_call": lambda: batched_linear_sum_assignment(cost,
+                                                                 n_valid),
         "checks": lambda: (src.is_cuda, src.shape, idx.shape, src.dtype,
                            src.is_contiguous(), src.get_device(), idx.dtype,
                            idx.get_device(), idx.is_contiguous()),
@@ -89,28 +101,27 @@ def main(argv=None):
                                                      dtype=src.dtype,
                                                      device=dev),
         "allocation_new_empty": lambda: src.new_empty((B, M, C)),
-        "unit_choice": lambda: G.copy_unit(C * src.element_size(),
-                                           src.data_ptr(), out.data_ptr()),
-        "size_checks": lambda: G._check_sizes("gather_rows", B, N, M * C),
+        "allocation_positional_ordinal": lambda: torch.empty(
+            B, M, C, dtype=src.dtype, device=dev),
+        "allocation_positional_kept_device": lambda: torch.empty(
+            B, M, C, dtype=src.dtype, device=kept_device),
+        "allocation_empty_like_expanded": lambda: torch.empty_like(
+            expanded),
         "stream_lookup": lambda: raw_stream(dev),
         "pack_arguments": lambda: layout.pack_into(
             buf, 0, dev, src.data_ptr(), idx.data_ptr(), 0, out.data_ptr(),
-            B, N, M, C, 4, stream),
+            B, N, M, row_bytes, stream),
         "packed_ctypes_call": lambda: packed_fn(address),
         "typed_ctypes_call": lambda: launch_fn(
             dev, src.data_ptr(), idx.data_ptr(), 0, out.data_ptr(), B, N, M,
-            C, 4, stream),
+            row_bytes, stream),
         "launch_helper": lambda: _cuda.launch(
             "gather_launch", dev, src.data_ptr(), idx.data_ptr(), 0,
-            out.data_ptr(), B, N, M, C, 4),
-        "old_device_context": old_device_context,
-        "old_stream_lookup": lambda: vp(
-            torch.cuda.current_stream(src.device).cuda_stream),
-        "old_output_allocation": lambda: torch.empty(B, M, C,
-                                                     device=src.device),
-        "old_typed_ctypes_call": lambda: launch_fn(
-            dev, vp(src.data_ptr()), vp(idx.data_ptr()), 0,
-            vp(out.data_ptr()), B, N, M, C, 4, vp(stream)),
+            out.data_ptr(), B, N, M, row_bytes),
+        "no_launch_packed_call": lambda: (
+            layout.pack_into(buf, 0, dev, src.data_ptr(), idx.data_ptr(), 0,
+                             out.data_ptr(), 0, N, M, row_bytes, stream),
+            packed_fn(address)),
     }
     result = {"calls": args.calls, "rounds": args.rounds,
               "shape": dict(B=B, N=N, M=M, C=C), "host_us_per_call": {}}

@@ -39,7 +39,7 @@ GROUPS = (
     ("attention_bwd", "attention_bwd_"),
     ("scatter", "scatter_rows_add_"),
     ("group_gather", "group_gather_"),  # the copy and MLP-input kernels
-    ("gather", "gather_rows_kernel"),
+    ("gather", "gather_tile_kernel"),
     ("assignment", "assignment_kernel"),
     ("matmul", ("gemm", "sgemm", "cutlass", "gemv", "xmma", "nvjet")),
 )

@@ -17,10 +17,13 @@ f32 operands of the same values. The grouped gather's MLP-input kernel
 bit-equal to its plain version at the four set-abstraction tiers (B = 1
 and 8, int32 and int64 indices, special values, indices out of range) and
 at shapes whose tiles are not multiples of 16 bytes. The assignment
-kernel bit-equal to its plain version at the loss's shapes (the costs
-staged in shared memory, or read from device memory where they do not
-fit), with NaN costs, more valid rows than columns, int32 and int64
-counts, one launch a call and no synchronisation.
+kernel bit-equal to its plain version at the loss's shapes and around its
+warp's slice (n_valid 0, 1, R staged rows, R + 1, min(G, Q); the rows past
+R read from device memory), with NaN costs, all costs tied, more valid rows
+than columns and more targets than queries, int32 and int64 counts, one
+launch a call and no synchronisation. The row gather's tile kernel at
+spans that are no multiple of 16 bytes, sources off a 16-byte boundary,
+rows of 131 and 259 f32 and the limits it refuses.
 """
 
 import os
@@ -418,16 +421,22 @@ def test_attention_bf16_operands_unaligned_rows(gpu):
 
 def _cuda_kernels(fn):
     """(name, stream) of every CUDA kernel that `fn()` launches, by
-    torch.profiler."""
+    torch.profiler. The profiler on the card now and then loses the first
+    kernel record of a session (a PyTorch operator's as well as the
+    port's), so the session opens with a marker kernel
+    (`torch.cuda._sleep`'s spin_kernel), which is left out."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     return [(e.name, e.device_resource_id) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.name]
 
 
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
@@ -440,7 +449,7 @@ def test_gathers_launch_one_kernel_and_no_cast(gpu, idx_dtype):
     flat = idx.reshape(2, 320)
     got = {}
     kernels = _cuda_kernels(lambda: got.update(g=gather_rows(src, flat)))
-    assert len(kernels) == 1 and "gather_rows_kernel" in kernels[0][0], \
+    assert len(kernels) == 1 and "gather_tile_kernel" in kernels[0][0], \
         kernels
     assert torch.equal(_bits(got["g"]), _bits(gather_rows_plain(src, flat)))
     xyz = src[..., :3].contiguous()
@@ -471,7 +480,7 @@ def test_kernels_launch_on_the_current_stream(gpu):
             attention_backward(q, k, v, do, pad, sm_scale=1 / 6)
     kernels = _cuda_kernels(on_side_stream)
     side = {st for name, st in kernels if "neg" in name.lower()}
-    ours = {st for name, st in kernels if "gather_rows" in name
+    ours = {st for name, st in kernels if "gather_tile" in name
             or "attention_bwd" in name}
     assert len(side) == 1 and ours == side, kernels
     default = {st for name, st in _cuda_kernels(lambda: torch.neg(x))}
@@ -528,9 +537,7 @@ def test_scatter_kernel_is_reproducible(gpu, dtype, m, c, n, one):
     """Five runs give the same bits, also with all rows on one index (a
     segment longer than the shared-memory sort: the index-order walk);
     each call launches the kernel once (the launch count), and no
-    torch.zeros or cast kernel runs around the call (the profiler, which
-    on the card now and then returns no kernel event at all: such a
-    profile is taken once more)."""
+    torch.zeros or cast kernel runs around the call (the profiler)."""
     g = torch.Generator(device=gpu).manual_seed(m + n)
     rows = torch.randn(8, m, c, device=gpu, generator=g).to(dtype)
     idx = torch.randint(0, n, (8, m), device=gpu, generator=g)
@@ -544,8 +551,6 @@ def test_scatter_kernel_is_reproducible(gpu, dtype, m, c, n, one):
     assert torch.equal(first.cpu(),
                        scatter_rows_add_plain(rows.cpu(), idx.cpu(), n))
     kernels = _cuda_kernels(lambda: scatter_rows_add(rows, idx, n))
-    if not kernels:
-        kernels = _cuda_kernels(lambda: scatter_rows_add(rows, idx, n))
     assert kernels and all(
         "scatter_rows_add_" in name for name, _ in kernels), kernels
 
@@ -653,6 +658,72 @@ def test_gather_kernel_widens_other_dtypes_to_f32(gpu):
     assert got.dtype == torch.float32
     assert torch.equal(got.cpu(), gather_rows_plain(src.cpu(), idx.cpu()))
     assert gather_points(src, idx).dtype == torch.float16
+
+
+def _offset_rows(gpu, seed, b, n, c, dtype, offset):
+    """(b, n, c) rows of `dtype` that start `offset` elements into their
+    buffer, with -0.0, an infinity, a denormal and a NaN with a payload in
+    row 0 of every scene."""
+    rng = np.random.RandomState(seed)
+    buf = torch.from_numpy(rng.randn(b * n * c + offset).astype(np.float32))
+    src = buf.to(dtype).to(gpu)[offset:].view(b, n, c)
+    specials = torch.tensor([-0.0, float("inf"), 1e-42, float("nan")])
+    src[:, 0, :min(c, 4)] = specials[:min(c, 4)].to(dtype).to(gpu)
+    if c > 4 and dtype == torch.float32:
+        src[:, 0, 4:5].view(torch.int32).fill_(0x7FC12345)
+    return src
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,c,offset", [
+    (8, 2048, 1000, 131, 0),  # sa2's f32 grouping: 524-byte rows
+    (3, 1024, 700, 259, 1),  # sa3/sa4's 1,036-byte rows, 4 bytes off 16
+    (2, 300, 77, 3, 0),  # 924 bytes a scene: scene 1 starts 12 bytes off 16
+    (2, 300, 5, 3, 1),  # 60 bytes a scene
+    (1, 40, 1, 1, 0),  # one 4-byte row: no 16 aligned bytes to store
+    (2, 513, 1500, 5, 3),  # an odd width: bf16's 2-byte granules
+    (4, 256, 2500, 288, 2),  # more than one tile a scene
+])
+def test_gather_tile_kernel_bit_equal(gpu, dtype, b, n, m, c, offset):
+    """The tile kernel at spans that are no multiple of 16 bytes, sources
+    4 (f32) or 2 (bf16) bytes off a 16-byte boundary, rows of 131 and 259
+    f32, indices out of range (-1, n, n + 5), and the bits of -0.0, NaN
+    payloads and denormals: bit-equal to the plain version on the CPU,
+    with int32 and int64 indices, one launch a call."""
+    src = _offset_rows(gpu, b * 1000 + c, b, n, c, dtype, offset)
+    assert src.is_contiguous()
+    assert (src.data_ptr() % 16 == 0) == (offset == 0)
+    rng = np.random.RandomState(m)
+    idx = torch.from_numpy(rng.randint(0, n, (b, m)))
+    idx[:, 0] = 0
+    idx[0, -1] = -1
+    idx[-1, -1] = n
+    if m > 2:
+        idx[0, 1] = n + 5
+    want = gather_rows_plain(src.cpu(), idx)
+    for index in (idx, idx.int()):
+        before = _cuda.LAUNCHES["gather"]
+        got = gather_rows(src, index.to(gpu))
+        assert _cuda.LAUNCHES["gather"] == before + 1
+        assert got.dtype == dtype and got.shape == (b, m, c)
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+    assert float(want[0, -1].float().abs().max()) == 0.0
+
+
+def test_gather_kernel_refuses_what_it_does_not_index(gpu):
+    before = _cuda.LAUNCHES["gather"]
+    with pytest.raises(ValueError, match="gather_rows: batch 65536"):
+        gather_rows(torch.zeros(65536, 1, 1, device=gpu),
+                    torch.zeros(65536, 1, dtype=torch.int32, device=gpu))
+    with pytest.raises(ValueError, match="row bytes 240000"):
+        gather_rows(torch.zeros(1, 2, 60000, device=gpu),
+                    torch.zeros(1, 3, dtype=torch.int32, device=gpu))
+    assert _cuda.LAUNCHES["gather"] == before  # a refusal launches nothing
+    # the widest row a block holds still gathers
+    wide = torch.randn(1, 2, 50000, device=gpu)
+    idx = torch.tensor([[1, 0, 5]], device=gpu)
+    assert torch.equal(gather_rows(wide, idx).cpu(),
+                       gather_rows_plain(wide.cpu(), idx.cpu()))
 
 
 @pytest.mark.parametrize("fdtype", [torch.bfloat16, torch.float32])
@@ -828,8 +899,8 @@ def test_group_mlp_input_gradient_is_the_eager_chains(gpu):
 @pytest.mark.parametrize("m,g,q,layout", [
     (56, 132, 256, "view"),  # a training step's loss at B = 8
     (84, 16, 32, "view"),  # the probe's: B = 12, 32 queries
-    (8, 300, 256, "view"),  # the tile does not fit: rows from memory
-    (6, 5, 1000, "contiguous"),  # 1000 threads a block
+    (8, 300, 256, "view"),  # more targets than queries
+    (6, 5, 1000, "contiguous"),  # 32 columns a lane, R = 2
     (5, 40, 32, "contiguous"),  # more valid rows than columns
     (4, 132, 256, "contiguous"),
 ])
@@ -843,6 +914,42 @@ def test_assignment_kernel_bit_equal(gpu, count_dtype, m, g, q, layout):
         cost = cost.contiguous()
     n_valid = torch.from_numpy(rng.randint(0, g + 1, m)).to(count_dtype)
     n_valid[0] = g
+    want = batched_linear_sum_assignment_plain(cost, n_valid)
+    before = _cuda.LAUNCHES["assignment"]
+    got = batched_linear_sum_assignment(cost.to(gpu), n_valid.to(gpu))
+    assert _cuda.LAUNCHES["assignment"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["none", "one", "R", "R+1", "all", "nan",
+                                  "all_tied", "more_targets"])
+def test_assignment_kernel_at_the_staged_rows(gpu, case):
+    """The warp kernel around its slice: n_valid 0, 1, R (every valid row
+    staged in shared memory), R + 1 (one row read from device memory) and
+    min(G, Q), NaN and infinite costs, every cost tied, more targets than
+    queries (G 300 > Q 256): bit-equal to the plain version on the CPU, as
+    the matcher hands the costs over (a transposed view, int64 counts). R
+    is the kernel's own, from its C entry."""
+    G, Q, M = (300, 256, 6) if case == "more_targets" else (132, 256, 12)
+    R = int(_cuda.lib("assignment").assignment_staged_rows(G, Q))
+    rng = np.random.RandomState(len(case))
+    cost_mqg = torch.from_numpy(rng.rand(M, Q, G).astype(np.float32))
+    counts = {"none": 0, "one": 1, "R": R, "R+1": R + 1, "all": min(G, Q),
+              "nan": R + 1, "all_tied": R + 1, "more_targets": min(G, Q)}
+    n_valid = torch.full((M,), counts[case], dtype=torch.int64)
+    n_valid[0] = min(G, Q) if case in ("nan", "all_tied") else n_valid[0]
+    n_valid[1] = R if case in ("nan", "all_tied") else n_valid[1]
+    if case == "nan":
+        cost_mqg[0, 3, :] = float("nan")
+        cost_mqg[1, :, R] = float("inf")
+        cost_mqg[2] = float("nan")
+        cost_mqg[3, 5, 2] = -float("inf")
+    if case == "all_tied":
+        cost_mqg.fill_(0.5)
+    if case == "all":
+        M = 3  # the plain version's full solve takes seconds
+        cost_mqg, n_valid = cost_mqg[:M], n_valid[:M]
+    cost = cost_mqg.transpose(1, 2)
     want = batched_linear_sum_assignment_plain(cost, n_valid)
     before = _cuda.LAUNCHES["assignment"]
     got = batched_linear_sum_assignment(cost.to(gpu), n_valid.to(gpu))
@@ -879,10 +986,12 @@ def test_assignment_launches_one_kernel_and_never_syncs(gpu):
 
 
 def test_assignment_refuses_what_the_kernel_does_not_take(gpu):
+    before = _cuda.LAUNCHES["assignment"]
     with pytest.raises(ValueError, match="1024"):
         batched_linear_sum_assignment(torch.zeros(1, 2, 1025, device=gpu),
                                       torch.ones(1, device=gpu,
                                                  dtype=torch.int32))
+    assert _cuda.LAUNCHES["assignment"] == before
     with pytest.raises(ValueError, match="lies on"):
         batched_linear_sum_assignment(torch.zeros(1, 2, 4, device=gpu),
                                       torch.ones(1, dtype=torch.int32))

@@ -15,6 +15,7 @@ import ast
 import functools
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from scipy.optimize import linear_sum_assignment
 from butd_detr_tpu.losses.matcher import (
     batched_linear_sum_assignment as j_batched_linear_sum_assignment,
 )
+from butd_detr_tpu.losses.matcher import _lsa_single as j_lsa_single
 from butd_detr_tpu.losses.matcher import hungarian_match as j_hungarian_match
 from butd_detr_tpu.losses.matcher import (
     matcher_cost_matrix as j_matcher_cost_matrix,
@@ -35,6 +37,7 @@ from butd_detr_tpu_torch.losses.matcher import (
     scipy_match_oracle,
 )
 from butd_detr_tpu_torch.ops.assignment import (
+    assignment_plan,
     batched_linear_sum_assignment,
     batched_linear_sum_assignment_plain,
 )
@@ -97,6 +100,28 @@ def test_plain_solver_finds_scipys_optimum(Q, G, kind):
         best = cost[m, rows, best_cols].astype(np.float64).sum()
         ours = cost[m, np.arange(n), cols].astype(np.float64).sum()
         assert ours == pytest.approx(best, rel=1e-5)
+
+
+@pytest.mark.parametrize("past", [0, 1])
+@pytest.mark.parametrize("kind", ["uniform", "integer_ties"])
+def test_plain_solver_equals_jax_at_the_kernels_staged_rows(kind, past):
+    """n_valid = R and R + 1 at the loss's (132, 256): R rows are the most
+    the kernel stages in shared memory (`assignment_plan`), and a row past
+    them is read from device memory. The card holds the kernel bit-equal
+    to the plain version at these counts (chip_smoke.py phase 2), so the
+    plain version is held here against the jitted JAX `_lsa_single`."""
+    G, Q = 132, 256
+    n = assignment_plan(G, Q)["rows_staged"] + past
+    rng = np.random.RandomState(20 + 2 * past + (kind == "uniform"))
+    cost = _costs(kind, 2, G, Q, rng)
+    lsa = jax.jit(j_lsa_single)
+    want = np.stack([np.asarray(lsa(jnp.asarray(c), jnp.int32(n)))
+                     for c in cost])
+    got = batched_linear_sum_assignment_plain(
+        torch.from_numpy(cost).transpose(1, 2).contiguous().transpose(1, 2),
+        torch.full((2,), n))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got[:, n:] == 0).all()
 
 
 def test_plain_solver_reads_a_transposed_view_as_its_copy():
