@@ -128,9 +128,10 @@ the last line is printed:
    ScanNet-format root (8 train and 8 val scenes, 5 objects each, 60,000
    points a scan), `prepare_data_torch.py --num_workers 2` builds its scan
    caches (50,000 points a scan, subsampled without replacement), and
-   `train_torch.py` under torchrun's launcher (one process over NCCL,
-   `--dp 1`) with the flags of scripts/train_test_cls.sh (B = 24)
-   and `--max_epoch 1 --val_freq 1 --num_workers 4` trains one epoch (40
+   scripts/train_test_cls_torch.sh (torchrun and `train_torch.py` with
+   the flags of scripts/train_test_cls.sh, B = 24; one process over NCCL,
+   `--dp 1`) with `--max_epoch 1 --val_freq 1 --save_freq 1
+   --num_workers 4` trains one epoch (40
    sr3d rows and 80 detection prompts: 5 steps), saves a checkpoint and
    evaluates the 40 val rows twice (after the epoch and at the end). Both
    processes must exit 0; every logged loss is finite, every accuracy in
@@ -193,9 +194,9 @@ the last line is printed:
    with phase 4's bound and near-tie protocol, K3 on 4 of the 8 heads in
    the encoder and decoder and on RoBERTa's 12 (one spawned world of two
    for both meshes). (c) phase 8's `train_torch.py` run starts under
-   torchrun (`python -m torch.distributed.run --standalone
-   --nproc_per_node 1 ... --dp 1`) over NCCL, world size 1: its log must
-   name the backend. (d) one `--use_multiview` training step at
+   torchrun (scripts/train_test_cls_torch.sh, `NPROC_PER_NODE=1 ... --dp
+   1`) over NCCL, world size 1: its log must name the backend. (d) one
+   `--use_multiview` training step at
    `--train-batch` (128 features a point from an array, so that the step
    needs no `h5py`): a step's launches, and K7's MLP input at sa1's 131 channels
    bit-equal to its plain version, timed beside its bound and the
@@ -214,9 +215,9 @@ the last line is printed:
    a step and peak memory, every loss finite and the last below 0.75 x
    the first, K3 and K4 12 launches a step and nothing else, one batch's
    eval-mode logits on the card within 1e-2 + 2^-8 * max|CPU| of the f32
-   CPU run, and one f32 training step (attention dropout 0.1, no
-   elementwise dropout) whose loss and gradients lie within 1e-4 and
-   5e-3 * max|g| + 1e-6 of the CPU's; (b) `span_cls_torch.py` on that root
+   CPU run, and one f32 training step on 32 of the batch's rows
+   (attention dropout 0.1, no elementwise dropout) whose loss and
+   gradients lie within 1e-4 and 5e-3 * max|g| + 1e-6 of the CPU's; (b) `span_cls_torch.py` on that root
    (1 epoch, then `--eval` and `--store`), its main in this process with
    the launches read around each run, and the port's grounding dataset
    reading the stored `sr3d_pred_spans.json` (each row's `pred_pos_map`
@@ -226,7 +227,7 @@ the last line is printed:
    through `init_class_embeddings`; (d) `scripts/pretrain_text_torch.py
    --steps 50` in this process: the cross-entropy at step 49 below step
    0's, its npz loaded through `load_text_init`; (e) `PointnetSAModuleMSG`
-   at B 8 on 50,000 x 6 points (npoint 2,048, three radii), a `GroupAll`
+   at B 4 on 50,000 x 6 points (npoint 2,048, three radii), a `GroupAll`
    module and `PointnetLFPModuleMSG`, forward and backward, against the
    CPU (indices equal, floats and gradients within 5e-3 * max + 1e-6),
    with the launches by kernel; (f) `demo_torch.py`, its main in this
@@ -234,7 +235,7 @@ the last line is printed:
    points of (b), (c) and (f) as five child processes side by side (their
    wall seconds), with the same accuracy, spans and table as in process
    and `[demo] OK`. Each part's seconds are printed.
-14. the host runtime (run last; butd_detr_tpu_torch/native.py, the port's
+14. the host runtime (butd_detr_tpu_torch/native.py, the port's
    copy of the JAX package's host C++, built with g++ at first use): the
    compiler, a fresh build's seconds, the `-march` it resolved and the
    host CPU; (a) `augment_pointcloud` on a 50,000-point f32 cloud with
@@ -252,6 +253,20 @@ the last line is printed:
    [0, 1], the last row equal to an in-process `evaluate_one_epoch` of
    the same weights (and the study's own row of that epoch printed
    beside it).
+15. the JAX package's last tools, each a child process (run last): (a)
+   scripts/train_test_det_torch.sh (`--butd --augment_det`) trains one
+   epoch on phase 8's root with `--max_epoch 1 --val_freq 2 --num_workers
+   4` and evaluates it once, at the run's end: its config must be the
+   setup's, its epochs train then eval, every logged loss finite, and
+   every step and evaluation
+   batch (with the loss) must launch the worked-out counts; (b)
+   scripts/bench_backward_torch.py at full width, B = 24, BENCH_REPS=3:
+   its JSON (printed on one line) must hold every key of
+   scripts/bench_backward.py, each `_fwd`/`_fwdbwd` entry and its
+   `_device_ms` finite and positive; (c)
+   scripts/bench_input_pipeline_torch.py at 50,000 points, B = 24, 10
+   timed batches, a worker a host CPU: its JSON line. The phase's seconds
+   are printed.
 Phase 2 also holds K1, K2, K6 and K7 bit-equal, and K3 and K4 within
 their bounds (p = 0 and 0.1, both modes), at the shapes of phases 9 and
 10: B = 12 at 5,000 points and B = 24 at 20,000, the small text tower's
@@ -2549,17 +2564,31 @@ CLS_FLAGS = [
 ]
 CLI_SCENES = dict(n_train=8, n_val=8, objects_per_scan=5,
                   points_per_scan=60_000)
+# the repository's two setups as a user starts them (phases 8 and 15 (a)),
+# with one epoch, evaluated, and the steps logged
+CLS_SCRIPT = os.path.join("scripts", "train_test_cls_torch.sh")
+DET_SCRIPT = os.path.join("scripts", "train_test_det_torch.sh")
+SCRIPT_RUN_FLAGS = ["--max_epoch", "1", "--num_workers", "4",
+                    "--print_freq", "1", "--dp", "1"]
 
 
-def run_child(cmd, timeout, what, cwd=ROOT):
+def script_env(root):
+    """A setup script's environment: the data root, one process (one
+    card)."""
+    return {"DATA_ROOT": root, "NPROC_PER_NODE": "1"}
+
+
+def run_child(cmd, timeout, what, cwd=ROOT, env=None):
     """Run `cmd` from `cwd` (the checkout's root) in a session of its
-    own; on timeout kill the whole session (the child and its loader
-    workers). Returns its output; fails when it exits non-zero."""
+    own, with `env` added to this process's environment; on timeout kill
+    the whole session (the child and its loader workers). Returns its
+    output; fails when it exits non-zero."""
     import signal
 
     proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+                            start_new_session=True,
+                            env=dict(os.environ, **(env or {})))
     try:
         out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -2584,16 +2613,36 @@ def _accuracies(text):
     return out
 
 
+def _epoch_stats(text):
+    """Every `epoch stats` line of a harness log, parsed, in order."""
+    return [json.loads(line.split("epoch stats ", 1)[1])
+            for line in text.splitlines() if "epoch stats " in line]
+
+
+def _check_launches(stats, per_step, per_batch, what):
+    """Each epoch of `stats` launched `per_step` (a training epoch) or
+    `per_batch` (an evaluation) times its batches, kernel by kernel."""
+    for x in stats:
+        per = per_step if x["phase"] == "train" else per_batch
+        for name, n in per.items():
+            check(x["launches"][name] == n * x["batches"],
+                  f"{what} {x['phase']} epoch {x['epoch']}: {name} "
+                  f"launched {x['launches'][name]} times in {x['batches']} "
+                  f"batches, expected {n} each")
+
+
+# the process group of one torchrun process, as the harness logs it
+NCCL_WORLD_OF_1 = "process group: backend nccl, world size 1, dp 1, mp 1"
+
+
 def train_and_evaluate_from_a_data_root(args, cfg, roberta, card, tmp):
     """Write a ScanNet-format root (`make_rich_scannet`) under `tmp/data`,
     build its scan caches with `prepare_data_torch.py`, then train one
-    epoch and evaluate through `train_torch.py` with the flags of
-    scripts/train_test_cls.sh, 4 loader workers: two processes started as
-    a user starts them. The numbers come from the `epoch stats` lines of
-    the run's log. The training run starts under torchrun's launcher,
-    one process over NCCL (phase 12 (c))."""
-    import math
-
+    epoch and evaluate through scripts/train_test_cls_torch.sh (torchrun
+    and train_torch.py with the flags of scripts/train_test_cls.sh), 4
+    loader workers: two processes started as a user starts them. The
+    numbers come from the `epoch stats` lines of the run's log. The
+    training run is one process over NCCL (phase 12 (c))."""
     from butd_detr_tpu_torch.data import make_rich_scannet
 
     root = os.path.join(tmp, "data")
@@ -2608,21 +2657,19 @@ def train_and_evaluate_from_a_data_root(args, cfg, roberta, card, tmp):
         f"of {CLI_SCENES['points_per_scan']} points in {written:.1f} s; "
         f"prepare_data_torch.py built their caches in {prepared:.1f} s")
     log_dir = os.path.join(tmp, "log")
-    # under torchrun's launcher (its module), one process over NCCL: this
-    # run is also phase 12 (c); the detection evaluation below starts
-    # train_torch.py without it
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "1", "train_torch.py", *CLS_FLAGS,
-           "--max_epoch", "1", "--val_freq", "1", "--num_workers", "4",
-           "--print_freq", "1", "--rng_seed", str(args.seed),
-           "--data_root", root, "--log_dir", log_dir, "--dp", "1"]
+    # scripts/train_test_cls_torch.sh: torchrun, one process over NCCL
+    # (this run is also phase 12 (c)); the detection evaluation below
+    # starts train_torch.py without it
     t0 = time.perf_counter()
-    run_child(cmd, 600, "torchrun train_torch.py")
+    run_child(["bash", CLS_SCRIPT, *SCRIPT_RUN_FLAGS, "--val_freq", "1",
+               "--save_freq", "1", "--rng_seed", str(args.seed),
+               "--log_dir", log_dir],
+              600, CLS_SCRIPT, env=script_env(root))
     seconds = time.perf_counter() - t0
     with open(os.path.join(log_dir, "log.txt")) as f:
         text = f.read()
-    nccl = "process group: backend nccl, world size 1, dp 1, mp 1" in text
-    check(nccl, "torchrun train_torch.py: the log names no NCCL world of 1")
+    nccl = NCCL_WORLD_OF_1 in text
+    check(nccl, f"{CLS_SCRIPT}: the log names no NCCL world of 1")
     checkpoints = sorted(n for n in os.listdir(log_dir)
                          if n.startswith("ckpt_epoch_"))
     check(checkpoints == ["ckpt_epoch_1.pth"],
@@ -2633,23 +2680,14 @@ def train_and_evaluate_from_a_data_root(args, cfg, roberta, card, tmp):
     detection = detection_epoch_from_the_checkpoint(
         args, cfg, roberta, root, ckpt, os.path.join(tmp, "det_log"))
 
-    stats = [json.loads(line.split("epoch stats ", 1)[1])
-             for line in text.splitlines() if "epoch stats " in line]
+    stats = _epoch_stats(text)
     check([s["phase"] for s in stats] == ["train", "eval", "eval"],
           f"epochs run: {[s['phase'] for s in stats]}")
     train, evals = stats[0], stats[1:]
     steps = train["batches"]
     check(steps >= 1 and train["scenes"] == steps * 24,
           f"{steps} training steps for {train['scenes']} scenes")
-    losses = []
-    for line in text.splitlines():
-        if "Train: [1][" not in line:
-            continue
-        fields = line.split("] ", 2)[-1].split()
-        values = dict(zip(fields[::2], map(float, fields[1::2])))
-        check(all(math.isfinite(v) for v in values.values()),
-              f"non-finite training metrics: {line}")
-        losses.append(values["loss"])
+    losses = _finite_metrics(text, 1)
     check(len(losses) == steps, f"{len(losses)} logged steps of {steps}")
     check(train["peak_memory_bytes"] is not None,
           "the training epoch did not run on the card")
@@ -2678,7 +2716,7 @@ def train_and_evaluate_from_a_data_root(args, cfg, roberta, card, tmp):
     def ms(xs):
         return ", ".join(f"{x * 1e3:.0f}" for x in xs)
 
-    log(f"  torchrun train_torch.py (NCCL, world size 1) ran {seconds:.1f} "
+    log(f"  {CLS_SCRIPT} (torchrun, NCCL, world size 1) ran {seconds:.1f} "
         f"s: {steps} steps at B = 24 "
         f"({train['scenes']} scenes), {train['scenes_per_second']:.2f} "
         f"scenes/s over the epoch ({train['seconds']:.2f} s), loader wait "
@@ -2861,8 +2899,7 @@ def detection_epoch_from_the_checkpoint(args, cfg, roberta, root, ckpt,
     seconds = time.perf_counter() - t0
     with open(os.path.join(log_dir, "log.txt")) as f:
         text = f.read()
-    stats = [json.loads(line.split("epoch stats ", 1)[1])
-             for line in text.splitlines() if "epoch stats " in line]
+    stats = _epoch_stats(text)
     check([s["phase"] for s in stats] == ["eval"],
           f"detection evaluation: epochs run {[s['phase'] for s in stats]}")
     stats = stats[0]
@@ -3023,20 +3060,13 @@ def study_with_resume(args, root, card, out_dir):
           "the second process did not resume epoch 1's checkpoint")
     losses = _finite_metrics(text, 1) + _finite_metrics(text, 2)
     check(len(losses) == 2 * (s1 // 10), f"{len(losses)} logged windows")
-    stats = [json.loads(line.split("epoch stats ", 1)[1])
-             for line in text.splitlines() if "epoch stats " in line]
+    stats = _epoch_stats(text)
     check([x["phase"] for x in stats] == ["train", "eval", "eval"] * 2,
           f"epochs run: {[x['phase'] for x in stats]}")
     cfg, roberta = study_configs()[1][1], small_text_roberta_config()
     per_step = training_step_launches(cfg, roberta)
     per_batch = evaluation_batch_launches(cfg, roberta)
-    for x in stats:
-        per = per_step if x["phase"] == "train" else per_batch
-        for name, n in per.items():
-            check(x["launches"][name] == n * x["batches"],
-                  f"study {x['phase']} epoch {x['epoch']}: {name} launched "
-                  f"{x['launches'][name]} times in {x['batches']} batches, "
-                  f"expected {n} each")
+    _check_launches(stats, per_step, per_batch, "study")
     trains = [x for x in stats if x["phase"] == "train"]
     evals = [x for x in stats if x["phase"] == "eval"]
     check(all(x["peak_memory_bytes"] is not None for x in stats),
@@ -3969,7 +3999,10 @@ TEXT_SHAPES = [
     ("class_embeddings", 64, 12, 16, 64, 0.0, False, 96, 0),
     ("pretrain", 64, 4, 32, 32, 0.0, True, 4, 4),
 ]
-MSG_BATCH, MSG_POINTS = 8, 50_000
+# the rows of the span step held against the CPU's (the CPU's f32 step
+# at all 128 took ~110 s of a 1,200 s run)
+SPAN_CPU_ROWS = 32
+MSG_BATCH, MSG_POINTS = 4, 50_000
 
 
 def write_text_root(root, seed, n_train, n_test):
@@ -4131,7 +4164,7 @@ def span_training(args, root, card):
     loss finite, the last below 0.75 x the first, K3 and K4 12 launches a
     step and nothing else; then one batch's eval-mode logits on the card
     against the f32 CPU run of the same weights (phase 4's default-mode
-    bound), and one training step against the CPU's
+    bound), and one training step on SPAN_CPU_ROWS rows against the CPU's
     (`span_step_against_the_cpu`)."""
     import numpy as np
     import torch
@@ -4215,8 +4248,9 @@ def span_training(args, root, card):
 
 
 def span_step_against_the_cpu(args, batch):
-    """One span training step at full width (B 128, L 128) on the card and
-    on the CPU, in the f32 mode, from the same seeded weights, batch and
+    """One span training step at full width (RoBERTa-base, L 128) on the
+    first SPAN_CPU_ROWS rows of `batch`, on the card and on the CPU, in
+    the f32 mode, from the same seeded weights, batch and
     step seed, with the attention dropout at 0.1 and every elementwise
     dropout at 0. An elementwise mask comes from each device's own
     generator, but the attention's is one Philox stream on both: the CPU's
@@ -4235,6 +4269,7 @@ def span_step_against_the_cpu(args, batch):
     from butd_detr_tpu_torch.ops import _cuda
 
     config = dataclasses.replace(roberta_base_config(), hidden_dropout=0.0)
+    batch = {k: v[:SPAN_CPU_ROWS] for k, v in batch.items()}
     runs = {}
     for device in ("cuda", "cpu"):
         t = time.perf_counter()
@@ -4263,7 +4298,7 @@ def span_step_against_the_cpu(args, batch):
         check(bool(torch.isfinite(grads_c[name]).all()) and err <= lim,
               f"span step vs CPU: gradient of {name} err {err} > {lim}")
         worst = max(worst, (err / lim, name, err, lim))
-    log(f"  (a) one span step at B {SPAN_BATCH}, L {SPAN_LEN}, attention "
+    log(f"  (a) one span step at B {SPAN_CPU_ROWS}, L {SPAN_LEN}, attention "
         f"dropout 0.1, f32 mode, card vs CPU: loss {loss_c:.6f} vs "
         f"{loss_p:.6f}; {len(grads_p)} gradients within 5e-3 max + 1e-6, "
         f"worst {worst[1]} at {worst[0]:.3f} of its bound; card "
@@ -4504,7 +4539,7 @@ def text_pretraining(tmp):
 
 
 def msg_modules(args, card):
-    """(e) `PointnetSAModuleMSG` at B 8 on 50,000 x 6 points (npoint
+    """(e) `PointnetSAModuleMSG` at B 4 on 50,000 x 6 points (npoint
     2,048, radii 0.1 / 0.2 / 0.4, nsamples 16 / 32 / 64), then a global
     `PointnetSAModule` (`GroupAll`) on 256 of its points with 256 of its
     channels, then `PointnetLFPModuleMSG` from 512 of its points onto
@@ -5024,6 +5059,138 @@ def host_runtime(args, card, cli_root, det_stats, study_dir, history):
                 train_split_eval=tse)
 
 
+# ------------------------------------------------------------- phase 15
+
+# scripts/bench_backward.py:120-310, the keys it prints
+BENCH_BACKWARD_KEYS = (
+    "canary_fps_tier1", "full_step", "fwd_loss_value", "fwd_loss_grad",
+    "bwd_total", "adamw_update", "backbone_fwd", "backbone_fwdbwd",
+    "text_fwd", "encoder_fwd", "encoder_fwdbwd", "decoder_fwd",
+    "decoder_fwdbwd", "heads7_fwd", "heads7_fwdbwd", "loss_fwd",
+    "loss_fwdbwd", "backbone_bwd", "encoder_bwd", "decoder_bwd",
+    "heads7_bwd", "loss_bwd",
+)
+# scripts/bench_input_pipeline.py:85-93, the keys it prints
+INPUT_PIPELINE_KEYS = ("metric", "scenes_per_sec", "ms_per_batch",
+                       "workers", "batch", "points", "host_cpus")
+
+
+def _last_json(out, what):
+    """The JSON object on the last line of a child's output."""
+    try:
+        return json.loads(out.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        raise SmokeFailure(f"{what} printed no JSON line last:\n"
+                           + "\n".join(out.splitlines()[-20:]))
+
+
+def det_setup_from_the_data_root(args, roberta, root, tmp, card):
+    """scripts/train_test_det_torch.sh (the `--butd --augment_det`
+    setup) trains one epoch on phase 8's root as a user starts it
+    (torchrun, one process over NCCL) and evaluates it. Fails unless the
+    run's config is the setup's, its epochs are train then eval, every
+    logged loss is finite, and every step and evaluation batch (with the
+    loss, as --butd evaluates) launched the worked-out counts."""
+    from butd_detr_tpu_torch.config import Config
+
+    log_dir = os.path.join(tmp, "det_setup_log")
+    t0 = time.perf_counter()
+    # `--val_freq 2`: only the run's closing evaluation (epoch 1 is no
+    # multiple of 2), which the in-loop one would repeat on the same
+    # weights
+    run_child(["bash", DET_SCRIPT, *SCRIPT_RUN_FLAGS, "--val_freq", "2",
+               "--rng_seed", str(args.seed), "--log_dir", log_dir], 600,
+              DET_SCRIPT, env=script_env(root))
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(log_dir, "config.json")) as f:
+        cfg = Config(**json.load(f))
+    check(cfg.butd and cfg.augment_det and not cfg.butd_cls
+          and cfg.data_root == root,
+          f"{DET_SCRIPT}: the run's config is not the setup's: {cfg}")
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        text = f.read()
+    check(NCCL_WORLD_OF_1 in text,
+          f"{DET_SCRIPT}: the log names no NCCL world of 1")
+    stats = _epoch_stats(text)
+    check([s["phase"] for s in stats] == ["train", "eval"],
+          f"{DET_SCRIPT}: epochs run: {[s['phase'] for s in stats]}")
+    train, evaluation = stats
+    losses = _finite_metrics(text, 1)
+    check(len(losses) == train["batches"] >= 1,
+          f"{len(losses)} logged steps of {train['batches']}")
+    per_step = training_step_launches(cfg, roberta)
+    per_batch = evaluation_batch_launches(cfg, roberta, with_loss=True)
+    _check_launches(stats, per_step, per_batch, DET_SCRIPT)
+    launches = {k: sum(x["launches"][k] for x in stats)
+                for k in train["launches"]}
+    steps_ms = ", ".join(f"{t * 1e3:.0f}" for t in train["batch_seconds"])
+    log(f"  (a) {DET_SCRIPT} (torchrun, NCCL, world size 1) ran "
+        f"{seconds:.1f} s: {train['batches']} steps at B = "
+        f"{cfg.batch_size} ({train['scenes']} scenes), "
+        f"{train['scenes_per_second']:.2f} scenes/s over the epoch "
+        f"({train['seconds']:.2f} s), loader wait "
+        f"{train['loader_wait_share']:.1%} (the first batch "
+        f"{train['first_batch_wait_seconds']:.2f} s), steps {steps_ms} ms, "
+        f"peak {train['peak_memory_bytes'] / 1e9:.2f} GB; losses "
+        f"{', '.join(f'{x:.3f}' for x in losses)}; evaluation with the "
+        f"loss {evaluation['scenes']} scenes, "
+        f"{evaluation['scenes_per_second']:.2f} scenes/s; launches "
+        f"{launches}; card {card}")
+    return dict(seconds=seconds, losses=losses, epochs=stats,
+                per_step=per_step, per_batch=per_batch, launches=launches)
+
+
+def backward_by_stage(card):
+    """scripts/bench_backward_torch.py at full width, B = 24, 3 timed
+    calls an entry: every key of the JAX script, each `_fwd` and
+    `_fwdbwd` entry finite and positive on the host clock and in its
+    `_device_ms`."""
+    import math
+
+    t0 = time.perf_counter()
+    out = run_child([sys.executable, os.path.join(
+        "scripts", "bench_backward_torch.py")], 600,
+        "bench_backward_torch.py",
+        env={"BENCH_TINY": "0", "BENCH_BATCH": "24", "BENCH_REPS": "3"})
+    seconds = time.perf_counter() - t0
+    result = _last_json(out, "bench_backward_torch.py")
+    missing = [k for k in BENCH_BACKWARD_KEYS if k not in result]
+    check(not missing, f"bench_backward_torch.py lacks {missing}")
+    timed = [k for k in BENCH_BACKWARD_KEYS
+             if k.endswith(("_fwd", "_fwdbwd"))]
+    for k in (*timed, *(f"{k}_device_ms" for k in timed)):
+        v = result.get(k)
+        check(isinstance(v, (int, float)) and math.isfinite(v) and v > 0,
+              f"bench_backward_torch.py: {k} = {v}")
+    check(result["device"] == card,
+          f"bench_backward_torch.py ran on {result['device']!r}")
+    log(f"  (b) bench_backward_torch.py ran {seconds:.1f} s, B = 24: "
+        + json.dumps(result))
+    return dict(seconds=seconds, result=result)
+
+
+def input_pipeline(card, tmp):
+    """scripts/bench_input_pipeline_torch.py at 50,000 points, B = 24,
+    10 timed batches, a worker a host CPU: the JAX script's keys and
+    `warmup_s`."""
+    t0 = time.perf_counter()
+    out = run_child([sys.executable, os.path.join(
+        "scripts", "bench_input_pipeline_torch.py"), "--points", "50000",
+        "--batch", "24", "--batches", "10", "--workers", str(os.cpu_count()),
+        "--out", os.path.join(tmp, "input_pipeline")], 600,
+        "bench_input_pipeline_torch.py")
+    seconds = time.perf_counter() - t0
+    result = _last_json(out, "bench_input_pipeline_torch.py")
+    missing = [k for k in (*INPUT_PIPELINE_KEYS, "warmup_s")
+               if k not in result]
+    check(not missing, f"bench_input_pipeline_torch.py lacks {missing}")
+    check(result["scenes_per_sec"] > 0 and result["points"] == 50_000,
+          f"bench_input_pipeline_torch.py: {result}")
+    log(f"  (c) bench_input_pipeline_torch.py ran {seconds:.1f} s: "
+        + json.dumps(result) + f"; host of {card}")
+    return dict(seconds=seconds, result=result)
+
+
 def run(args):
     import numpy as np
     import torch
@@ -5295,6 +5462,22 @@ def run(args):
         args, card, os.path.join(cli_tmp, "data"),
         report["cli"]["detection"]["stats"], study_dir,
         report["study"]["history"])
+
+    # 15. the JAX package's last tools: the det setup's script, the two
+    # timers
+    log("== phase 15: scripts/train_test_det_torch.sh on phase 8's root, "
+        "bench_backward_torch.py at B = 24, bench_input_pipeline_torch.py "
+        "at 50,000 points")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tools = report["tools"] = {}
+    tools["det_setup"] = det_setup_from_the_data_root(
+        args, roberta, os.path.join(cli_tmp, "data"), kept.name, card)
+    tools["backward"] = backward_by_stage(card)
+    tools["input_pipeline"] = input_pipeline(card, kept.name)
+    tools["seconds"] = time.perf_counter() - t0
+    log(f"  phase 15 took {tools['seconds']:.1f} s")
+    tools_launches = tools["det_setup"]["launches"]
     kept.cleanup()
 
     kernels = []
@@ -5337,6 +5520,8 @@ def run(args):
         # kernels by the PointNet++ MSG modules, all eight by the demo
         check(text_launches[name] > 0,
               f"{name}: not launched on the text side (phase 13)")
+        check(tools_launches[name] > 0,
+              f"{name}: not launched by {DET_SCRIPT} (phase 15)")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"butd_detr_tpu_torch/csrc/{name}.cu",
@@ -5345,7 +5530,7 @@ def run(args):
                          + eval_launches[name] + cli_launches[name]
                          + probe_launches[name] + study_launches[name]
                          + bf16_launches[name] + dist_launches[name]
-                         + text_launches[name]),
+                         + text_launches[name] + tools_launches[name]),
             "launches_serving": launches[name],
             "launches_training": train_launches[name],
             "launches_evaluation": eval_launches[name],
@@ -5355,6 +5540,7 @@ def run(args):
             "launches_bf16": bf16_launches[name],
             "launches_distributed": dist_launches[name],
             "launches_text": text_launches[name],
+            "launches_det_setup": tools_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],

@@ -365,11 +365,17 @@ SCRIPT_FLAGS = [
     "--use_contrastive_align", "--log_dir", "./logs/bdetr_cls",
     "--lr_decay_epochs", "30", "35", "--butd_cls", "--self_attend",
 ]
+# scripts/train_test_det.sh
+DET_SCRIPT_FLAGS = SCRIPT_FLAGS[:SCRIPT_FLAGS.index("--log_dir")] + [
+    "--log_dir", "./logs/bdetr", "--lr_decay_epochs", "25", "26", "--butd",
+    "--self_attend", "--augment_det",
+]
 
 
 @pytest.mark.parametrize("argv", [
     [],
     SCRIPT_FLAGS,  # scripts/train_test_cls.sh
+    DET_SCRIPT_FLAGS,
     SCRIPT_FLAGS + ["--no-backbone_bf16", "--eval_train", "--unknown", "7",
                     "--lr-scheduler", "cosine", "--checkpoint_path", "a.pth",
                     "--dataset", "sr3d", "nr3d", "--ap_iou_thresholds",

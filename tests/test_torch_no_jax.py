@@ -3,17 +3,20 @@
 the class embeddings, `native.py` and `utils/visualize.py` included), one
 of the port's study command lines (`scripts/*_torch.py` of the accuracy
 study, `scripts/train_split_eval_torch.py` among them,
-`scripts/pretrain_text_torch.py`) or one of its entry points at the
+`scripts/pretrain_text_torch.py`, the two timers
+`scripts/bench_{backward,input_pipeline}_torch.py`) or one of its entry
+points at the
 repository's root (`predict_torch.py`, `train_torch.py`,
 `prepare_data_torch.py`, `span_cls_torch.py`,
 `gen_class_embeddings_torch.py`, `demo_torch.py`, `chip_smoke.py`) is
-imported; an entry point's `main` and the pretraining script's (not
+imported; an entry point's `main`, the pretraining script's and the
+backward timer's (not
 `chip_smoke.py`'s, whose phases import the port lazily and which the
 package-wide case covers) then runs on arguments that stop it once it has
 imported what it needs (a data root that does not exist, no GPU). The
-process must then hold no module of `jax`, `flax`, the JAX package or the
-JAX package's study scripts
-(`scripts.probe_common`, `scripts.train_split_eval`). The host C++
+process must then hold no module of `jax`, `flax`, `optax`, the JAX
+package, the JAX package's study scripts (`scripts.probe_common`,
+`scripts.train_split_eval`) or its benchmark (`bench`). The host C++
 runtime (`butd_detr_tpu_torch.native`) loads, builds if need be and runs
 in a process that imports neither JAX nor torch."""
 
@@ -28,7 +31,8 @@ from torch_threads import one_torch_thread  # noqa: F401
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ("accuracy_study_torch.py", "overfit_probe_torch.py",
            "diag_grounding_torch.py", "pretrain_text_torch.py",
-           "train_split_eval_torch.py")
+           "train_split_eval_torch.py", "bench_backward_torch.py",
+           "bench_input_pipeline_torch.py")
 MISSING = "/nonexistent/data_root"
 ENTRY_POINTS = {
     "predict_torch.py": ["--scan_id", "scene0000_00", "--utterance", "a",
@@ -40,6 +44,7 @@ ENTRY_POINTS = {
     "gen_class_embeddings_torch.py": ["--output", "{tmp}/table.npy"],
     "demo_torch.py": ["--workdir", "{tmp}/demo"],
     "pretrain_text_torch.py": ["--out", "{tmp}/text_init.npz"],
+    "bench_backward_torch.py": [],
 }
 
 
@@ -89,9 +94,9 @@ def test_imports_no_jax(what, tmp_path):
         import sys
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                            "butd_detr_tpu")
+                                            "optax", "butd_detr_tpu")
                      or m in ("scripts.probe_common",
-                              "scripts.train_split_eval"))
+                              "scripts.train_split_eval", "bench"))
         print(bad)
         """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
