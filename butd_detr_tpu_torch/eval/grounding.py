@@ -31,6 +31,7 @@ from butd_detr_tpu_torch.losses.boxes import (
 from butd_detr_tpu_torch.models.bdetr import top_k_stable
 from butd_detr_tpu_torch.utils.dist import allreduce_dict
 from butd_detr_tpu_torch.utils.numerics import reciprocal_f32
+from butd_detr_tpu_torch.utils.spans import span, to_host
 
 BREAKDOWN_FIELDS = ("easy", "hard", "vd", "vid", "unique", "multi")
 
@@ -202,8 +203,8 @@ def _on_device(end_points: Dict, prefixes: Sequence[str]) -> Dict:
 
 
 def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Every hit tensor in one device-to-host copy."""
-    flat = torch.cat([v.reshape(-1).float() for v in out.values()]).cpu()
+    """Every hit tensor in one device-to-host copy (a read-back)."""
+    flat = to_host(torch.cat([v.reshape(-1).float() for v in out.values()]))
     parts = torch.split(flat, [v.numel() for v in out.values()])
     return {k: p.reshape(v.shape).numpy()
             for (k, v), p in zip(out.items(), parts)}
@@ -244,27 +245,30 @@ class GroundingEvaluator:
 
     @torch.no_grad()
     def _hits(self, end_points: Dict) -> Dict[str, np.ndarray]:
-        return _to_host(grounding_batch_hits(
-            _on_device(end_points, self.prefixes), tuple(self.prefixes),
-            self.thresholds, self.topks, self.only_root,
-            with_contrast=self.with_contrast))
+        with span("hits"):
+            out = grounding_batch_hits(
+                _on_device(end_points, self.prefixes), tuple(self.prefixes),
+                self.thresholds, self.topks, self.only_root,
+                with_contrast=self.with_contrast)
+        return _to_host(out)
 
     def evaluate(self, end_points: Dict):
         """end_points: tensors (any device) or numpy arrays of one batch,
         all prefixes."""
-        out = self._hits(end_points)
-        mask = out["mask"]  # (B, K)
-        n = mask.sum()
-        for p in self.prefixes:
-            for m in self.modes:
-                hits = out[p + m]  # (B, K, n_t, n_k)
-                for it, t in enumerate(self.thresholds):
-                    for ik, k in enumerate(self.topks):
-                        self.dets[(p, t, k, m)] += float(
-                            (hits[:, :, it, ik] * mask).sum())
-                        self.gts[(p, t, k, m)] += float(n)
-        if "root_found" in out:
-            self._breakdown(end_points, out["root_found"], mask[:, 0])
+        with span("evaluate"):
+            out = self._hits(end_points)
+            mask = out["mask"]  # (B, K)
+            n = mask.sum()
+            for p in self.prefixes:
+                for m in self.modes:
+                    hits = out[p + m]  # (B, K, n_t, n_k)
+                    for it, t in enumerate(self.thresholds):
+                        for ik, k in enumerate(self.topks):
+                            self.dets[(p, t, k, m)] += float(
+                                (hits[:, :, it, ik] * mask).sum())
+                            self.gts[(p, t, k, m)] += float(n)
+            if "root_found" in out:
+                self._breakdown(end_points, out["root_found"], mask[:, 0])
 
     def _breakdown(self, end_points, found, root_mask):
         flags = {"vd": "is_view_dep", "hard": "is_hard",
@@ -275,7 +279,7 @@ class GroundingEvaluator:
                 continue
             flag = end_points[key]
             if isinstance(flag, torch.Tensor):
-                flag = flag.cpu().numpy()
+                flag = to_host(flag).numpy()
             flag = np.asarray(flag).astype(bool)
             pos = flag * root_mask
             neg = (~flag) * root_mask
@@ -327,19 +331,22 @@ class GroundingGTEvaluator(GroundingEvaluator):
 
     @torch.no_grad()
     def _hits(self, end_points: Dict) -> Dict[str, np.ndarray]:
-        return _to_host(gt_grounding_batch_hits(
-            _on_device(end_points, self.prefixes), tuple(self.prefixes),
-            with_contrast=self.with_contrast))
+        with span("hits"):
+            out = gt_grounding_batch_hits(
+                _on_device(end_points, self.prefixes), tuple(self.prefixes),
+                with_contrast=self.with_contrast)
+        return _to_host(out)
 
     def evaluate(self, end_points: Dict):
-        out = self._hits(end_points)
-        mask = out["mask"]  # (B,)
-        for p in self.prefixes:
-            for m in self.modes:
-                self.dets[(p, m)] += float((out[p + m] * mask).sum())
-                self.gts[(p, m)] += float(mask.sum())
-        if "root_found" in out:
-            self._breakdown(end_points, out["root_found"], mask)
+        with span("evaluate"):
+            out = self._hits(end_points)
+            mask = out["mask"]  # (B,)
+            for p in self.prefixes:
+                for m in self.modes:
+                    self.dets[(p, m)] += float((out[p + m] * mask).sum())
+                    self.gts[(p, m)] += float(mask.sum())
+            if "root_found" in out:
+                self._breakdown(end_points, out["root_found"], mask)
 
     def accuracy(self, prefix: str, mode: str = "bbf", **_):
         return self.dets[(prefix, mode)] / max(self.gts[(prefix, mode)], 1)

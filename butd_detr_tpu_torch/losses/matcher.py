@@ -19,6 +19,7 @@ from butd_detr_tpu_torch.losses.boxes import (
     generalized_box_iou3d,
 )
 from butd_detr_tpu_torch.ops.assignment import batched_linear_sum_assignment
+from butd_detr_tpu_torch.utils.spans import span
 
 
 def matcher_cost_matrix(pred_logits, pred_boxes, positive_map, gt_boxes,
@@ -55,13 +56,14 @@ def hungarian_match(pred_logits, pred_boxes, positive_map, gt_boxes,
     target (0 for the padded ones, masked downstream). The solver maps NaN
     and infinite costs (a diverged run) to finite ones, as the JAX matcher
     does before it solves (matcher.py:207), so that it still returns."""
-    cost = matcher_cost_matrix(pred_logits, pred_boxes, positive_map,
-                               gt_boxes, box_label_mask, cost_class,
-                               cost_bbox, cost_giou, tgt_labels)
-    n_valid = (box_label_mask > 0).sum(dim=-1)
-    # rows = targets: a view, which the kernel reads as it lies
-    return batched_linear_sum_assignment(cost.transpose(1, 2),
-                                         n_valid).long()
+    with span("match"):
+        cost = matcher_cost_matrix(pred_logits, pred_boxes, positive_map,
+                                   gt_boxes, box_label_mask, cost_class,
+                                   cost_bbox, cost_giou, tgt_labels)
+        n_valid = (box_label_mask > 0).sum(dim=-1)
+        # rows = targets: a view, which the kernel reads as it lies
+        return batched_linear_sum_assignment(cost.transpose(1, 2),
+                                             n_valid).long()
 
 
 def scipy_match_oracle(cost_bqg, box_label_mask) -> np.ndarray:

@@ -37,6 +37,7 @@ from butd_detr_tpu_torch.nn.backbone import Pointnet2Backbone
 from butd_detr_tpu_torch.nn.dropout import Dropout, DropoutRng, bind_rng
 from butd_detr_tpu_torch.nn.mlp import Dense, LayerNorm, PointwiseConv
 from butd_detr_tpu_torch.nn.position import PositionEmbeddingLearned
+from butd_detr_tpu_torch.utils.spans import span
 
 
 def l2_normalize(x, eps=1e-12):
@@ -143,7 +144,8 @@ class BeaUTyDETR(nn.Module):
         end_points, detected = self.encode(inputs)
         sample_inds = top_k_stable(end_points["seeds_obj_cls_logits"],
                                    self.num_queries).to(torch.int32)
-        return self.decode(end_points, detected, sample_inds)
+        with span("decoder"):
+            return self.decode(end_points, detected, sample_inds)
 
     def encode(self, inputs: Dict[str, torch.Tensor]):
         """Backbone, text tower, box stream, cross-encoder and the kps
@@ -152,7 +154,8 @@ class BeaUTyDETR(nn.Module):
         end_points: Dict[str, torch.Tensor] = {}
 
         # visual backbone
-        ep = self.backbone_net(inputs["point_clouds"])
+        with span("backbone"):
+            ep = self.backbone_net(inputs["point_clouds"])
         end_points.update(ep)
         end_points["seed_inds"] = ep["fp2_inds"]
         end_points["seed_xyz"] = ep["fp2_xyz"]
@@ -160,11 +163,12 @@ class BeaUTyDETR(nn.Module):
 
         # text backbone + projector; the tower has no dropout of its own
         # (the JAX model runs it with train=False, bdetr.py:129)
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and not self.freeze_text):
-            text_hidden = self.text_encoder(inputs["text_ids"],
-                                            inputs["text_mask"])
-        text_feats = self.text_projector(text_hidden)
+        with span("text"):
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not self.freeze_text):
+                text_hidden = self.text_encoder(inputs["text_ids"],
+                                                inputs["text_mask"])
+            text_feats = self.text_projector(text_hidden)
         text_padding_mask = inputs["text_mask"] == 0  # True == PAD
         end_points["text_feats"] = text_feats
         end_points["text_attention_mask"] = text_padding_mask
@@ -172,32 +176,33 @@ class BeaUTyDETR(nn.Module):
         points_xyz = ep["fp2_xyz"]
         points_features = ep["fp2_features"]
 
-        # detected-box stream
-        detected_feats = detected_mask = None
-        if self.butd:
-            box_emb = self.box_embeddings(inputs["det_boxes"].float())
-            cls_emb = self.class_embeddings(self.butd_class_embeddings(
-                inputs["det_class_ids"].long()))
-            detected_feats = torch.cat([box_emb, cls_emb], dim=-1)
-            detected_mask = ~inputs["det_bbox_label_mask"].bool()
+        with span("encoder"):
+            # detected-box stream
+            detected_feats = detected_mask = None
+            if self.butd:
+                box_emb = self.box_embeddings(inputs["det_boxes"].float())
+                cls_emb = self.class_embeddings(self.butd_class_embeddings(
+                    inputs["det_class_ids"].long()))
+                detected_feats = torch.cat([box_emb, cls_emb], dim=-1)
+                detected_mask = ~inputs["det_bbox_label_mask"].bool()
 
-        # cross-modal encoder
-        pos_feats = self.pos_embed(points_xyz)
-        vis_padding_mask = torch.zeros(points_xyz.shape[:2],
-                                       dtype=torch.bool,
-                                       device=points_xyz.device)
-        points_features, text_feats = self.cross_encoder(
-            points_features, pos_feats, vis_padding_mask, text_feats,
-            text_padding_mask, detected_feats, detected_mask)
-        end_points["text_memory"] = text_feats
-        end_points["seed_features"] = points_features
-        if self.contrastive_align_loss:
-            end_points["proj_tokens"] = l2_normalize(
-                self.contrastive_align_projection_text(text_feats))
+            # cross-modal encoder
+            pos_feats = self.pos_embed(points_xyz)
+            vis_padding_mask = torch.zeros(points_xyz.shape[:2],
+                                           dtype=torch.bool,
+                                           device=points_xyz.device)
+            points_features, text_feats = self.cross_encoder(
+                points_features, pos_feats, vis_padding_mask, text_feats,
+                text_padding_mask, detected_feats, detected_mask)
+            end_points["text_memory"] = text_feats
+            end_points["seed_features"] = points_features
+            if self.contrastive_align_loss:
+                end_points["proj_tokens"] = l2_normalize(
+                    self.contrastive_align_projection_text(text_feats))
 
-        # query-selection scores (kps)
-        end_points["seeds_obj_cls_logits"] = self.points_obj_cls(
-            points_features)
+            # query-selection scores (kps)
+            end_points["seeds_obj_cls_logits"] = self.points_obj_cls(
+                points_features)
         return end_points, (detected_feats, detected_mask)
 
     def decode(self, end_points: Dict[str, torch.Tensor], detected,

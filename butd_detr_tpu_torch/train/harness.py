@@ -38,7 +38,9 @@ of one process. Checkpoints hold the one-process weights.
 `--profile_dir` traces `--profile_steps` training steps with
 `torch.profiler` once a run, from the second batch of the first epoch
 (the first if the epoch has one), as the JAX harness's window, and writes
-one Chrome trace a rank into the directory.
+one Chrome trace a rank into the directory. The program's stage spans
+(`utils/spans.py`) are on while it records, so the trace holds them as
+host annotations (`train_step`, `forward`, `loss`, `backward`, ...).
 """
 
 import json
@@ -90,6 +92,7 @@ from butd_detr_tpu_torch.utils.dist import (
     process_count,
     process_index,
 )
+from butd_detr_tpu_torch.utils import spans
 from butd_detr_tpu_torch.utils.logging import setup_logger
 
 # what the evaluators read from a batch besides the model's end points; it
@@ -156,9 +159,10 @@ class EpochMeter:
     the seconds spent waiting for a batch from the loader (the first
     batch's apart: it starts the workers), the host seconds spent on each
     batch between its arrival and the request for the next (a step's wall
-    time where the caller reads its metrics back), the kernel launches
-    and, on the card, the peak memory. The clock starts at construction,
-    after the device has finished what came before."""
+    time where the caller reads its metrics back), the kernel launches,
+    the read-backs (`utils/spans.py`: the blocking copies to the host,
+    with their bytes) and, on the card, the peak memory. The clock starts
+    at construction, after the device has finished what came before."""
 
     def __init__(self, loader, device: torch.device):
         self.loader = loader
@@ -169,6 +173,7 @@ class EpochMeter:
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
         self._launches = dict(_cuda.LAUNCHES)
+        self._readbacks = spans.counts()["readbacks"]
         self._t0 = time.perf_counter()
 
     def __len__(self):
@@ -201,6 +206,8 @@ class EpochMeter:
             batch_seconds=self.handled,
             launches={k: v - self._launches[k]
                       for k, v in _cuda.LAUNCHES.items()},
+            readbacks={k: v - self._readbacks[k] for k, v in
+                       spans.counts()["readbacks"].items()},
             peak_memory_bytes=(torch.cuda.max_memory_allocated(self.device)
                                if cuda else None))
 
@@ -404,6 +411,7 @@ class TrainTester:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
         profiler.start()
+        self._spans_were_on = spans.enable(True)
         return profiler
 
     def _stop_profiler(self, profiler) -> str:
@@ -411,6 +419,7 @@ class TrainTester:
         the rank's Chrome trace into `--profile_dir`."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        spans.enable(self._spans_were_on)
         profiler.stop()
         self._profiled = True
         os.makedirs(self.cfg.profile_dir, exist_ok=True)

@@ -6,7 +6,10 @@ copy) -> backward -> global-norm clip -> 3-group AdamW step, on `cuda`
 unless the caller passes `device="cpu"`. The JAX package compiles this
 into one program over a device mesh; here it is eager PyTorch, with the
 TPU kernels' counterparts (FPS, ball query, attention forward and
-backward, row scatter-add) as CUDA kernels.
+backward, row scatter-add) as CUDA kernels. Each stage opens its span
+(`utils/spans.py`: `train_step` > `to_device`, `begin_step`, `forward`,
+`loss`, `backward`, `optimizer`; `eval_step`), which costs a flag test
+unless the spans are on.
 
 Across processes (`mesh`, `parallel/mesh.py`) each rank steps on its rows
 of the batch: BatchNorm statistics and the loss's box count are the dp
@@ -47,6 +50,7 @@ from butd_detr_tpu_torch.train.optimizer import (
     make_optimizer,
     make_schedule,
 )
+from butd_detr_tpu_torch.utils.spans import span, to_host
 
 # GT keys the criterion reads from the batch
 TARGET_KEYS = (
@@ -147,15 +151,17 @@ class Trainer:
 
     def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The batch's arrays (numpy or tensors) on the trainer's device."""
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        with span("to_device"):
+            return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                    for k, v in batch.items()}
 
     def forward(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         """The model's end points for a batch on the device, with the
         batch's targets added for the criterion."""
-        end_points = self.model(
-            {k: batch[k] for k in INPUT_KEYS if k in batch})
+        with span("forward"):
+            end_points = self.model(
+                {k: batch[k] for k in INPUT_KEYS if k in batch})
         for k in TARGET_KEYS:
             if k in batch:
                 end_points[k] = batch[k]
@@ -164,20 +170,28 @@ class Trainer:
     def loss(self, end_points: Dict[str, torch.Tensor]):
         """(loss, end_points with the losses added); the box count is the
         dp group's."""
-        return compute_hungarian_loss(
-            end_points, self.cfg.num_decoder_layers, self.criterion,
-            self.cfg.query_points_obj_topk, group=self.mesh.dp_group)
+        with span("loss"):
+            return compute_hungarian_loss(
+                end_points, self.cfg.num_decoder_layers, self.criterion,
+                self.cfg.query_points_obj_topk, group=self.mesh.dp_group)
 
     def begin_step(self) -> None:
         """Train mode, this step's dropout seed and learning rates, and
         cleared gradients."""
-        self.model.train()
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.generator))
-        self.model.rng.seed((seed + self.mesh.dp_index * 1_000_003)
-                            % 2 ** 62)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedules[group["name"]](self.step)
-        self.optimizer.zero_grad(set_to_none=True)
+        with span("begin_step"):
+            self.model.train()
+            seed = int(torch.randint(0, 2 ** 62, (1,),
+                                     generator=self.generator))
+            self.model.rng.seed((seed + self.mesh.dp_index * 1_000_003)
+                                % 2 ** 62)
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.schedules[group["name"]](self.step)
+            self.optimizer.zero_grad(set_to_none=True)
+
+    def backward(self, loss: torch.Tensor) -> None:
+        """The gradients of `loss` (the autograd engine's dispatch)."""
+        with span("backward"):
+            loss.backward()
 
     def _params(self):
         return [p for g in self.optimizer.param_groups for p in g["params"]]
@@ -204,13 +218,14 @@ class Trainer:
         """Average the gradients over the dp group, clip their global norm
         (each shard counted once under mp), take the optimizer step;
         returns the norm before clipping (on the device)."""
-        self.sync_gradients()
-        grad_norm = clip_by_global_norm_(
-            [p.grad for p in self._params()], self.cfg.clip_norm,
-            sharded=self._sharded_mask, group=self.mesh.mp_group)
-        self.optimizer.step()
-        self.step += 1
-        return grad_norm
+        with span("optimizer"):
+            self.sync_gradients()
+            grad_norm = clip_by_global_norm_(
+                [p.grad for p in self._params()], self.cfg.clip_norm,
+                sharded=self._sharded_mask, group=self.mesh.mp_group)
+            self.optimizer.step()
+            self.step += 1
+            return grad_norm
 
     def dp_mean(self, named: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -261,17 +276,18 @@ class Trainer:
         """One optimizer step on `batch` (this rank's rows); returns the
         losses under METRIC_KEYS (their mean over the dp group) and the gradients' global norm before clipping
         (`grad_norm`) as 0-d tensors on the device, not read back."""
-        batch = self.to_device(batch)
-        self.begin_step()
-        loss, end_points = self.loss(self.forward(batch))
-        loss.backward()
-        grad_norm = self.apply_gradients()
-        named = self.dp_mean({
-            k: torch.as_tensor(end_points[k], dtype=torch.float32,
-                               device=grad_norm.device).detach()
-            for k in METRIC_KEYS if k in end_points})
-        named["grad_norm"] = grad_norm
-        return named
+        with span("train_step", step=self.step):
+            batch = self.to_device(batch)
+            self.begin_step()
+            loss, end_points = self.loss(self.forward(batch))
+            self.backward(loss)
+            grad_norm = self.apply_gradients()
+            named = self.dp_mean({
+                k: torch.as_tensor(end_points[k], dtype=torch.float32,
+                                   device=grad_norm.device).detach()
+                for k in METRIC_KEYS if k in end_points})
+            named["grad_norm"] = grad_norm
+            return named
 
     def train_step(self, batch: Dict) -> Dict[str, float]:
         """`train_step_on_device`, its metrics read back in one copy (the
@@ -283,15 +299,16 @@ class Trainer:
                   ) -> Dict[str, torch.Tensor]:
         """The eval-mode end points of `batch`, with the losses added when
         `with_loss` (the batch then carries the TARGET_KEYS)."""
-        batch = self.to_device(batch)
-        self.model.eval()
-        end_points = self.forward(batch)
-        return self.loss(end_points)[1] if with_loss else end_points
+        with span("eval_step"):
+            batch = self.to_device(batch)
+            self.model.eval()
+            end_points = self.forward(batch)
+            return self.loss(end_points)[1] if with_loss else end_points
 
 
 def metrics_to_host(named: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """0-d tensors on one device -> floats, in one copy."""
-    values = torch.stack([v.float() for v in named.values()]).cpu()
+    """0-d tensors on one device -> floats, in one copy (a read-back)."""
+    values = to_host(torch.stack([v.float() for v in named.values()]))
     return dict(zip(named, values.tolist()))
 
 

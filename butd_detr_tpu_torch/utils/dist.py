@@ -15,6 +15,8 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
+from butd_detr_tpu_torch.utils.spans import to_host
+
 
 def _initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
@@ -83,4 +85,4 @@ def allreduce_dict(d: Dict, group=None) -> Dict:
     vec = torch.tensor([float(d[k]) for k in keys], dtype=torch.float64,
                        device=collective_device(group))
     dist.all_reduce(vec, group=group)
-    return {k: float(v) for k, v in zip(keys, vec.cpu().tolist())}
+    return {k: float(v) for k, v in zip(keys, to_host(vec).tolist())}

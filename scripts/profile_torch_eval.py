@@ -15,14 +15,18 @@ epoch:
     `evaluate` (`GroundingGTEvaluator.evaluate`: 14 scoring programs and
     one copy back); what is left of the epoch is `load` (the dataset and
     the collation, on the host);
-  * runs such a staged epoch again under torch.profiler: device kernel ms
-    per stage by kernel group (the port's CUDA kernels, matrix products,
-    the rest), and the device's busy and idle share of a whole epoch.
+  * runs such a staged epoch again under torch.profiler, the program's
+    stage spans on (`butd_detr_tpu_torch/utils/spans.py`): device kernel
+    ms per stage by kernel group (the port's CUDA kernels, matrix products,
+    the rest), each kernel placed by the program's `eval_step` and
+    `evaluate` spans, and the device's busy and idle share of a whole
+    epoch.
 Prints one JSON object (also written to `--report PATH` when given) with
 the card's name and power limit. Needs one NVIDIA GPU.
 """
 
 import argparse
+import bisect
 import json
 import os
 import subprocess
@@ -42,6 +46,8 @@ GROUPS = (
     ("matmul", ("gemm", "sgemm", "cutlass", "gemv", "xmma", "nvjet")),
 )
 STAGES = ("step", "evaluate")
+# the program's span of each stage
+SPANS = {"eval_step": "step", "evaluate": "evaluate"}
 
 
 def group_of(name: str) -> str:
@@ -73,7 +79,7 @@ def main(argv=None):
 
 def run(args, log_dir):
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from butd_detr_tpu_torch.config import butd_cls_config
     from butd_detr_tpu_torch.data import SyntheticGroundingDataset
@@ -81,6 +87,7 @@ def run(args, log_dir):
     from butd_detr_tpu_torch.lang import roberta_base_config
     from butd_detr_tpu_torch.ops import _cuda
     from butd_detr_tpu_torch.train import TrainTester
+    from butd_detr_tpu_torch.utils import spans as program_spans
 
     torch.backends.cuda.matmul.allow_tf32 = False
     roberta = roberta_base_config()
@@ -120,9 +127,8 @@ def run(args, log_dir):
         def wrapper(*a, **kw):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            with record_function(f"stage:{name}"):
-                out = fn(*a, **kw)
-                torch.cuda.synchronize()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
             host_ms[name] += (time.perf_counter() - t) * 1e3
             return out
         return wrapper
@@ -133,19 +139,23 @@ def run(args, log_dir):
     staged_ms = epoch()
     result_host = {s: v / n_batches for s, v in host_ms.items()}
     result_host["load"] = staged_ms / n_batches - sum(result_host.values())
+    program_spans.enable(True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = epoch()
+    program_spans.enable(False)
 
-    # a device kernel belongs to the stage whose host range holds its start
-    # (the device is synchronized at both ends of every stage); the profiler
-    # mirrors host ranges onto the device's timeline: they are no kernels
+    # a device kernel belongs to the stage whose span (the program's, on
+    # the host) opened last before the kernel started: the device is
+    # synchronized at both ends of every stage, so a stage's kernels all
+    # start before the next stage's span opens; the profiler mirrors host
+    # ranges onto the device's timeline: they are no kernels
     events = list(prof.events())
     on_device = torch.autograd.DeviceType.CUDA
     host_names = {e.name for e in events if e.device_type != on_device}
-    spans = sorted((e.time_range.start, e.time_range.end, e.name[6:])
-                   for e in events if e.name.startswith("stage:")
-                   and e.device_type != on_device)
+    spans = sorted((e.time_range.start, SPANS[e.name]) for e in events
+                   if e.name in SPANS and e.device_type != on_device)
+    opened = [start for start, _ in spans]
     by_stage = {s: {} for s in STAGES}
     kernels = {}
     unplaced_ms = 0.0
@@ -155,11 +165,11 @@ def run(args, log_dir):
         ms = (e.time_range.end - e.time_range.start) / 1e3 / n_batches
         if ms <= 0:
             continue
-        start = e.time_range.start
-        name = next((s for lo, hi, s in spans if lo <= start <= hi), None)
-        if name is None:
+        at = bisect.bisect_right(opened, e.time_range.start) - 1
+        if at < 0:
             unplaced_ms += ms
             continue
+        name = spans[at][1]
         g = group_of(e.name)
         by_stage[name][g] = by_stage[name].get(g, 0.0) + ms
         k_ms, k_n = kernels.get(e.name, (0.0, 0))

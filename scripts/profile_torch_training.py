@@ -14,15 +14,19 @@ does), warms it up, then:
     host ms per stage, and the matcher's host ms inside the loss stage
     (`hungarian_match`: the cost matrices and the assignment kernel,
     synchronized at both ends);
-  * runs 3 such staged steps again under torch.profiler: device kernel ms
-    per stage by kernel group (the port's CUDA kernels, the assignment
-    kernel among them, matrix products, the rest), and the device's busy
-    and idle share of a whole step.
+  * runs 3 such staged steps again under torch.profiler, the program's
+    stage spans on (`butd_detr_tpu_torch/utils/spans.py`): device kernel
+    ms per stage by kernel group (the port's CUDA kernels, the assignment
+    kernel among them, matrix products, the rest), each kernel placed by
+    the program's `to_device`, `forward`, `loss`, `backward` and
+    `optimizer` spans, and the device's busy and idle share of a whole
+    step.
 Prints one JSON object (also written to `--report PATH` when given) with
 the card's name and power limit. Needs one NVIDIA GPU.
 """
 
 import argparse
+import bisect
 import json
 import os
 import subprocess
@@ -64,7 +68,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profile_torch_training: no CUDA device", file=sys.stderr)
@@ -75,6 +79,7 @@ def main(argv=None):
     from butd_detr_tpu_torch.lang import roberta_base_config
     from butd_detr_tpu_torch.losses import criterion, matcher
     from butd_detr_tpu_torch.train import Trainer
+    from butd_detr_tpu_torch.utils import spans as program_spans
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = butd_cls_config()
@@ -119,9 +124,8 @@ def main(argv=None):
     def stage(name, fn):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        with record_function(f"stage:{name}"):
-            out = fn()
-            torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
         host_ms[name] += (time.perf_counter() - t) * 1e3
         return out
 
@@ -135,7 +139,7 @@ def main(argv=None):
                                lambda: trainer.forward(on_device))
             loss, end_points = stage("loss",
                                      lambda: trainer.loss(end_points))
-            stage("backward", loss.backward)
+            stage("backward", lambda: trainer.backward(loss))
             stage("optimizer", trainer.apply_gradients)
         return (time.perf_counter() - t) * 1e3 / len(some)
 
@@ -143,20 +147,25 @@ def main(argv=None):
     staged_ms = staged_steps(batches[first:first + n_prof])
     result_host = {s: v / n_prof for s, v in host_ms.items()}
     matcher_ms_in_loss = matcher_ms[0] / n_prof
+    program_spans.enable(True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = staged_steps(batches[first + n_prof:])
+    program_spans.enable(False)
 
-    # a device kernel belongs to the stage whose host range holds its start
-    # (the device is synchronized at both ends of every stage)
+    # a device kernel belongs to the stage whose span (the program's, on
+    # the host) opened last before the kernel started: the device is
+    # synchronized after every stage, so a stage's kernels all start before
+    # the next stage's span opens
     events = list(prof.events())
-    # the profiler mirrors host ranges (record_function, the optimizer's)
-    # onto the device's timeline: they are no kernels
+    # the profiler mirrors host ranges (the spans, the optimizer's) onto the
+    # device's timeline: they are no kernels
     host_names = {e.name for e in events
                   if e.device_type != torch.autograd.DeviceType.CUDA}
-    spans = sorted((e.time_range.start, e.time_range.end, e.name[6:])
-                   for e in events if e.name.startswith("stage:")
+    spans = sorted((e.time_range.start, e.name) for e in events
+                   if e.name in STAGES
                    and e.device_type != torch.autograd.DeviceType.CUDA)
+    opened = [start for start, _ in spans]
     by_stage = {s: {} for s in STAGES}
     kernels = {}
     unplaced_ms = 0.0
@@ -167,11 +176,11 @@ def main(argv=None):
         ms = (e.time_range.end - e.time_range.start) / 1e3 / n_prof
         if ms <= 0:
             continue
-        start = e.time_range.start
-        name = next((s for lo, hi, s in spans if lo <= start <= hi), None)
-        if name is None:
+        at = bisect.bisect_right(opened, e.time_range.start) - 1
+        if at < 0:
             unplaced_ms += ms
             continue
+        name = spans[at][1]
         g = group_of(e.name)
         by_stage[name][g] = by_stage[name].get(g, 0.0) + ms
         k_ms, k_n = kernels.get(e.name, (0.0, 0))
