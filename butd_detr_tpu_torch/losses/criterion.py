@@ -10,7 +10,10 @@ mean of the ranks' losses is the global batch's loss, as under the JAX
 package's dp-sharded step. Every other denominator is a per-sample mean
 (the objectness loss's `/ B`) or a constant, which equal shards average
 correctly. The matched predictions are gathered with the port's
-`gather_points`, so their gradient is the row scatter-add.
+`gather_points`, so their gradient is the row scatter-add. The set losses
+take a leading prefix axis, (P, B, ...), and return one value a prefix,
+so that the proposal and decoder-layer prefixes are computed in one pass;
+the per-scene targets are broadcast over that axis.
 
 Nothing crosses between host and device, so the loss never makes the host
 wait: the matching solves where the costs lie, and a value written through
@@ -51,64 +54,76 @@ class CriterionConfig(NamedTuple):
 
 
 def _matched_rows(assignment, box_label_mask, num_queries):
-    """Batch and query indices that scatter per-target rows onto their
-    matched queries; padded targets go to the spare row `num_queries`."""
-    q_ids = torch.where(box_label_mask > 0, assignment.long(),
-                        torch.full_like(assignment.long(), num_queries))
-    b_ids = torch.arange(q_ids.shape[0], device=q_ids.device)[:, None] \
-        .expand_as(q_ids)
-    return b_ids, q_ids
+    """Prefix, batch and query indices that scatter per-target rows onto
+    their matched queries, for a (P, B, G) assignment; padded targets go
+    to the spare row `num_queries`."""
+    assignment = assignment.long()
+    q_ids = torch.where(box_label_mask > 0, assignment,
+                        torch.full_like(assignment, num_queries))
+    P, B = q_ids.shape[:2]
+    dev = q_ids.device
+    p_ids = torch.arange(P, device=dev)[:, None, None].expand_as(q_ids)
+    b_ids = torch.arange(B, device=dev)[None, :, None].expand_as(q_ids)
+    return p_ids, b_ids, q_ids
 
 
-def _matched_weight(b_ids, q_ids, num_queries, eos_coef):
-    """(B, Q): 1 for matched queries, eos_coef for the others."""
-    B = q_ids.shape[0]
-    matched = torch.zeros(B, num_queries + 1, dtype=torch.bool,
-                          device=q_ids.device)
-    matched[b_ids, q_ids] = torch.ones((), dtype=torch.bool,
-                                       device=q_ids.device)
-    one = torch.ones((), device=q_ids.device)
-    return torch.where(matched[:, :num_queries], one, eos_coef * one)
+def _matched_weight(rows, num_queries, eos_coef):
+    """(P, B, Q): 1 for matched queries, eos_coef for the others."""
+    P, B = rows[2].shape[:2]
+    dev = rows[2].device
+    matched = torch.zeros(P, B, num_queries + 1, dtype=torch.bool,
+                          device=dev)
+    matched[rows] = torch.ones((), dtype=torch.bool, device=dev)
+    one = torch.ones((), device=dev)
+    return torch.where(matched[..., :num_queries], one, eos_coef * one)
 
 
 def loss_labels_st(pred_logits, positive_map, assignment, box_label_mask,
                    num_boxes, eos_coef=0.1):
-    """Soft-token cross-entropy (reference loss_labels_st): unmatched
-    queries target the last bin ("no object") with weight eos_coef, matched
-    queries their target's positive map."""
-    B, Q, C = pred_logits.shape
+    """Soft-token cross-entropy (reference loss_labels_st) of P prefixes:
+    (P, B, Q, C) logits, (P, B, G) assignment, the scenes' (B, G, C)
+    positive map -> (P,). Unmatched queries target the last bin ("no
+    object") with weight eos_coef, matched queries their target's positive
+    map."""
+    P, B, Q, C = pred_logits.shape
     logp = torch.log_softmax(pred_logits.float(), dim=-1)
-    b_ids, q_ids = _matched_rows(assignment, box_label_mask, Q)
-    target_sim = torch.zeros(B, Q + 1, C, device=logp.device)
-    target_sim[:, :, -1] = 1.0
-    target_sim[b_ids, q_ids] = positive_map.float()
-    target_sim = target_sim[:, :Q]
+    rows = _matched_rows(assignment, box_label_mask, Q)
+    target_sim = torch.zeros(P, B, Q + 1, C, device=logp.device)
+    target_sim[..., -1] = 1.0
+    target_sim[rows] = positive_map.float()  # broadcast over the prefixes
+    target_sim = target_sim[:, :, :Q]
     entropy = torch.log(target_sim + 1e-6) * target_sim
-    loss_ce = (entropy - logp * target_sim).sum(dim=-1)  # (B, Q)
-    w = _matched_weight(b_ids, q_ids, Q, eos_coef)
-    return (loss_ce * w).sum() / num_boxes
+    loss_ce = (entropy - logp * target_sim).sum(dim=-1)  # (P, B, Q)
+    w = _matched_weight(rows, Q, eos_coef)
+    return (loss_ce * w).sum(dim=(1, 2)) / num_boxes
 
 
 def loss_boxes(pred_boxes, gt_boxes, assignment, box_label_mask, num_boxes):
-    """L1 (size terms x 0.2) + GIoU on the matched pairs."""
-    src = gather_points(pred_boxes, assignment)  # (B, G, 6)
+    """L1 (size terms x 0.2) + GIoU on the matched pairs of P prefixes:
+    (P, B, Q, 6) predictions, (P, B, G) assignment, the scenes' (B, G, 6)
+    boxes -> {loss_bbox, loss_giou}, each (P,). One row gather for all."""
+    P, B = assignment.shape[:2]
+    src = gather_points(pred_boxes.flatten(0, 1),
+                        assignment.flatten(0, 1)).unflatten(0, (P, B))
     l1 = (src - gt_boxes).abs()
-    l1 = l1[..., :3].sum(-1) + 0.2 * l1[..., 3:].sum(-1)  # (B, G)
+    l1 = l1[..., :3].sum(-1) + 0.2 * l1[..., 3:].sum(-1)  # (P, B, G)
     m = box_label_mask.float()
     giou = matched_giou3d(box_cxcyczwhd_to_xyzxyz(src),
                           box_cxcyczwhd_to_xyzxyz(gt_boxes))
-    return {"loss_bbox": (l1 * m).sum() / num_boxes,
-            "loss_giou": ((1.0 - giou) * m).sum() / num_boxes}
+    return {"loss_bbox": (l1 * m).sum(dim=(1, 2)) / num_boxes,
+            "loss_giou": ((1.0 - giou) * m).sum(dim=(1, 2)) / num_boxes}
 
 
 def contrastive_logits(proj_queries, proj_tokens, temperature=0.07):
-    """(B, Q, L) query-token similarities over the temperature, in f32.
+    """(..., B, Q, L) query-token similarities over the temperature, in
+    f32, for (..., B, Q, D) queries (a leading prefix axis or none) and
+    the scenes' (B, L, D) tokens, which are not copied per prefix.
     The JAX package divides by the constant inside its jitted train step.
     In f32 XLA multiplies by the f32 reciprocal instead; so does the port.
     In bf16 (`--use_bf16`) it divides for real, by bf16(temperature), and
     rounds the quotient to bf16; the port divides by a bf16 tensor on the
     device (a Python divisor would become a reciprocal multiply on CUDA)."""
-    sim = torch.einsum("bqd,bld->bql", proj_queries, proj_tokens)
+    sim = torch.einsum("...bqd,bld->...bql", proj_queries, proj_tokens)
     if sim.dtype is torch.float32:
         return sim * reciprocal_f32(temperature)
     return (sim / sim.new_full((), temperature)).float()
@@ -118,10 +133,11 @@ def loss_contrastive_align(proj_queries, proj_tokens, text_mask, positive_map,
                            assignment, box_label_mask, num_boxes,
                            eos_coef=0.1, temperature=0.07,
                            mask_pad_tokens: bool = True):
-    """Bidirectional InfoNCE between (B, Q, 64) queries and (B, L, 64)
-    tokens, both L2-normalized (losses.py:420-489). `text_mask` (B, L) is 1
-    on real tokens; `positive_map` (B, G, C) has C >= L."""
-    B, Q, _ = proj_queries.shape
+    """Bidirectional InfoNCE between the (P, B, Q, 64) queries of P
+    prefixes and the scenes' (B, L, 64) tokens, both L2-normalized
+    (losses.py:420-489) -> (P,). `text_mask` (B, L) is 1 on real tokens;
+    `positive_map` (B, G, C) has C >= L; `assignment` is (P, B, G)."""
+    P, B, Q, _ = proj_queries.shape
     L = proj_tokens.shape[1]
     dev = proj_queries.device
     logits = contrastive_logits(proj_queries, proj_tokens, temperature)
@@ -129,20 +145,22 @@ def loss_contrastive_align(proj_queries, proj_tokens, text_mask, positive_map,
         text_mask, dtype=torch.bool)
     logits = logits.masked_fill(~tok_real[:, None, :], -1e9)
 
-    # 'not mentioned' default: the eos token and the one before it
+    # 'not mentioned' default, the same for every prefix and query: the
+    # eos token and the one before it
     ar = torch.arange(B, device=dev)
     inds = text_mask.long().sum(dim=1) - 1  # (B,) last real token
-    pm = torch.zeros(B, Q + 1, L, device=dev)
-    half = torch.full((), 0.5, device=dev)
-    pm[ar, :, inds] = half
-    pm[ar, :, inds - 1] = half
-    pm[:, Q] = 0.0
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    default = torch.zeros(B, L, dtype=torch.bool, device=dev)
+    default[ar, inds] = true
+    default[ar, inds - 1] = true
+    pm = default[:, None, :].expand(P, B, Q + 1, L).clone(
+        memory_format=torch.contiguous_format)
     # matched queries get their target's positive map rows
-    b_ids, q_ids = _matched_rows(assignment, box_label_mask, Q)
-    pm[b_ids, q_ids] = positive_map[..., :L].float()
-    positive = (pm[:, :Q] > 0) & tok_real[:, None, :]  # (B, Q, L)
+    rows = _matched_rows(assignment, box_label_mask, Q)
+    pm[rows] = positive_map[..., :L] > 0
+    positive = pm[:, :, :Q] & tok_real[:, None, :]  # (P, B, Q, L)
 
-    qmask = _matched_weight(b_ids, q_ids, Q, eos_coef)
+    qmask = _matched_weight(rows, Q, eos_coef)  # (P, B, Q)
     # per-token weight: 1 for the eos token, eos_coef otherwise; 0 on pads
     tmask = torch.full((B, L), float(eos_coef), device=dev)
     tmask[ar, inds] = torch.ones((), device=dev)
@@ -159,8 +177,8 @@ def loss_contrastive_align(proj_queries, proj_tokens, text_mask, positive_map,
         return torch.where(with_pos, entropy + pos_term / nb_pos + neg_term,
                            torch.zeros_like(neg_term))
 
-    box_to_token = (direction(2) * qmask).sum()
-    token_to_box = (direction(1) * tmask).sum()
+    box_to_token = (direction(-1) * qmask).sum(dim=(1, 2))
+    token_to_box = (direction(-2) * tmask).sum(dim=(1, 2))
     return (box_to_token + token_to_box) / 2 / num_boxes
 
 
@@ -217,15 +235,37 @@ def compute_points_obj_cls_loss_hard_topk(end_points, topk: int):
     return loss.sum() * reciprocal_f32(B)  # jitted `/ B`
 
 
+def _prefix_losses(pred_logits, pred_boxes, assignment, targets, num_boxes,
+                   cfg: CriterionConfig, proj_queries=None,
+                   proj_tokens=None):
+    """The set losses of P prefixes in one pass: (P, B, Q, C) logits,
+    (P, B, Q, 6) boxes, (P, B, G) assignment and optionally (P, B, Q, 64)
+    queries, against the scenes' (B, ...) targets and (B, L, 64) tokens,
+    which every prefix shares. Returns {name: (P,)}."""
+    losses = {"loss_ce": loss_labels_st(
+        pred_logits, targets["positive_map"], assignment,
+        targets["box_label_mask"], num_boxes, cfg.eos_coef)}
+    losses.update(loss_boxes(pred_boxes, targets["boxes"], assignment,
+                             targets["box_label_mask"], num_boxes))
+    if proj_queries is not None:
+        losses["loss_contrastive_align"] = loss_contrastive_align(
+            proj_queries, proj_tokens, targets["text_mask"],
+            targets["positive_map"], assignment, targets["box_label_mask"],
+            num_boxes, cfg.eos_coef, cfg.temperature,
+            mask_pad_tokens=cfg.mask_pad_tokens)
+    return losses
+
+
 def set_criterion_losses(outputs: Dict[str, torch.Tensor],
                          targets: Dict[str, torch.Tensor], num_boxes,
                          cfg: CriterionConfig):
-    """One prefix's losses (reference SetCriterion.forward).
+    """One prefix's losses (reference SetCriterion.forward): the stacked
+    pass of `compute_hungarian_loss` at P = 1.
 
     outputs: pred_logits (B, Q, C), pred_boxes (B, Q, 6), optionally
     proj_queries / proj_tokens and a ready `assignment`; targets: boxes
     (B, G, 6), positive_map (B, G, C), box_label_mask (B, G), text_mask
-    (B, L). Returns (losses, assignment)."""
+    (B, L). Returns (losses, assignment), each loss a scalar."""
     if "assignment" in outputs:
         assignment = outputs["assignment"]
     else:
@@ -235,19 +275,13 @@ def set_criterion_losses(outputs: Dict[str, torch.Tensor],
             targets["box_label_mask"], cfg.cost_class, cfg.cost_bbox,
             cfg.cost_giou,
             tgt_labels=None if cfg.use_soft_token else targets["labels"])
-    losses = {"loss_ce": loss_labels_st(
-        outputs["pred_logits"], targets["positive_map"], assignment,
-        targets["box_label_mask"], num_boxes, cfg.eos_coef)}
-    losses.update(loss_boxes(outputs["pred_boxes"], targets["boxes"],
-                             assignment, targets["box_label_mask"],
-                             num_boxes))
-    if cfg.use_contrastive_align and "proj_queries" in outputs:
-        losses["loss_contrastive_align"] = loss_contrastive_align(
-            outputs["proj_queries"], outputs["proj_tokens"],
-            targets["text_mask"], targets["positive_map"], assignment,
-            targets["box_label_mask"], num_boxes, cfg.eos_coef,
-            cfg.temperature, mask_pad_tokens=cfg.mask_pad_tokens)
-    return losses, assignment
+    contrastive = cfg.use_contrastive_align and "proj_queries" in outputs
+    losses = _prefix_losses(
+        outputs["pred_logits"][None], outputs["pred_boxes"][None],
+        assignment[None], targets, num_boxes, cfg,
+        outputs["proj_queries"][None] if contrastive else None,
+        outputs["proj_tokens"] if contrastive else None)
+    return {k: v[0] for k, v in losses.items()}, assignment
 
 
 def compute_hungarian_loss(end_points: Dict[str, torch.Tensor],
@@ -257,9 +291,15 @@ def compute_hungarian_loss(end_points: Dict[str, torch.Tensor],
     """Total loss over the proposal and decoder-layer prefixes (reference
     compute_hungarian_loss): 8 * kps + (ce + 5 * bbox + giou + contrastive)
     / (layers + 1). Adds the per-prefix and summed losses to `end_points`
-    and returns (loss, end_points). All prefixes' cost matrices are matched
-    in one call, on the device. `group`: the process group whose rows
-    share one box count (None: this batch alone)."""
+    and returns (loss, end_points).
+
+    One pass over the P = layers + 1 prefixes stacked on a leading axis:
+    one matching call for all prefixes' cost matrices, on the device, then
+    each set loss once over the (P, B, ...) predictions, the scenes'
+    targets broadcast over P (one matched-box gather, so one scatter-add in
+    the backward), giving (P,) per-prefix losses whose sums are the totals.
+    `group`: the process group whose rows share one box count (None: this
+    batch alone)."""
     prefixes = prediction_prefixes(num_decoder_layers)
     targets = {
         "boxes": torch.cat([end_points["center_label"][:, :, :3],
@@ -291,23 +331,22 @@ def compute_hungarian_loss(end_points: Dict[str, torch.Tensor],
         tgt_labels=None if cfg.use_soft_token else tile(targets["labels"]),
     ).reshape(P, B, -1)
 
-    loss_ce = loss_bbox = loss_giou = loss_contr = 0.0
+    all_proj = proj_tokens = None
+    if cfg.use_contrastive_align and "proj_tokens" in end_points:
+        all_proj = torch.stack(
+            [end_points[f"{p}proj_queries"] for p in prefixes])
+        proj_tokens = end_points["proj_tokens"]
+    losses = _prefix_losses(all_logits, all_boxes, assignment_all, targets,
+                            num_boxes, cfg, all_proj, proj_tokens)
+    by_prefix = {name: v.unbind() for name, v in losses.items()}
     for pi, prefix in enumerate(prefixes):
-        outputs = {"pred_logits": all_logits[pi], "pred_boxes": all_boxes[pi],
-                   "assignment": assignment_all[pi]}
-        if cfg.use_contrastive_align and "proj_tokens" in end_points:
-            outputs["proj_queries"] = end_points[f"{prefix}proj_queries"]
-            outputs["proj_tokens"] = end_points["proj_tokens"]
-        losses, _ = set_criterion_losses(outputs, targets, num_boxes, cfg)
-        for name in ("loss_ce", "loss_bbox", "loss_giou"):
-            end_points[f"{prefix}_{name}"] = losses[name]
-        loss_ce = loss_ce + losses["loss_ce"]
-        loss_bbox = loss_bbox + losses["loss_bbox"]
-        loss_giou = loss_giou + losses["loss_giou"]
-        if "loss_contrastive_align" in losses:
-            end_points[f"{prefix}_loss_contrastive_align"] = losses[
-                "loss_contrastive_align"]
-            loss_contr = loss_contr + losses["loss_contrastive_align"]
+        for name, values in by_prefix.items():
+            end_points[f"{prefix}_{name}"] = values[pi]
+    loss_ce = losses["loss_ce"].sum()
+    loss_bbox = losses["loss_bbox"].sum()
+    loss_giou = losses["loss_giou"].sum()
+    loss_contr = losses["loss_contrastive_align"].sum() \
+        if "loss_contrastive_align" in losses else 0.0
 
     if "seeds_obj_cls_logits" in end_points:
         kps_loss = compute_points_obj_cls_loss_hard_topk(

@@ -106,7 +106,7 @@ the last line is printed:
    RoBERTa frozen) takes 1 warm-up and `--train-steps` timed optimizer
    steps on synthetic batches of `--train-batch` scenes: finite losses and
    gradient norm, the text tower unchanged, and per step 4 FPS, 4 ball
-   query, 51 attention, 39 attention-backward, 13 scatter-add, 15 row
+   query, 51 attention, 39 attention-backward, 7 scatter-add, 9 row
    gather, 4 grouped gather and 1 assignment launches; then one step's
    `compute_hungarian_loss` under torch.cuda.set_sync_debug_mode("error"),
    which fails on any synchronisation; then one step taken twice from
@@ -1318,16 +1318,18 @@ def training_gathers(tiers, npoints, cfg, gen):
         _, idx = three_nn(unknown, known)
         out.append((name, bf16, 1, idx.reshape(B, -1), known.shape[1], 256))
 
-    def distinct(m, n):
+    def distinct(m, n, rows=B):
         return torch.stack([torch.randperm(n, device="cuda",
                                            generator=gen)[:m]
-                            for _ in range(B)]).to(torch.int32)
+                            for _ in range(rows)]).to(torch.int32)
 
     out.append(("kps_features", f32, 1, distinct(cfg.num_target, npoints[1]),
                 npoints[1], 288))
-    out.append(("matched_boxes", f32, cfg.num_decoder_layers + 1,
-                distinct(cfg.max_num_obj, cfg.num_target), cfg.num_target,
-                6))
+    # the loss gathers every prefix's matched boxes in one call
+    prefixes = cfg.num_decoder_layers + 1
+    out.append(("matched_boxes", f32, 1,
+                distinct(cfg.max_num_obj, cfg.num_target, prefixes * B),
+                cfg.num_target, 6))
     return out
 
 
@@ -1453,18 +1455,20 @@ def forward_gathers(tiers, npoints, cfg, gen):
         rows.append((name, bf16, known.shape[1], 256, idx.reshape(B, -1),
                      1, 1))
 
-    def distinct(m, n, dtype):
+    def distinct(m, n, dtype, rows=B):
         return torch.stack([torch.randperm(n, device="cuda",
                                            generator=gen)[:m]
-                            for _ in range(B)]).to(dtype)
+                            for _ in range(rows)]).to(dtype)
 
     kps = distinct(cfg.num_target, npoints[1], torch.int32)
     rows.append(("kps_xyz", f32, npoints[1], 3, kps, 1, 1))
     rows.append(("kps_features", f32, npoints[1], 288, kps, 1, 1))
-    # the matcher's assignment arrives as int64
+    # the matcher's assignment arrives as int64; one call gathers every
+    # prefix's matched boxes
+    prefixes = cfg.num_decoder_layers + 1
     rows.append(("matched_boxes", f32, cfg.num_target, 6,
-                 distinct(cfg.max_num_obj, cfg.num_target, torch.int64),
-                 0, cfg.num_decoder_layers + 1))
+                 distinct(cfg.max_num_obj, cfg.num_target, torch.int64,
+                          prefixes * B), 0, 1))
     # f32 mode: xyz and features concatenated, one payload
     for i in (1, 2, 3):
         rows.append((f"sa{i + 1}_group_f32", f32, tiers[i][0].shape[1],
@@ -1848,7 +1852,8 @@ def check_study_shapes(gen, seed):
         for gname, dtype, n, C, idx, per_batch, per_step in rows:
             if not (per_batch or per_step):
                 continue
-            src = torch.randn(B, n, C, device="cuda", generator=gen).to(dtype)
+            src = torch.randn(idx.shape[0], n, C, device="cuda",
+                              generator=gen).to(dtype)
             check(torch.equal(_bits(gather_rows(src, idx)),
                               _bits(gather_rows_plain(src, idx))),
                   f"{name}: gather {gname} kernel != plain")
@@ -2210,8 +2215,8 @@ def compare_gradients_card_cpu(args):
           f"the small model's backward launched no kernel: {launches}")
     # f32 mode at 4096 points: 4 new_xyz, the 4 groupings (none large
     # enough for the grouped gather), 2 interpolations, 2 kps gathers and
-    # the matched boxes of each loss prefix
-    want_gather = 12 + cfg.num_decoder_layers + 1
+    # the loss's one gather of every prefix's matched boxes
+    want_gather = 12 + 1
     check(launches["gather"] == want_gather
           and launches["group_gather"] == 0,
           f"the small model launched {launches['gather']} row gathers and "
@@ -2257,22 +2262,22 @@ def attention_calls(cfg, roberta):
 def training_step_launches(cfg, roberta):
     """Launches of one training step: the forward's, the backward of every
     attention call but a frozen text tower's, a scatter-add for each of
-    the model's 6 gathers and each loss prefix's matched-box gather, and
-    the loss's one assignment (all prefixes' matrices in one call)."""
+    the model's 6 gathers and for the loss's one matched-box gather (all
+    prefixes' rows in one call), and the loss's one assignment (all
+    prefixes' matrices in one call)."""
     att = attention_calls(cfg, roberta)
     frozen = roberta.num_hidden_layers if cfg.freeze_text_encoder else 0
     return dict(TRAIN_LAUNCHES, attention=att,
                 attention_bwd=att - frozen,
-                scatter=6 + cfg.num_decoder_layers + 1,
-                gather=FORWARD_LAUNCHES["gather"]
-                + cfg.num_decoder_layers + 1, assignment=1)
+                scatter=6 + 1, gather=FORWARD_LAUNCHES["gather"] + 1,
+                assignment=1)
 
 
 def evaluation_batch_launches(cfg, roberta, with_loss=False):
     """Launches of one evaluation batch; with the loss (an evaluation
-    without butd_cls), also the loss's matched-box gathers and its
-    assignment."""
-    loss_gathers = cfg.num_decoder_layers + 1 if with_loss else 0
+    without butd_cls), also the loss's one matched-box gather and its
+    assignment, each for all prefixes."""
+    loss_gathers = int(with_loss)
     return dict(FORWARD_LAUNCHES, attention=attention_calls(cfg, roberta),
                 attention_bwd=0, scatter=0,
                 gather=FORWARD_LAUNCHES["gather"] + loss_gathers,

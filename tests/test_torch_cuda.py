@@ -999,8 +999,9 @@ def test_assignment_refuses_what_the_kernel_does_not_take(gpu):
 
 def test_hungarian_loss_never_syncs(gpu):
     """compute_hungarian_loss on the card (soft-token and label costs):
-    no operation makes the host wait, the matching included, and one
-    assignment launch for all prefixes."""
+    no operation makes the host wait, the matching included; one
+    assignment launch and one matched-box gather for all prefixes, and
+    one scatter-add in the backward."""
     from butd_detr_tpu_torch.losses import (
         CriterionConfig,
         compute_hungarian_loss,
@@ -1031,15 +1032,23 @@ def test_hungarian_loss_never_syncs(gpu):
         ep[p + "sem_cls_scores"] = torch.randn(B, Q, 256, generator=g)
         ep[p + "proj_queries"] = unit(B, Q, 64)
     ep = {k: v.to(gpu) for k, v in ep.items()}
+    for k in ep:
+        if k.endswith(("center", "pred_size", "sem_cls_scores",
+                       "proj_queries")):
+            ep[k].requires_grad_()
     for soft_token in (True, False):
         cfg = CriterionConfig(use_soft_token=soft_token)
-        compute_hungarian_loss(dict(ep), layers, cfg, 4)  # warm
+        compute_hungarian_loss(dict(ep), layers, cfg, 4)[0].backward()  # warm
         torch.cuda.synchronize()
-        before = _cuda.LAUNCHES["assignment"]
+        before = dict(_cuda.LAUNCHES)
         torch.cuda.set_sync_debug_mode("error")
         try:
             loss, _ = compute_hungarian_loss(dict(ep), layers, cfg, 4)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert _cuda.LAUNCHES["assignment"] == before + 1
+        launched = {k: _cuda.LAUNCHES[k] - before.get(k, 0)
+                    for k in ("assignment", "gather", "scatter")}
+        assert launched == {"assignment": 1, "gather": 1, "scatter": 0}
+        loss.backward()
+        assert _cuda.LAUNCHES["scatter"] - before.get("scatter", 0) == 1
         assert torch.isfinite(loss).item()
