@@ -34,6 +34,10 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _no_beat() -> None:
+    pass
+
+
 def _cpu(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu()
@@ -52,6 +56,7 @@ class Run:
         self.fault = fault
         self.spans: Dict[str, List[float]] = {"step": [], "evaluate": [],
                                               "batch": []}
+        self.chips = 1  # the devices whose work the window's scenes are
         self.window_s = 0.0
         self.setup_s = 0.0
         self.scenes = 0
@@ -71,31 +76,17 @@ def run_cell(cell: Dict, seed: int, seconds: float, traced: bool,
     """Run `cell` (`spec.load_cell`) once; returns the result line's
     fields and the Run."""
     t_start = time.perf_counter() if t_start is None else t_start
-    entry, config, mix = cell["entry"], cell["config"], cell["traffic"]
+    entry, config = cell["entry"], cell["config"]
     mode = entry["entry"]
     if mode not in ("train", "eval"):
         raise ValueError(f"unknown entry {mode!r}")
-    B = entry["batch"]
     run = Run(cell, mode, fault)
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
-    parts = run.setup_parts
-    parts["imports"] = time.perf_counter() - t_start
-    pool = make_pool(mix, config["data"], B, entry["pool_batches"], seed,
-                     device)
-    _sync(device)
-    parts["pool"] = time.perf_counter() - t_start - sum(parts.values())
-    weights = make_weights(config, seed, device)
-    _sync(device)
-    parts["weights"] = time.perf_counter() - t_start - sum(parts.values())
-    trainer_seed = seed % (2 ** 62)
-    trainer = program.build_trainer(config, weights, trainer_seed, device,
-                                    control=control)
-    del weights
-    parts["trainer"] = time.perf_counter() - t_start - sum(parts.values())
-    program.plant(trainer, fault)
-    recorder = program.Recorder(trainer)
+    run.setup_parts["imports"] = time.perf_counter() - t_start
+    trainer, recorder, pool = set_up(run, seed, seed, device, control,
+                                     t_start)
     if mode == "train":
         return _train(run, trainer, recorder, pool, seconds, traced, device,
                       t_start, config, seed)
@@ -103,12 +94,37 @@ def run_cell(cell: Dict, seed: int, seconds: float, traced: bool,
                  t_start, config, seed)
 
 
+def set_up(run: Run, seed: int, pool_seed: int, device, control: bool,
+           t_start: float, mesh=None):
+    """(trainer, recorder, pool): the pool of host batches from
+    `pool_seed`, the weights from `seed`, the trainer (this rank's, with a
+    `mesh`) with the run's fault planted; each part's seconds into
+    `run.setup_parts`."""
+    entry, config = run.cell["entry"], run.cell["config"]
+    parts = run.setup_parts
+    pool = make_pool(run.cell["traffic"], config["data"], entry["batch"],
+                     entry["pool_batches"], pool_seed, device)
+    _sync(device)
+    parts["pool"] = time.perf_counter() - t_start - sum(parts.values())
+    weights = make_weights(config, seed, device)
+    _sync(device)
+    parts["weights"] = time.perf_counter() - t_start - sum(parts.values())
+    trainer_seed = seed % (2 ** 62)
+    trainer = program.build_trainer(config, weights, trainer_seed, device,
+                                    control=control, mesh=mesh)
+    del weights
+    parts["trainer"] = time.perf_counter() - t_start - sum(parts.values())
+    program.plant(trainer, run.fault)
+    return trainer, program.Recorder(trainer), pool
+
+
 # ------------------------------------------------------------- training
 
-def _train(run, trainer, recorder, pool, seconds, traced, device, t_start,
-           config, seed):
-    entry = run.cell["entry"]
-    B = entry["batch"]
+def checked_steps(trainer, recorder, pool, config) -> Dict:
+    """The first CHECK_STEPS steps through the window's own entry, with
+    what the check compares recorded: each step's loss, the first
+    gradient as AdamW got it (from its first moment), the parameters
+    after the steps, and the program's decisions on its way."""
     losses, first_grad = [], None
     names = {p: n for n, p in trainer.model.named_parameters()
              if p.requires_grad}
@@ -130,30 +146,60 @@ def _train(run, trainer, recorder, pool, seconds, traced, device, t_start,
                             for f in recorder.forward],
                 "matches": [_cpu(m) for m in recorder.matches]}
     recorder.close()
+    return recorded
+
+
+def _train(run, trainer, recorder, pool, seconds, traced, device, t_start,
+           config, seed, world=None):
+    """The checked steps, the warm-up, the window, in a traced run the
+    segments after it, and the check. On one chip the window steps until
+    `seconds` have passed. With `world` (`ranks.World`: this rank of a
+    run on several GPUs) every rank takes the number of steps that rank 0
+    fixes from the warm-up's pace, beats the watchdog as it goes, closes
+    the window at a barrier and runs the traced segments; the window's
+    scenes are every rank's, and the check runs over the ranks, with
+    `replica_gap` besides."""
+    entry = run.cell["entry"]
+    B = entry["batch"]
+    beat = world.beat if world else _no_beat
+    recorded = checked_steps(trainer, recorder, pool, config)
+    gap = world.replica_gap(trainer.model) if world else None
     parts = run.setup_parts
     parts["checked_steps"] = time.perf_counter() - t_start \
         - sum(parts.values())
+    beat()
     # warm-up beyond the checked steps: the window's shapes are all built
+    t = time.perf_counter()
     for i in range(entry["warmup"]):
         trainer.train_step_on_device(
             program.train_feed(pool[(CHECK_STEPS + i) % len(pool)]))
+        beat()
     _sync(device)
+    if world:
+        done = world.window_done(
+            seconds, (time.perf_counter() - t) / max(1, entry["warmup"]))
+    else:
+        def done(steps, elapsed):
+            return elapsed >= seconds
     parts["warmup"] = time.perf_counter() - t_start - sum(parts.values())
     steps, at = 0, CHECK_STEPS + entry["warmup"]
     step_spans = run.spans["step"]
     before = program.launches()
     t0 = time.perf_counter()
     setup_s = t0 - t_start
-    while time.perf_counter() - t0 < seconds:
+    while not done(steps, time.perf_counter() - t0):
         batch = program.train_feed(pool[at % len(pool)])
         at += 1
         s = time.perf_counter()
         trainer.train_step_on_device(batch)
         step_spans.append(time.perf_counter() - s)
         steps += 1
+        beat()
     _sync(device)
+    if world:
+        world.barrier()
     run.window_s = time.perf_counter() - t0
-    run.steps, run.scenes = steps, steps * B
+    run.steps, run.scenes = steps, steps * B * run.chips
     per_step = {k: v / steps for k, v in
                 program.launches_since(before).items() if v}
     if traced:
@@ -163,16 +209,23 @@ def _train(run, trainer, recorder, pool, seconds, traced, device, t_start,
                     with torch.profiler.record_function("bench.train_step"):
                         trainer.train_step_on_device(
                             program.train_feed(pool[(at + j) % len(pool)]))
+                    beat()
             return go
 
         _traced(run, segment)
     peak = _peak(device)
-    # the program's state goes before the reference runs
+    # the program's state goes before the reference runs (the closure
+    # above holds the name's cell, which `del` empties)
     del trainer
     _free(device)
     numbers = check.train_numbers(
         config, make_weights(config, seed, device), pool[:CHECK_STEPS],
-        check.seeds_of(seed % (2 ** 62), CHECK_STEPS), recorded, device)
+        check.seeds_of(seed % (2 ** 62), CHECK_STEPS,
+                       world.rank if world else 0),
+        recorded, device, group=world.group if world else None)
+    if world:
+        numbers["replica_gap"] = gap
+        beat()
     return _finish(run, numbers, steps, setup_s, peak, per_step, config,
                    pool)
 
@@ -296,6 +349,16 @@ def _free(device) -> None:
         torch.cuda.empty_cache()
 
 
+def step_bounds(config: Dict, batch: int, valid: float, training: bool
+                ) -> Dict[str, float]:
+    """{kernel function: least seconds of one step's or batch's calls} at
+    the cell's widths, batch and mean valid targets a row."""
+    names = spec.shape_names(config, batch, valid)
+    modes = ["train"] if training else (
+        ["eval", "eval_loss"] if program.with_loss(config) else ["eval"])
+    return rl.cell_bounds(spec.rooflines(), modes, names)
+
+
 def _finish(run, numbers, attempted, setup_s, peak, per_step, config,
             pool):
     entry = run.cell["entry"]
@@ -304,16 +367,9 @@ def _finish(run, numbers, attempted, setup_s, peak, per_step, config,
     # the matcher's valid rows: the pool's mean targets a row
     valid = float(sum(float(b["box_label_mask"].sum()) for b in pool)) / (
         len(pool) * entry["batch"])
-    names = spec.shape_names(config, entry["batch"], valid)
-    modes = ["train"] if training else (
-        ["eval", "eval_loss"] if program.with_loss(config) else ["eval"])
-    for fn_name, fn in spec.rooflines().items():
-        total = 0.0
-        for mode in modes:
-            total += rl.function_bound(fn, mode, names)[0]
-        if total > 0:
-            run.bounds[fn_name] = total
-            run.patterns[fn_name] = fn["patterns"]
+    run.bounds = step_bounds(config, entry["batch"], valid, training)
+    fns = spec.rooflines()
+    run.patterns = {fn: fns[fn]["patterns"] for fn in run.bounds}
     run.setup_s = setup_s
     checks = check.judge(numbers, entry["checks"])
     return {"run": run, "attempted": attempted, "peak": peak,

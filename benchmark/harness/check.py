@@ -33,6 +33,12 @@ On that footing it compares
     `loss_gap`; and `hits_diff`,
     how far the counts the program's evaluator added for the batch lie
     from the reference evaluator's counts on the same end points (exact).
+A cell on several GPUs runs the training comparison on every rank, each
+over its own rows with BatchNorm statistics, the box count and the
+gradients the ranks' (`train_numbers(..., group=)`), and judges the widest
+reading over the ranks; besides, `replica_gap`: the widest difference
+between rank 0's parameters and BatchNorm buffers after the three steps
+and another rank's (exact: an all-reduce hands every rank the same sum).
 """
 
 import math
@@ -40,6 +46,7 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from benchmark.harness.weights import reference_model
 from benchmark.reference.evaluate import gt_counts, topk_counts
@@ -48,7 +55,7 @@ from benchmark.reference.loss import (
     costs_by_prefix,
     hungarian_loss,
 )
-from benchmark.reference.model import prediction_prefixes
+from benchmark.reference.model import BatchNorm, prediction_prefixes
 
 TARGETS = ("center_label", "size_gts", "positive_map", "box_label_mask",
            "point_instance_label", "text_mask")
@@ -116,6 +123,16 @@ def _batch_on(batch: Dict, keys, device) -> Dict[str, torch.Tensor]:
     return {k: batch[k].to(device) for k in keys if k in batch}
 
 
+def _mean_over_ranks(tensors: List[torch.Tensor], group
+                     ) -> List[torch.Tensor]:
+    """Each tensor's mean over the ranks of `group`, in one all-reduce."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    return [v.view_as(t) for t, v in zip(
+        tensors, flat.split([t.numel() for t in tensors]))]
+
+
 # ------------------------------------------------------------- training
 
 @torch.no_grad()
@@ -139,13 +156,21 @@ def after_backbone_gap(model, rec: Dict, x: Dict, seed: int, P: int,
 
 
 def train_numbers(config: Dict, weights: Dict, batches: List[Dict],
-                  seeds: List[int], program: Dict, device) -> Dict[str, float]:
+                  seeds: List[int], program: Dict, device,
+                  group=None) -> Dict[str, float]:
     """Three reference training steps from `weights` on `batches`,
     dropout seeded with `seeds`, against `program`: {"losses": [3],
     "first_grad": {name:}, "after": {name: the parameters after the three
-    steps}, "forward": [recorded], "matches": [recorded]}."""
+    steps}, "forward": [recorded], "matches": [recorded]}.
+
+    With a process `group` every rank of it calls this on its own rows:
+    BatchNorm statistics and the box count are the group's, the gradients
+    its mean, and the loss compared the mean of the ranks' losses."""
     model = _build(config, weights, device)
     model.train()
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
     params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     opt = config["optimizer"]
     lr = {n: opt["lr_backbone"] if "backbone_net" in n else opt["lr"]
@@ -189,14 +214,18 @@ def train_numbers(config: Dict, weights: Dict, batches: List[Dict],
             steps["match"].append(max(
                 assignment_excess(costs[j], match[j], ep["box_label_mask"])
                 for j in range(P)))
-        loss, _ = hungarian_loss(ep, match, P - 1)
+        loss, _ = hungarian_loss(ep, match, P - 1, group=group)
         loss.backward()
-        value = loss.item()
+        value = loss.item() if group is None else \
+            _mean_over_ranks([loss.detach()], group)[0].item()
         steps["loss"].append(abs(program["losses"][i] - value)
                              / max(abs(value), 1e-30))
         with torch.no_grad():
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                      for n, p in params}
+            if group is not None:
+                grads = dict(zip(grads, _mean_over_ranks(
+                    list(grads.values()), group)))
             norm = torch.linalg.vector_norm(torch.stack(
                 [g.norm() for g in grads.values()]))
             scale = 1.0 if norm < opt["clip_norm"] else \
@@ -346,11 +375,13 @@ def passed(checks: Dict[str, Dict[str, float]]) -> bool:
                for c in checks.values())
 
 
-def seeds_of(trainer_seed: int, steps: int) -> List[int]:
-    """The dropout seeds `Trainer.begin_step` draws for its first steps."""
+def seeds_of(trainer_seed: int, steps: int, dp_index: int = 0
+             ) -> List[int]:
+    """The dropout seeds `Trainer.begin_step` draws for its first steps
+    (on a rank of dp index `dp_index`, which it mixes into each draw)."""
     g = torch.Generator().manual_seed(trainer_seed)
-    return [int(torch.randint(0, 2 ** 62, (1,), generator=g)) % 2 ** 62
-            for _ in range(steps)]
+    return [(int(torch.randint(0, 2 ** 62, (1,), generator=g))
+             + dp_index * 1_000_003) % 2 ** 62 for _ in range(steps)]
 
 
 __all__ = ["eval_numbers", "judge", "passed", "seeds_of", "train_numbers"]

@@ -15,6 +15,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from butd_detr_tpu_torch import native
 from butd_detr_tpu_torch.config import Config
 from butd_detr_tpu_torch.eval.grounding import (
     GroundingEvaluator,
@@ -24,38 +25,66 @@ from butd_detr_tpu_torch.lang.roberta import RobertaConfig
 from butd_detr_tpu_torch.losses import criterion as _criterion
 from butd_detr_tpu_torch.models.bdetr import prediction_prefixes
 from butd_detr_tpu_torch.ops import _cuda
+from butd_detr_tpu_torch.parallel.mesh import Mesh, bind_batchnorm, make_mesh
 from butd_detr_tpu_torch.train.step import (
     INPUT_KEYS,
     TARGET_KEYS,
     Trainer,
     metrics_to_host,
 )
+from butd_detr_tpu_torch.utils.dist import init_distributed
 
-FAULTS = ("unchanged", "half_batch", "altered", "head")
+FAULTS = ("unchanged", "half_batch", "altered", "head", "local_bn",
+          "unsynced")
 # what the grounding evaluators read of a batch besides the end points
 EVALUATOR_KEYS = ("all_bboxes", "all_bbox_label_mask", "is_view_dep",
                   "is_hard", "is_unique")
 
 
-def port_config(config: Dict, control: bool = False) -> Config:
+def port_config(config: Dict, control: bool = False, dp: int = 1
+                ) -> Config:
     """The port's `Config` of a configuration file's flags; `control`
-    switches on the program's lower-precision path (`--use_bf16`)."""
+    switches on the program's lower-precision path (`--use_bf16`). Over
+    `dp` processes the port's `--batch_size` is the global batch, the
+    file's batch a process times `dp`."""
     flags = dict(config["flags"])
     if control:
         flags["use_bf16"] = True
+    if dp > 1:
+        flags.update(dp=dp, batch_size=flags["batch_size"] * dp)
     return Config(**flags)
 
 
 def build_trainer(config: Dict, weights: Dict, seed: int, device,
-                  control: bool = False) -> Trainer:
-    cfg = port_config(config, control)
+                  control: bool = False, mesh: Optional[Mesh] = None
+                  ) -> Trainer:
+    """The port's `Trainer` on `device`; with a `mesh`, this rank's."""
+    cfg = port_config(config, control, mesh.dp if mesh else 1)
     t = config["text_encoder"]
     roberta = RobertaConfig(**{f.name: t[f.name]
                                for f in dataclasses.fields(RobertaConfig)
                                if f.name in t})
     return Trainer(cfg, config["steps_per_epoch"], roberta_config=roberta,
                    backbone_npoints=tuple(config["model"]["backbone_npoints"]),
-                   state_dict=weights, device=device, seed=seed)
+                   state_dict=weights, device=device, seed=seed,
+                   mesh=mesh)
+
+
+def join_ranks(backend: str, rank: int, world: int, init_method: str
+               ) -> Mesh:
+    """This process into the world's default process group, through the
+    port's own set-up (`utils/dist.py:init_distributed`); the mesh of every
+    rank of the world on one dp axis (`parallel.make_mesh`)."""
+    init_distributed(backend, rank=rank, world_size=world,
+                     init_method=init_method)
+    return make_mesh(dp=world)
+
+
+def load_kernels() -> None:
+    """Build, where the checkout has no build of them yet, and load the
+    port's CUDA kernels and its host runtime."""
+    _cuda.build_all()
+    native.library()
 
 
 def build_evaluator(config: Dict):
@@ -140,7 +169,12 @@ def plant(trainer: Trainer, fault: Optional[str]) -> None:
     second half of every batch (its rows replaced by the first half's, so
     that the losses are the mean over the first half), `head` shifts the
     last decoder layer's box centres by one query where its head produces
-    them; `altered` is the evaluator's (`plant_evaluator`)."""
+    them; `altered` is the evaluator's (`plant_evaluator`). Across
+    processes: `local_bn` makes every BatchNorm normalise with its own
+    rank's statistics (the all-reduces bypassed), and `unsynced` makes the
+    last rank step on its own gradient (it still joins the gradients'
+    all-reduce, so that the other ranks do not wait for it, and leaves its
+    result unused)."""
     if fault is not None and fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}")
     if fault == "unchanged":
@@ -159,6 +193,24 @@ def plant(trainer: Trainer, fault: Optional[str]) -> None:
             return dict(out, center=out["center"].roll(1, dims=1))
 
         trainer.model.prediction_heads[-1].register_forward_hook(shifted)
+    elif fault == "local_bn":
+        bind_batchnorm(trainer.model, None)
+    elif fault == "unsynced" and \
+            trainer.mesh.dp_index == trainer.mesh.dp - 1:
+        sync = trainer.sync_gradients
+
+        def unsynced():
+            params = trainer._params()
+            own = [None if p.grad is None else p.grad.clone()
+                   for p in params]
+            sync()
+            for p, g in zip(params, own):
+                if g is None:
+                    p.grad.zero_()
+                else:
+                    p.grad.copy_(g)
+
+        trainer.sync_gradients = unsynced
 
 
 def plant_evaluator(evaluator, fault: Optional[str]) -> None:
@@ -180,6 +232,7 @@ def plant_evaluator(evaluator, fault: Optional[str]) -> None:
 
 
 __all__ = ["EVALUATOR_KEYS", "FAULTS", "Recorder", "build_evaluator",
-           "build_trainer", "eval_feed", "launches", "launches_since",
-           "metrics_to_host", "plant", "plant_evaluator", "port_config",
-           "train_feed", "with_loss"]
+           "build_trainer", "eval_feed", "join_ranks",
+           "launches", "launches_since", "load_kernels", "metrics_to_host",
+           "plant", "plant_evaluator", "port_config", "train_feed",
+           "with_loss"]

@@ -18,11 +18,12 @@ def host_ms(run, span: str, mode: str) -> Optional[float]:
 
 def step_mfu(run, mode: str) -> Optional[float]:
     """The operations the window's scenes need (`flops.scene_flops`) over
-    the window's seconds, as a share of the chip's bf16 peak, in %."""
+    the window's seconds, as a share of the bf16 peak of the run's chips,
+    in %."""
     if run.mode != mode or run.window_s <= 0 or run.scenes == 0:
         return None
     return 100.0 * run.scenes * run.flops_per_scene / run.window_s \
-        / roofline.PEAK_FLOPS
+        / (roofline.PEAK_FLOPS * run.chips)
 
 
 def kernels_roofline(run, mode: str) -> Optional[float]:
@@ -60,3 +61,14 @@ def idle_share(run, mode: str) -> Optional[float]:
     if run.mode != mode or run.trace is None:
         return None
     return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])
+
+
+def collective_ms(run, mode: str) -> Optional[float]:
+    """The device-ms a traced step spends in NCCL's kernels (a kernel that
+    waits for a slower rank counts while it waits). On several GPUs the
+    run's trace is rank 0's, every rank traced alike."""
+    if run.mode != mode or run.trace is None:
+        return None
+    t = sum(d for name, _, d in run.trace["kernels"]
+            if "nccl" in name.lower())
+    return 1e3 * t / run.trace_steps if t > 0 else None

@@ -55,7 +55,8 @@ def result(cell: Dict, res: Dict, traced: bool, device) -> Dict:
         value = spec.metric_reader(m["name"])(run)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
-    dev = dict(card(device), memory_peak_bytes=res["peak"])
+    dev = dict(res["device"] if "device" in res else card(device),
+               memory_peak_bytes=res["peak"])
     line = {"correct": bool(res["correct"]), "attempted": res["attempted"],
             "failed": 0, "metrics": metrics, "device": dev}
     if traced and run.trace is not None:
@@ -81,6 +82,10 @@ def earlier_lines(res: Dict, device) -> None:
         log(f"trace: {run.trace_steps} traced steps, "
             f"{run.trace['device_events']} device operations, busy "
             f"{run.trace['busy_s']:.6f} s of {run.trace['window_s']:.6f} s")
+        nccl = readers.collective_ms(run, run.mode)
+        if nccl is not None:
+            log(f"collectives: {nccl:.4f} device-ms a step in NCCL kernels "
+                f"(rank 0), idle {readers.idle_share(run, run.mode):.4f} %")
     for fn, (share, t) in readers.function_shares(run).items():
         log(f"roofline {fn}: {share:.4f} % ({t * 1e3:.4f} device-ms in "
             f"{run.trace_steps} traced steps)")

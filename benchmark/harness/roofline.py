@@ -95,5 +95,19 @@ def function_bound(fn: Dict, mode: str, names: Dict) -> Tuple[float, int]:
     return total, count
 
 
+def cell_bounds(fns: Dict[str, Dict], modes: List[str], names: Dict
+                ) -> Dict[str, float]:
+    """{function: least seconds of one step's calls over `modes`} for the
+    functions that the step calls."""
+    out = {}
+    for fn_name, fn in fns.items():
+        total = 0.0
+        for mode in modes:
+            total += function_bound(fn, mode, names)[0]
+        if total > 0:
+            out[fn_name] = total
+    return out
+
+
 def matches(kernel_name: str, patterns: List[str]) -> bool:
     return any(p in kernel_name for p in patterns)

@@ -13,6 +13,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from benchmark.reference.model import prediction_prefixes
 
@@ -217,13 +218,20 @@ def points_obj_cls_loss(ep, topk: int):
 
 def hungarian_loss(ep: Dict, assignment_all: torch.Tensor,
                    num_decoder_layers: int, eos_coef=0.1, temperature=0.07,
-                   topk=4):
+                   topk=4, group=None):
     """(loss, {name: value}) on the program's assignment (P, B, G) over the
-    prefixes proposal_, 0head_ .. last_."""
+    prefixes proposal_, 0head_ .. last_. With a process `group` the box
+    count is the group's total over its number of ranks, so that the mean
+    of the ranks' losses is the loss of all their rows together."""
     prefixes = prediction_prefixes(num_decoder_layers)
     gt = torch.cat([ep["center_label"][:, :, :3], ep["size_gts"]], dim=-1)
     mask = ep["box_label_mask"]
-    num_boxes = mask.float().sum().clamp_min(1.0)
+    if group is None:
+        num_boxes = mask.float().sum().clamp_min(1.0)
+    else:
+        num_boxes = mask.float().sum()
+        dist.all_reduce(num_boxes, group=group)
+        num_boxes = num_boxes.clamp_min(1.0) / dist.get_world_size(group)
     ce = bbox = giou = contr = 0.0
     for pi, p in enumerate(prefixes):
         a = assignment_all[pi]

@@ -104,14 +104,29 @@ class PointwiseConv(nn.Module):
 
 class BatchNorm(nn.BatchNorm1d):
     """Over the last axis: batch statistics (biased variance) in train
-    mode, the running ones in eval."""
+    mode, the running ones in eval. With a process `group` the train-mode
+    statistics are the group's: the mean, then the mean squared deviation
+    from it, each from sums over every rank's rows."""
 
     def __init__(self, num_features):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.group = None
+
+    def _over_ranks(self, xf):
+        C = xf.shape[-1]
+        sums = ops.sum_over_ranks(
+            torch.cat([xf.sum(dim=0), xf.new_full((1,), xf.shape[0])]),
+            self.group)
+        mean = sums[:C] / sums[C]
+        d = xf - mean
+        var = ops.sum_over_ranks((d * d).sum(dim=0), self.group) / sums[C]
+        return d * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
     def forward(self, x):
         xf = x.reshape(-1, x.shape[-1]).float()
-        if self.training:
+        if self.training and self.group is not None:
+            y = self._over_ranks(xf)
+        elif self.training:
             y = F.batch_norm(xf, None, None, self.weight, self.bias, True,
                              0.0, self.eps)
         else:

@@ -13,8 +13,32 @@ head, query row, key // 4), the program's mask bit for bit.
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 FINFO_MIN = torch.finfo(torch.float32).min
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum over a process group; every rank's result feeds every
+    rank's loss, so the backward sums the gradients over the group too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def sum_over_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """`torch.distributed.all_reduce` of `x` over `group`, differentiable."""
+    return _SumOverRanks.apply(x, group)
 
 
 def _sqnorm3(dx, dy, dz):

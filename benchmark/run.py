@@ -11,6 +11,8 @@ error). `--trace 0` reports the cell's end-to-end metrics, `--trace 1` its
 per-layer metrics. `--control 1` runs the program's lower-precision path
 (`--use_bf16`) and `--fault <name>` plants a fault (see
 `harness/program.py`): both exist to show that the check fails them.
+A cell on several GPUs runs one process a GPU (`harness/ranks.py`), which
+this process starts, watches and ends; it prints the result.
 
 Build and compile caches stay inside the checkout: the port builds its
 kernels into `butd_detr_tpu_torch/_build/`, and Triton and PyTorch's
@@ -60,12 +62,25 @@ def main(argv=None) -> int:
                    f"{torch.cuda.device_count()} available")
         return 2
     torch.set_num_threads(4)
-    res = cells.run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                         device="cuda", control=bool(args.control),
-                         fault=args.fault, t_start=T_START)
+    if chips > 1:
+        from benchmark.harness import ranks
+
+        try:
+            res = ranks.run_cell_ranks(
+                cell, args.seed, args.seconds, bool(args.trace),
+                device="cuda", control=bool(args.control), fault=args.fault,
+                t_start=T_START)
+        except ranks.RanksFailed as e:
+            report.log(f"{args.workload}: {e}; no result")
+            return 1
+    else:
+        res = cells.run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                             device="cuda", control=bool(args.control),
+                             fault=args.fault, t_start=T_START)
     line = report.result(cell, res, bool(args.trace), "cuda")
     report.earlier_lines(res, "cuda")
-    found = report.forbidden_modules()
+    found = sorted(set(report.forbidden_modules())
+                   | set(res.get("forbidden", [])))
     if found:
         report.log(f"the run loaded {found}; no result")
         return 3

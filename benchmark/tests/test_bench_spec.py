@@ -130,6 +130,13 @@ def test_moves_points_to_an_end_to_end_metric_its_cells_report(bench):
         "device"}
 
 
+def test_each_pair_of_config_and_traffic_once(bench):
+    """The benchmark's contract lists a pair of configuration and traffic
+    once: a cell is known by what it runs, not only by its name."""
+    pairs = [(w["config"], w["traffic"]) for w in bench["workloads"]]
+    assert len(pairs) == len(set(pairs))
+
+
 def test_four_chip_cells_within_the_quarter(bench):
     four = sum(w["chips"] == 4 for w in bench["workloads"])
     assert four <= max(1, len(bench["workloads"]) // 4)

@@ -3,12 +3,29 @@ widths cut (PointNet++ tiers, a 2-layer RoBERTa, 32 queries, batch 2), for
 the CPU tests of the harness. The program runs its plain PyTorch paths."""
 
 import copy
+import json
+import os
 
 from benchmark.harness import spec
 
 
-def tiny_cell(name: str, batch: int = 2) -> dict:
-    cell = copy.deepcopy(spec.load_cell(name))
+def held_back_cell(name: str, chips: int) -> dict:
+    """The workload file `name`, which BENCHMARK.json does not list yet,
+    as the cell it would be there on `chips` GPUs: the listed cell of the
+    same configuration and mix, with this file's entry, name and why."""
+    with open(os.path.join(spec.BENCH_DIR, "workloads", name + ".json")) as f:
+        entry = json.load(f)
+    twin = next(w["name"] for w in spec.benchmark()["workloads"]
+                if (w["config"], w["traffic"]) == (entry["config"],
+                                                   entry["traffic"]))
+    cell = spec.load_cell(twin)
+    bench = dict(cell["bench"], name=name, chips=chips, why=entry["why"])
+    return dict(cell, name=name, entry=entry, bench=bench)
+
+
+def tiny_cell(name: str, batch: int = 2, cell: dict = None) -> dict:
+    """The cell `name` (or `cell`, loaded) at the tiny widths."""
+    cell = copy.deepcopy(cell or spec.load_cell(name))
     cfg = cell["config"]
     cfg["flags"].update(num_points=2048, num_target=32, max_num_obj=16,
                         max_det_boxes=16, batch_size=batch)
